@@ -12,30 +12,51 @@ non-zero:
 
 1. ``device``  — ``torch.cuda`` must be available; the card's name and
    power limit as ``nvidia-smi`` gives them.
-2. ``build``   — both CUDA kernels (``mdgather``, ``mdscatter``) are built
-   from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
+2. ``build``   — every CUDA kernel (``mdgather``, ``mdscatter``,
+   ``flash_attention``, ``bitplane_gemm``) is built from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
    compiler process per source, started together.
 3. ``kernels`` — each kernel's wrapper against its plain PyTorch version on
-   the card, bit for bit, at the shapes the main path gives it (8192 lanes;
-   1-4 dims with a stride-0 dim; colliding stores; a dimension mask;
-   fp32/int32/bf16/uint8; one image and a batch of 1024), timed with CUDA
-   events beside the plain version and one PyTorch library call
-   (``index_select`` / ``index_copy_`` on a precomputed address tensor —
-   timed only, the port never calls them) and the card's memory bound.
-4. ``path``    — the main path at the Table IV geometry (``MVEConfig()``,
-   8192 lanes): every one of the 14 Section-IV patterns at its default size
-   through ``compile_program(...).run`` on ``cuda``, checked against the
-   pattern's NumPy reference, fused == stepwise bit for bit (both on the
-   card), trace priced by the cost model; then ``run_pattern_batch`` over
-   1024 seeds for every pattern whose program does not depend on the seed,
-   equal to per-image runs on a sample.  The kernels' launch counters are
-   set to 0 just before and read just after: a kernel never launched fails
-   the run.
-5. the card line, the ``{"kernels": [...]}`` line, and the final
+   the card, at the shapes the main paths give it: the MVE gather/scatter
+   bit for bit (8192 lanes; 1-4 dims with a stride-0 dim; colliding stores;
+   a dimension mask; negative addresses; fp32/int32/bf16/uint8; one image
+   and a batch of 1024); flash attention on the reference's test shapes
+   and at qwen2-0.5b's prefill shapes (4 x 14 q heads over 2 kv heads,
+   S = 1024 and 1025), fp32 within 3e-5 on the test shapes and 1e-4 on the
+   prefill shapes, bf16 within one bf16 rounding step of the output
+   (rtol 1e-2, atol 8e-3);
+   the int8 and bit-plane products bit for bit on the reference's test
+   shapes and qwen2-0.5b's MLP shape (x 4096x896 @ w 896x4864), 4 and 8
+   planes.  Each is timed with CUDA events at its main-path shape beside
+   its plain version, one PyTorch library call (timed only, the port never
+   calls it) and the card's bound for the same work.
+4. ``path``    — the MVE main path at the Table IV geometry
+   (``MVEConfig()``, 8192 lanes): every one of the 14 Section-IV patterns
+   at its default size through ``compile_program(...).run`` on ``cuda``,
+   checked against the pattern's NumPy reference, fused == stepwise bit for
+   bit (both on the card), trace priced by the cost model; then
+   ``run_pattern_batch`` over 1024 seeds for every pattern whose program
+   does not depend on the seed, equal to per-image runs on a sample.
+5. ``lm``      — the LM serving path at qwen2-0.5b's full published width
+   (24 layers, d_model 896, 14/2 heads, head_dim 64, d_ff 4864, vocab
+   151936), random bf16 weights from a seeded ``torch.Generator`` on the
+   card: ``make_prefill_step`` on 4 x 1024 tokens (24 flash launches),
+   2 ``decode_step``s held against prefill one token longer (1e-3, on
+   float32 copies of the weights; the bf16 difference is recorded), 16
+   greedy decode steps, and a
+   ``ContinuousBatchingEngine`` of 4 slots answering 8 requests, two of
+   them checked against a one-slot engine.
+6. ``quantized`` — ``quantized_matmul`` at the MLP shape, both
+   ``bitserial`` values, equal to the plain product and close to the float
+   one.
+7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
-Without a CUDA device, or without the rest of the checkout beside it, the
-script exits non-zero and prints no result line.
+Phases 4-6 are the main paths: the launch counters of the kernels each
+runs are set to 0 just before it and read just after; a kernel never
+launched there fails the run.  Without a CUDA device, or without the rest
+of the checkout beside it, the script exits non-zero and prints no result
+line.
 """
 from __future__ import annotations
 
@@ -52,6 +73,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device-memory rate (data sheet)
+BF16_FLOPS = 989e12            # dense tensor-core peaks (data sheet)
+INT8_OPS = 1979e12
+KERNELS = {                    # name: (CUDA source, the TPU kernel replaced)
+    "mdgather": ("mdgather", "src/repro/kernels/mdgather.py:33"),
+    "mdscatter": ("mdscatter", "src/repro/kernels/mdscatter.py:24"),
+    "flash_attention": ("flash_attention",
+                        "src/repro/kernels/flash_attention.py:25"),
+    "int8_matmul": ("bitplane_gemm", "src/repro/kernels/bitplane_gemm.py:35"),
+    "bitplane_matmul": ("bitplane_gemm",
+                        "src/repro/kernels/bitplane_gemm.py:43"),
+}
 LANES = 8192
 BATCH = 1024
 SAMPLE = (0, BATCH // 2, BATCH - 1)
@@ -225,6 +257,159 @@ def time_kernels(ref, mdgather, mdscatter_):
     return out, shape_note
 
 
+# the LM slice's kernels: the reference's test shapes, then the main path's
+FLASH_SWEEP = [(128, 128, True, 64), (1, 128, True, 64), (77, 200, True, 64),
+               (64, 64, False, 128), (128, 128, True, 128),
+               (33, 95, False, 64)]
+# Both sides accumulate in fp32 and differ only in the order of their sums
+# (and, in bf16, in which way the output rounds), so the limits sit a few
+# times over that, far under a typical output value.
+FLASH_FP32_TOL = dict(rtol=3e-5, atol=3e-5)     # tests/test_kernels.py, fp32
+FLASH_FP32_PATH_TOL = dict(rtol=1e-4, atol=1e-4)  # 1024-long fp32 sums
+# one bf16 step of the output is at most 2**-7 of it: rtol covers a step the
+# other way, atol the same near 0
+FLASH_BF16_TOL = dict(rtol=1e-2, atol=8e-3)
+# qwen2-0.5b prefill: 4 requests x 1024 tokens, 14 q heads over 2 kv heads
+LM_BATCH, LM_SEQ, Q_HEADS, KV_HEADS, HEAD_DIM = 4, 1024, 14, 2, 64
+GEMM_SHAPES = [(8, 16, 8), (128, 128, 128), (100, 60, 200), (130, 96, 257)]
+MLP_SHAPE = (LM_BATCH * LM_SEQ, 896, 4864)       # x (M, K) @ w (K, N)
+
+
+def flash_bound(b, h, hk, sq, sk, d, elem, causal=True):
+    """Least time for one attention call: the larger of its operations (two
+    products over the visible (q, k) pairs, at the bf16 tensor-core peak)
+    and its bytes (q, k, v read once, o written once; k/v have ``hk``
+    heads) over the memory rate."""
+    rows = np.arange(sq) + (sk - sq)
+    pairs = int(np.clip(rows + 1, 0, sk).sum()) if causal else sq * sk
+    flops = 4.0 * d * b * h * pairs
+    nbytes = elem * d * (2 * b * h * sq + 2 * b * hk * sk)
+    by_ops, by_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"
+
+
+def gemm_bound(m, k, n):
+    """Least time for an int8 product (the bit-plane kernel's function
+    too: its planes sum to one such product): 2*M*N*K operations at the
+    int8 peak, or M*K + K*N bytes read and 4*M*N written at the memory
+    rate."""
+    by_ops = 2.0 * m * n * k / INT8_OPS * 1e3
+    by_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"
+
+
+def randint8(shape, gen, lo=-128, hi=128) -> torch.Tensor:
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                         dtype=torch.int16).to(torch.int8)
+
+
+def check_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
+    """Flash attention within the reference's tolerances and the integer
+    products bit for bit, each against its plain version on the card.  Rows
+    that see no key (causal, Sq > Sk) are left out: there the plain version
+    is NaN and the kernel 0, as the reference's two versions are."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"flash_attention": 0.0, "int8_matmul": 0.0,
+             "bitplane_matmul": 0.0}
+    cases = 0
+
+    def flash_case(q, k, v, causal, tol, what):
+        nonlocal cases
+        got = flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        err = max_abs_err(got, want)
+        ok = torch.allclose(got.float(), want.float(), **tol)
+        if not ok or got.dtype != q.dtype or got.shape != q.shape:
+            raise AssertionError(f"flash_attention != plain: {what} "
+                                 f"max_abs_err {err}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        cases += 1
+
+    for sq, sk, causal, d in FLASH_SWEEP:
+        q, k, v = (torch.randn(2, 3, n, d, generator=gen, device="cuda")
+                   for n in (sq, sk, sk))
+        flash_case(q, k, v, causal, FLASH_FP32_TOL, (sq, sk, causal, d))
+    q, k, v = (torch.randn(1, 2, 96, 64, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    flash_case(q, k, v, True, FLASH_BF16_TOL, "bf16 (1, 2, 96, 64)")
+    for s in (LM_SEQ, LM_SEQ + 1):
+        q = torch.randn(LM_BATCH, Q_HEADS, s, HEAD_DIM, generator=gen,
+                        device="cuda")
+        k, v = (torch.randn(LM_BATCH, KV_HEADS, s, HEAD_DIM, generator=gen,
+                            device="cuda") for _ in range(2))
+        flash_case(q, k, v, True, FLASH_FP32_PATH_TOL,
+                   f"qwen2-0.5b fp32 S={s}")
+        flash_case(*(x.to(torch.bfloat16) for x in (q, k, v)), True,
+                   FLASH_BF16_TOL, f"qwen2-0.5b bf16 S={s}")
+
+    def gemm_case(name, got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(f"{name} != plain: {what}")
+        worst[name] = max(worst[name], max_abs_err(got, want))
+        cases += 1
+
+    for m, k, n in GEMM_SHAPES + [MLP_SHAPE]:
+        x, w = randint8((m, k), gen), randint8((k, n), gen)
+        w4 = randint8((k, n), gen, -8, 8)
+        want = ref.int8_matmul_ref(x, w)
+        gemm_case("int8_matmul", int8_matmul(x, w), want, (m, k, n))
+        gemm_case("bitplane_matmul", bitplane_matmul(x, w), want,
+                  (m, k, n, 8))
+        gemm_case("bitplane_matmul", bitplane_matmul(x, w4, 4),
+                  ref.int8_matmul_ref(x, w4), (m, k, n, "4-bit weights"))
+        gemm_case("bitplane_matmul", bitplane_matmul(x, w, 4),
+                  ref.bitplane_matmul_ref(x, w, 4), (m, k, n, "4 planes"))
+    return cases, worst
+
+
+def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
+    """Each LM kernel at its main-path shape: the kernel, its plain
+    version, one PyTorch library call for the same function (timed only;
+    the port never calls it) and the card's bound."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, h, hk, s, d = LM_BATCH, Q_HEADS, KV_HEADS, LM_SEQ, HEAD_DIM
+    q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound, by = flash_bound(b, h, hk, s, s, d, 2)
+    rows = {"flash_attention": dict(
+        ms=time_ms(lambda: flash_attention(q, k, v), 20),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), 5),
+        library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True), 50),
+        library="torch.nn.functional.scaled_dot_product_attention "
+                "(is_causal, enable_gqa)",
+        bound_ms=bound, bound_by=by,
+        timed_at=f"bf16 q ({b}, {h}, {s}, {d}), k/v ({b}, {hk}, {s}, {d}), "
+                 "causal")}
+    m, kk, n = MLP_SHAPE
+    x, w = randint8((m, kk), gen), randint8((kk, n), gen)
+    try:                      # the library call only where it takes the shape
+        torch._int_mm(x, w)
+        int_mm_ms = time_ms(lambda: torch._int_mm(x, w), 50)
+    except RuntimeError:
+        int_mm_ms = None
+    shape = f"int8 x ({m}, {kk}) @ w ({kk}, {n}) -> int32"
+    bound, by = gemm_bound(m, kk, n)
+    rows["int8_matmul"] = dict(
+        ms=time_ms(lambda: int8_matmul(x, w), 20),
+        plain_ms=time_ms(lambda: ref.int8_matmul_ref(x, w), 5),
+        library_ms=int_mm_ms, library="torch._int_mm", bound_ms=bound,
+        bound_by=by, timed_at=shape)
+    rows["bitplane_matmul"] = dict(
+        ms=time_ms(lambda: bitplane_matmul(x, w), 10),
+        plain_ms=time_ms(lambda: ref.bitplane_matmul_ref(x, w), 3),
+        library_ms=int_mm_ms, library="torch._int_mm (the 8-plane product)",
+        bound_ms=bound, bound_by=by,
+        ms_nbits4=time_ms(lambda: bitplane_matmul(x, w, 4), 10),
+        timed_at=shape + ", 8 planes (ms) / 4 planes (ms_nbits4); the "
+                 "bound is the one product either computes")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -297,6 +482,265 @@ def drive_main_path():
     return rows, batched, single_s, batch_s
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the LM serving path (qwen2-0.5b at full width)
+# ---------------------------------------------------------------------------
+
+LM_TOL = 4e-2                 # tests/test_models.py, bf16 prefill vs decode
+# float32: the two orders of the same sums differ by ~1e-5 at the worst of
+# 4 x 151936 logits at this width; a slip of semantics moves them by >= 1e-2
+LM_FP32_TOL = 1e-3
+DECODE_STEPS = 16
+ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_SEQ = 4, 8, 256
+ALONE = (0, 5)                # requests held against a one-slot engine
+
+
+def device_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: host wall ms, device
+    busy ms (kernel + memcpy/memset time), the flash kernel's ms, device
+    launches, host-blocking CUDA calls, and the five kernels that take the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = flash = launches = blocking = 0.0
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaMemcpy"):
+            blocking += ev.count
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if not dev_us or ev.device_type.name == "CPU":
+            continue
+        busy += dev_us / 1e3
+        launches += ev.count
+        flash += dev_us / 1e3 if "flash_fwd_kernel" in ev.key else 0.0
+        kernels.append((dev_us / 1e3, ev.count, ev.key[:60]))
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall, "flash_ms": flash,
+            "device_launches": int(launches),
+            "host_blocking_calls": int(blocking),
+            "top_kernels_ms_count": sorted(kernels, reverse=True)[:5]}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def check_alone(cfg, params, request, output, noise):
+    """The request alone in a one-slot engine gives the same tokens as
+    beside others — or the two runs part at a greedy near-tie: the batched
+    run's token scores within ``noise`` (at least ``LM_TOL``) of the
+    one-slot run's best logit at that step.  A batch of 4 and a batch of 1
+    may round the bf16 products differently, and from there on the
+    contexts differ; ``noise`` is the largest difference between two bf16
+    evaluations of the same logits measured in this run."""
+    from repro_torch.launch.serve import ContinuousBatchingEngine, Request
+
+    alone = ContinuousBatchingEngine(cfg, params, 1, ENGINE_MAX_SEQ)
+    rows, decode = [], alone.model.decode_step
+
+    def recording(*args):
+        logits, cache = decode(*args)
+        rows.append(logits[0, :cfg.vocab_size].float())
+        return logits, cache
+
+    alone.model.decode_step = recording
+    alone.submit(Request(rid=0, prompt=request.prompt,
+                         max_new_tokens=request.max_new_tokens))
+    solo = alone.run_until_drained()[0].output
+    if solo == output:
+        return "identical"
+    j = next(i for i, (a, b) in enumerate(zip(solo, output)) if a != b)
+    row = rows[len(request.prompt) - 1 + j]
+    gap = float(row.max() - row[output[j]])
+    if gap > max(LM_TOL, noise):
+        raise AssertionError(
+            f"request {request.rid}: token {j} is {output[j]} beside others, "
+            f"{solo[j]} alone, {gap} below the best logit")
+    return f"parted at token {j} on a near-tie ({gap})"
+
+
+def drive_lm(flash_attention):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ContinuousBatchingEngine, Request
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import LM
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config("qwen2-0.5b")
+    if (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) != (
+            Q_HEADS, KV_HEADS, HEAD_DIM):
+        raise AssertionError(f"qwen2-0.5b is not the shape timed: {cfg}")
+    model = LM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    if any(p.device.type != "cuda" for _, p in leaves):
+        raise AssertionError("parameters off the card")
+    n_params = sum(p.numel() for _, p in leaves)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    b, s, vocab = LM_BATCH, LM_SEQ, cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(1, vocab, (b, s + 2), generator=gen,
+                           device="cuda")
+
+    def batch(n):
+        pos = torch.arange(n, dtype=torch.int32, device="cuda")
+        return {"tokens": tokens[:, :n], "positions": pos.expand(b, n)}
+
+    # prefill: one flash launch per layer
+    before = flash_attention.launches
+    logits, cache = prefill(params, batch(s))
+    torch.cuda.synchronize()
+    per_prefill = flash_attention.launches - before
+    if per_prefill != cfg.num_layers:
+        raise AssertionError(f"prefill launched flash {per_prefill} times, "
+                             f"not once per layer ({cfg.num_layers})")
+    kv_shape = (cfg.num_layers, b, s, KV_HEADS, HEAD_DIM)
+    if (logits.shape != (b, cfg.padded_vocab) or not torch.isfinite(
+            logits.float()).all() or tuple(cache["k"].shape) != kv_shape):
+        raise AssertionError(f"prefill: logits {tuple(logits.shape)}, "
+                             f"cache {tuple(cache['k'].shape)}")
+    t0 = time.perf_counter()
+    prefill(params, batch(s))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    def pad(c):
+        return {n: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, DECODE_STEPS))
+                for n, x in c.items()}
+
+    def decode_vs_prefill(p, c):
+        """Max |logit difference| of 2 decode steps after the prefill vs
+        prefill one token longer."""
+        err = 0.0
+        for t in (s, s + 1):
+            got, c = decode(p, c, tokens[:, t:t + 1], t)
+            want, _ = prefill(p, batch(t + 1))
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"decode at {t}: non-finite logits")
+            err = max(err, max_abs_err(got, want))
+        return err
+
+    # decode after the prefill == prefill one token longer.  Held at
+    # LM_FP32_TOL on float32 copies of the weights, where only the semantics
+    # can differ; in bf16 the two orders of rounding differ by a few 1e-2 at
+    # the worst of 4 x 151936 logits at this width (recorded, and used
+    # below as the bf16 noise between two evaluations of the same logits).
+    padded = pad(cache)
+    bf16_err = decode_vs_prefill(params, {n: c.clone()
+                                          for n, c in padded.items()})
+    params32 = _tree_map(lambda x: x.float(), params)
+    _, cache32 = prefill(params32, batch(s))
+    fp32_err = decode_vs_prefill(params32, pad(cache32))
+    del params32, cache32
+    if fp32_err > LM_FP32_TOL:
+        raise AssertionError(f"float32 decode != prefill one token longer: "
+                             f"max_abs_err {fp32_err} > {LM_FP32_TOL}")
+    torch.cuda.reset_peak_memory_stats()      # the float32 copies are gone
+
+    # greedy decode, timed
+    tok = logits[:, :vocab].argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        step_logits, padded = decode(params, padded, tok, s + i)
+        tok = step_logits[:, :vocab].argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not torch.isfinite(step_logits.float()).all():
+        raise AssertionError("greedy decode: non-finite logits")
+    profiles = {
+        "prefill": device_profile(lambda: prefill(params, batch(s))),
+        "decode_step": device_profile(lambda: decode(
+            params, padded, tok, s + DECODE_STEPS - 1))}
+
+    # continuous batching
+    rng = np.random.default_rng(5)
+    requests = [Request(rid=i, prompt=rng.integers(
+        1, vocab, int(rng.integers(16, 65))).astype(np.int32),
+        max_new_tokens=DECODE_STEPS) for i in range(ENGINE_REQUESTS)]
+    engine = ContinuousBatchingEngine(cfg, params, ENGINE_SLOTS,
+                                      ENGINE_MAX_SEQ)
+    t0 = time.perf_counter()
+    for req in requests:
+        engine.submit(req)
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    if sorted(done) != list(range(ENGINE_REQUESTS)) or any(
+            len(r.output) != DECODE_STEPS for r in done.values()):
+        raise AssertionError("the engine did not answer every request")
+    alone = {rid: check_alone(cfg, params, requests[rid], done[rid].output,
+                              bf16_err) for rid in ALONE}
+    return {
+        "config": cfg.name, "params": n_params, "layers": cfg.num_layers,
+        "init_seconds": init_s, "batch": b, "seq": s,
+        "flash_launches_per_prefill": per_prefill,
+        "prefill_ms": prefill_s * 1e3,
+        "prefill_tokens_per_s": b * s / prefill_s,
+        "decode_vs_prefill_max_abs_err_fp32": fp32_err,
+        "tolerance_fp32": LM_FP32_TOL, "decode_vs_prefill_max_abs_err_bf16":
+        bf16_err,
+        "decode_ms_per_step": decode_s / DECODE_STEPS * 1e3,
+        "decode_tokens_per_s": b * DECODE_STEPS / decode_s,
+        "engine_slots": ENGINE_SLOTS, "engine_requests": len(done),
+        "engine_prompt_tokens": sum(len(r.prompt) for r in requests),
+        "engine_new_tokens": sum(len(r.output) for r in done.values()),
+        "engine_steps": engine.steps, "engine_seconds": engine_s,
+        "alone_vs_batched": alone, "profiles": profiles,
+        "max_memory_allocated_bytes": max(
+            peak, torch.cuda.max_memory_allocated())}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: quantized_matmul, the int8 serving-path product
+# ---------------------------------------------------------------------------
+
+QUANT_REL_TOL = 0.05     # int8 activations and weights vs the float product
+
+
+def drive_quantized(ops, ref):
+    """``quantized_matmul`` at qwen2-0.5b's MLP shape, both ``bitserial``
+    values: equal to the same steps through the plain versions, and close
+    to the float product."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    m, k, n = MLP_SHAPE
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
+    wq_t, ws = ref.quantize_rowwise_ref(w.T.contiguous())   # per column
+    wq, scale = wq_t.T.contiguous(), ws[:, 0]
+    exact = (x.double() @ w.double()).float()
+    xq, xs = ref.quantize_rowwise_ref(x)
+    out = {}
+    for bitserial in (False, True):
+        got = ops.quantized_matmul(x, wq, scale, bitserial=bitserial)
+        acc = (ref.bitplane_matmul_ref(xq, wq) if bitserial
+               else ref.int8_matmul_ref(xq, wq))
+        plain = acc.to(torch.float32) * xs * scale[None, :]
+        rel = float((got - exact).abs().max() / exact.abs().max())
+        if not torch.equal(got, plain) or rel > QUANT_REL_TOL:
+            raise AssertionError(f"quantized_matmul(bitserial={bitserial}):"
+                                 f" equal to plain {torch.equal(got, plain)},"
+                                 f" error vs float {rel}")
+        out[f"bitserial={bitserial}"] = {"equal_to_plain": True,
+                                         "max_err_vs_float_rel": rel}
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -309,9 +753,27 @@ def main() -> int:
     emit("device", kind=kind, card=card, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.bitplane_gemm import bitplane_matmul, int8_matmul
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mdgather import mdgather
     from repro_torch.kernels.mdscatter import mdscatter_
+    wrappers = {"mdgather": mdgather, "mdscatter": mdscatter_,
+                "flash_attention": flash_attention,
+                "int8_matmul": int8_matmul,
+                "bitplane_matmul": bitplane_matmul}
+
+    def drive(path, needs, fn, *args):
+        """Run one main path with every launch counter at 0 just before it
+        and read just after; each kernel in ``needs`` must have launched."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn(*args)
+        counts = {name: w.launches for name, w in wrappers.items()}
+        for name in needs:
+            if counts[name] <= 0:
+                raise AssertionError(f"the {path} path never launched {name}")
+        return out, counts
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -329,40 +791,51 @@ def main() -> int:
     t0 = time.perf_counter()
     cases, worst = check_kernels(ref, mdgather, mdscatter_)
     timings, shape_note = time_kernels(ref, mdgather, mdscatter_)
-    emit("kernels", seconds=time.perf_counter() - t0, cases=cases,
-         tolerance="bit-equal (max_abs_err must be 0)", max_abs_err=worst,
-         timed_at=shape_note, timings_ms=timings)
+    for row in timings.values():
+        row.update(bound_by="bytes", timed_at=shape_note)
+    lm_cases, lm_worst = check_lm_kernels(ref, flash_attention, int8_matmul,
+                                          bitplane_matmul)
+    worst.update(lm_worst)
+    timings.update(time_lm_kernels(ref, flash_attention, int8_matmul,
+                                   bitplane_matmul))
+    emit("kernels", seconds=time.perf_counter() - t0,
+         cases=cases + lm_cases,
+         tolerance={"mdgather, mdscatter, int8_matmul, bitplane_matmul":
+                    "bit-equal (max_abs_err must be 0)",
+                    "flash_attention": f"fp32 {FLASH_FP32_TOL} (test "
+                                       f"shapes), {FLASH_FP32_PATH_TOL} "
+                                       f"(prefill shapes); bf16 "
+                                       f"{FLASH_BF16_TOL}"},
+         max_abs_err=worst, timings_ms=timings)
 
-    # ---- 4. path ---------------------------------------------------------
-    mdgather.launches = 0
-    mdscatter_.launches = 0
-    rows, batched, single_s, batch_s = drive_main_path()
-    launches = {"mdgather": mdgather.launches,
-                "mdscatter": mdscatter_.launches}
+    # ---- 4-6. the main paths, each with its launch counts ----------------
+    (rows, batched, single_s, batch_s), counts = drive(
+        "MVE", ("mdgather", "mdscatter"), drive_main_path)
     emit("path", patterns=rows, batched=batched, batch=BATCH,
-         single_seconds=single_s, batch_seconds=batch_s, launches=launches)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+         single_seconds=single_s, batch_seconds=batch_s, launches=counts)
+    t0 = time.perf_counter()
+    lm, lm_counts = drive("LM", ("flash_attention",), drive_lm,
+                          flash_attention)
+    emit("lm", seconds=time.perf_counter() - t0, launches=lm_counts, **lm)
+    quant, quant_counts = drive("quantized", ("int8_matmul",
+                                              "bitplane_matmul"),
+                                drive_quantized, ops, ref)
+    emit("quantized", shape=MLP_SHAPE, launches=quant_counts, **quant)
+    launches = {"mdgather": counts["mdgather"],
+                "mdscatter": counts["mdscatter"],
+                "flash_attention": lm_counts["flash_attention"],
+                "int8_matmul": quant_counts["int8_matmul"],
+                "bitplane_matmul": quant_counts["bitplane_matmul"]}
 
-    # ---- 5. result -------------------------------------------------------
-    replaces = {"mdgather": "src/repro/kernels/mdgather.py:33",
-                "mdscatter": "src/repro/kernels/mdscatter.py:24"}
+    # ---- 7. result -------------------------------------------------------
     kernels = []
-    for name in ("mdgather", "mdscatter"):
+    for name, (source, replaces) in KERNELS.items():
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": worst[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": t["library_ms"],
-            "ms_single": t["ms_single"],
-            "plain_ms_single": t["plain_ms_single"],
-            "bound_ms_single": t["bound_ms_single"],
-            "library_ms_single": t["library_ms_single"],
-            "timed_at": shape_note})
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": worst[name], **t})
     emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

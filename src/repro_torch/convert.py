@@ -1,6 +1,6 @@
-"""Carrying programs, geometry and machine state across from the reference
-package, so a test can hand both packages the same inputs and compare what
-comes out.
+"""Carrying programs, geometry, machine state, model configs and model
+parameters across from the reference package, so a test can hand both
+packages the same inputs and compare what comes out.
 
 Nothing here imports the reference: its objects are read by attribute name
 (duck-typed), and arrays cross as NumPy.
@@ -13,6 +13,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core import isa
 from .core.interp import MachineState
 from .core.machine import (ControlState, MVEConfig, as_memory,
@@ -20,6 +21,11 @@ from .core.machine import (ControlState, MVEConfig, as_memory,
 
 _INSTR_FIELDS = tuple(f.name for f in dataclasses.fields(isa.Instr))
 _CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(MVEConfig))
+_MODEL_FIELDS = tuple(f.name for f in dataclasses.fields(ModelConfig))
+# element types NumPy has no name of its own for (``ml_dtypes``): they cross
+# as float32, which holds every value exactly, and are cast back
+_VIA_FLOAT32 = {"bfloat16": torch.bfloat16, "float8_e4m3fn":
+                torch.float8_e4m3fn}
 
 
 def program_from_reference(instrs: Iterable) -> isa.Program:
@@ -65,3 +71,32 @@ def state_to_numpy(state) -> Dict[str, object]:
     return {"memory": to_numpy(state.memory),
             "regs": {r: to_numpy(v) for r, v in state.regs.items()},
             "tag": to_numpy(state.tag)}
+
+
+def model_config_from_reference(cfg) -> ModelConfig:
+    """This package's :class:`~repro_torch.configs.base.ModelConfig` with
+    every field of the reference config but ``use_pallas``: the port has no
+    such switch, and prefill attention takes the flash kernel wherever the
+    reference's ``use_pallas=True`` route would (no segment ids, head dim
+    64 or 128)."""
+    return ModelConfig(**{name: getattr(cfg, name) for name in _MODEL_FIELDS})
+
+
+def tensor_from_reference(array, device=None) -> torch.Tensor:
+    """One array of the reference (a JAX or NumPy array) as a tensor of the
+    same element type on ``device``; bfloat16 and float8 cross as float32
+    (exact) and are cast back."""
+    host = np.asarray(array)
+    via = _VIA_FLOAT32.get(host.dtype.name)
+    # np.array copies: the host view of a JAX array is read-only
+    host = np.array(host, dtype=np.float32 if via is not None else None)
+    t = torch.from_numpy(host).to(resolve_device(device))
+    return t if via is None else t.to(via)
+
+
+def params_from_reference(tree, device=None):
+    """The reference's parameter tree (nested dicts of arrays, e.g. from
+    ``LM.init_params``) as this package's tree of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    return tensor_from_reference(tree, device)

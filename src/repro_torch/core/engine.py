@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..kernels.ops import mdv_gather, mdv_scatter_
+from ..kernels.ref import wrap_store_addresses
 from . import isa
 from .cost import TraceEvent
 from .interp import alu
@@ -509,9 +510,12 @@ def _scatter_last_lane_wins_(memory: torch.Tensor, values: torch.Tensor,
     device and without a host round trip: an owner table per image takes
     the maximum active lane id per address (order-independent, so the
     result is the same on every run), then every owned element takes its
-    owner's value.  Masked lanes and out-of-range addresses own nothing.
+    owner's value.  An address in ``[-n, 0)`` wraps to ``addr + n`` first,
+    as in the reference; masked lanes and addresses still outside
+    ``[0, n)`` own nothing.
     """
     n = memory.shape[-1]
+    addr = wrap_store_addresses(addr, n)
     active = mask & (addr >= 0) & (addr < n)
     owner = torch.full(memory.shape, -1, dtype=torch.int32,
                        device=memory.device)

@@ -25,7 +25,8 @@ indexing with collisions resolved on the host (highest lane wins).
 
 Arithmetic keeps the reference's element-type rules, which PyTorch does not
 share by default: see :func:`repro_torch.core.machine.convert` for
-conversions and :func:`alu` for shifts and rotates.
+conversions and :func:`alu` for shifts, rotates and the NaN and signed-zero
+bits of ``vmax``/``vmin``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..kernels.ops import mdv_gather, mdv_scatter_
+from ..kernels.ref import wrap_store_addresses
 from . import isa
 from .cost import TraceEvent  # noqa: F401  (re-exported; historical home)
 from .isa import DType, Instr, Op
@@ -62,8 +64,35 @@ _U32 = 0xFFFFFFFF
 
 _COMPARE = {Op.GT: torch.gt, Op.GTE: torch.ge, Op.LT: torch.lt,
             Op.LTE: torch.le, Op.EQ: torch.eq, Op.NEQ: torch.ne}
+
+
+def _float_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum`` as XLA:CPU computes it, bits included: a NaN
+    operand comes back with its own bits (``torch.maximum`` returns the
+    canonical NaN); of two NaNs, ``a`` when its sign bit is set, else
+    ``b``; ``max(+0, -0)`` is ``+0`` whatever the order."""
+    if not a.is_floating_point():
+        return torch.maximum(a, b)
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    pick_a = torch.where(nan_a & nan_b, torch.signbit(a),
+                         nan_a | (a > b) | ((a == b) & ~torch.signbit(a)))
+    return torch.where(pick_a, a, b)
+
+
+def _float_min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum`` as XLA:CPU computes it (see :func:`_float_max`): of
+    two NaNs, ``a`` when its sign bit is clear, else ``b``;
+    ``min(+0, -0)`` is ``-0``."""
+    if not a.is_floating_point():
+        return torch.minimum(a, b)
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    pick_a = torch.where(nan_a & nan_b, ~torch.signbit(a),
+                         nan_a | (a < b) | ((a == b) & torch.signbit(a)))
+    return torch.where(pick_a, a, b)
+
+
 _BINARY = {Op.ADD: torch.add, Op.SUB: torch.sub, Op.MUL: torch.mul,
-           Op.MIN: torch.minimum, Op.MAX: torch.maximum,
+           Op.MIN: _float_min, Op.MAX: _float_max,
            Op.XOR: torch.bitwise_xor, Op.AND: torch.bitwise_and,
            Op.OR: torch.bitwise_or}
 
@@ -237,7 +266,8 @@ class MVEInterpreter:
                 state.regs[instr.vd] = torch.where(
                     tmask, convert(gathered, dt), old(instr.vd))
             else:
-                # Masked lanes and out-of-range addresses write nowhere;
+                # Masked lanes and out-of-range addresses write nowhere
+                # (an address in [-n, 0) wraps to the image's end first);
                 # later lanes win on address collisions (well-defined
                 # scatter order, matches a sequential loop).
                 src = convert(old(instr.vs1), state.memory.dtype)
@@ -291,8 +321,10 @@ class MVEInterpreter:
 
 def _last_lane_wins(addr: np.ndarray, mask: np.ndarray, n: int):
     """Winning ``(lanes, addresses)`` of a store, resolved on the host:
-    active lanes with an address inside ``[0, n)``, one per distinct
-    address, the highest lane of each."""
+    active lanes with an address inside ``[0, n)`` after the reference's
+    wrap of ``[-n, 0)`` to ``[0, n)``, one per distinct address, the
+    highest lane of each."""
+    addr = wrap_store_addresses(addr, n)
     act = np.flatnonzero(mask & (addr >= 0) & (addr < n))
     order = np.argsort(addr[act], kind="stable")
     sorted_a = addr[act][order]

@@ -4,6 +4,11 @@
                (CUDA C++, ``csrc/mdgather.cu``)
   mdscatter  — MVE ``vsst`` multi-dimensional strided scatter with
                last-lane-wins collisions (CUDA C++, ``csrc/mdscatter.cu``)
+  bitplane_gemm — exact int8 products, direct (``int8_matmul``) and plane
+               by plane (``bitplane_matmul``) (CUDA C++,
+               ``csrc/bitplane_gemm.cu``)
+  flash_attention — forward attention with an online softmax (CUDA C++,
+               ``csrc/flash_attention.cu``)
 
 Each kernel has its plain PyTorch version in ``ref.py``; ``ops.py`` holds
 the wrappers the executors call.  A wrapper takes the plain version only
@@ -13,7 +18,8 @@ kernel or raises.
 Submodules import lazily (PEP 562) and nothing here compiles at import:
 ``_build`` runs ``nvcc`` at the first launch.
 """
-_LAZY = {"ops", "ref", "mdgather", "mdscatter", "_build"}
+_LAZY = {"ops", "ref", "mdgather", "mdscatter", "bitplane_gemm",
+         "flash_attention", "_build"}
 
 
 def __getattr__(name):

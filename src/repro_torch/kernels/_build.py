@@ -113,4 +113,4 @@ def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(
             f"{what}: launch failed with CUDA error {code}"
-            if code > 0 else f"{what}: unsupported element size")
+            if code > 0 else f"{what}: no kernel instance for these arguments")

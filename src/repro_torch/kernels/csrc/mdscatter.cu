@@ -12,8 +12,8 @@
 //
 // A strided store lands on the same addresses in every image of a batch, so
 // one table serves the whole batch.  Inactive lanes (at or past prod(dims),
-// or masked off by the per-lane dimension mask) and out-of-range addresses
-// write nowhere.  The result is the same on every run.
+// or masked off by the per-lane dimension mask) and addresses outside the
+// image (after wrapping [-N, 0) to [0, N)) write nowhere.  The result is the same on every run.
 //
 // Bound: bytes.  batch*lanes*elem read and as much written, plus the owner
 // table (4 bytes per destination element, set and read once).  Nothing here
@@ -23,13 +23,16 @@
 
 #include "mdv_walk.cuh"
 
-// Address of an active lane, or -1 when the lane writes nowhere.
+// Address of an active lane, or -1 when the lane writes nowhere.  An
+// address in [-dst_len, 0) lands on addr + dst_len, as the reference's
+// scatters index Python-style; collisions are resolved after that wrap.
 __device__ __forceinline__ long long scatter_target(
         const MdvWalk& w, const uint8_t* __restrict__ mask, long long lane,
         long long lanes, long long dst_len) {
     if (lane >= lanes || lane >= w.total) return -1;
     if (mask != nullptr && mask[lane] == 0) return -1;
-    const long long addr = mdv_address(w, lane);
+    long long addr = mdv_address(w, lane);
+    if (addr < 0) addr += dst_len;
     return (addr < 0 || addr >= dst_len) ? -1 : addr;
 }
 

@@ -50,7 +50,8 @@ def mdscatter_(dst: torch.Tensor, values: torch.Tensor, dims: Sequence[int],
     ``(lanes,)`` / ``(B, lanes)`` of the same type; ``mask`` is an optional
     per-lane ``bool``/``uint8`` vector of ``lanes`` entries.  Lane ``l``
     stores when ``l < prod(dims)``, its mask entry is set and its address
-    lies inside the image; on equal addresses the highest such lane wins.
+    lies inside the image once an address in ``[-N, 0)`` has wrapped to
+    ``a + N``; on equal addresses the highest such lane wins.
     A CUDA tensor always goes through the kernel; only a CPU tensor takes
     the plain version.
     """

@@ -1,15 +1,19 @@
 """Plain PyTorch versions of the hand-written kernels in this package.
 
-These are the semantics; the CUDA kernels must match them bit for bit
-(they move elements, they do no arithmetic on them).  The wrappers in
-:mod:`repro_torch.kernels.mdgather` / :mod:`~repro_torch.kernels.mdscatter`
-take these versions for CPU tensors, and the on-card smoke run holds each
-kernel against them on the same inputs.
+These are the semantics.  The CUDA kernels must match them bit for bit
+where the reference promises bits (the gather and scatter move elements;
+the integer products are exact) and to the reference's tolerance where it
+promises one (attention).  The kernel wrappers
+(:mod:`~repro_torch.kernels.mdgather`, :mod:`~repro_torch.kernels.mdscatter`,
+:mod:`~repro_torch.kernels.bitplane_gemm`,
+:mod:`~repro_torch.kernels.flash_attention`) take these versions for CPU
+tensors, and the on-card smoke run holds each kernel against them on the
+same inputs.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +34,14 @@ def mdv_lane_addresses(dims: Sequence[int], strides: Sequence[int],
         rem = rem // int(length)
         addr = addr + idx * int(stride)
     return addr
+
+
+def wrap_store_addresses(addr, n: int):
+    """Store addresses as the reference's scatters take them: ``a`` in
+    ``[-n, 0)`` becomes ``a + n``; every other address is left as it is
+    (those outside ``[0, n)`` are then dropped by the store).  Works on a
+    tensor or a NumPy array."""
+    return addr + (addr < 0) * n
 
 
 def mdgather_ref(src: torch.Tensor, dims: Sequence[int],
@@ -58,8 +70,10 @@ def mdscatter_ref(dst: torch.Tensor, values: torch.Tensor,
     ``(B, N)``); returns the updated copy.
 
     Lane ``l`` is active when ``l < prod(dims)`` and ``mask[l]`` (when a
-    per-lane mask is given).  On equal addresses the highest active lane
-    wins; inactive lanes and out-of-range addresses write nowhere.  The
+    per-lane mask is given).  An address ``a`` in ``[-N, 0)`` lands on
+    ``a + N`` (the reference's scatters index Python-style); anything
+    else outside ``[0, N)`` writes nowhere, as do inactive lanes.  On
+    equal addresses (after that wrap) the highest active lane wins.  The
     same two steps as the kernel: resolve one owner lane per address,
     then let only owners store — so the result never depends on the order
     a parallel scatter applies duplicates in.
@@ -67,7 +81,8 @@ def mdscatter_ref(dst: torch.Tensor, values: torch.Tensor,
     n = dst.shape[-1]
     lanes = values.shape[-1]
     total = math.prod(int(d) for d in dims)
-    addr = mdv_lane_addresses(dims, strides, base, lanes, dst.device)
+    addr = wrap_store_addresses(
+        mdv_lane_addresses(dims, strides, base, lanes, dst.device), n)
     lane = torch.arange(lanes, dtype=torch.int32, device=dst.device)
     active = (lane < total) & (addr >= 0) & (addr < n)
     if mask is not None:
@@ -77,3 +92,76 @@ def mdscatter_ref(dst: torch.Tensor, values: torch.Tensor,
                           torch.where(active, lane, -1), "amax")
     picked = values[..., owner.clamp(min=0).long()]
     return torch.where(owner >= 0, picked, dst)
+
+
+# ---------------------------------------------------------------------------
+# Bit-plane (bit-serial adapted) quantized matmul.
+# ---------------------------------------------------------------------------
+
+def int8_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 ``(M, K)`` x int8 ``(K, N)`` -> int32, exact.
+
+    Computed in float64, which has no integer matmul problem on either
+    device (CUDA has no int32 matmul): every partial sum is at most
+    ``128 * 128 * K``, far below 2**53, so each is exact in any order.  The
+    sum is wrapped to int32 through int64, as the reference's int32
+    arithmetic wraps."""
+    prod = x.to(torch.float64) @ w.to(torch.float64)
+    return prod.to(torch.int64).to(torch.int32)
+
+
+def bitplane_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                        nbits: int = 8) -> torch.Tensor:
+    """The same product plane by plane (two's complement): ``wu = w & 0xFF``,
+    ``acc += sign_b * ((x @ ((wu >> b) & 1)) << b)`` for ``b < nbits``, the
+    top plane negative.  Exact: each plane product in float64 as in
+    :func:`int8_matmul_ref`, the shifted sum in int64, wrapped to int32 as
+    the reference's int32 arithmetic wraps."""
+    xf = x.to(torch.float64)
+    wu = w.to(torch.int32) & 0xFF
+    acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.int64,
+                      device=x.device)
+    for b in range(nbits):
+        plane = ((wu >> b) & 1).to(torch.float64)
+        partial = (xf @ plane).to(torch.int64)
+        acc += (partial << b) * (-1 if b == nbits - 1 else 1)
+    return acc.to(torch.int32)
+
+
+def quantize_rowwise_ref(x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization: ``(q int8, scale float32)``,
+    ``scale = max|x| / 127`` per row (1 where a row is all zeros)."""
+    scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (forward).
+# ---------------------------------------------------------------------------
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Naive attention: ``(B, H, Sq, D)`` over ``(B, Hkv, Sk, D)`` keys and
+    values (``H`` a multiple of ``Hkv``; kv head ``h // (H / Hkv)`` serves
+    q head ``h``, as ``jnp.repeat`` of the kv heads would) -> ``(B, H, Sq,
+    D)`` in q's type.  fp32 softmax; the causal diagonal sits at
+    ``Sk - Sq``.  A row that sees no key (causal, ``Sq > Sk``) comes out
+    NaN, as in the reference's oracle; the kernel gives 0 there."""
+    sq, d = q.shape[-2:]
+    sk = k.shape[-2]
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        logits = torch.where(mask, logits, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("...qk,...kd->...qd", probs, v.float()).to(q.dtype)

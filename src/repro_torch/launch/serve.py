@@ -1,0 +1,154 @@
+"""Serving driver: continuous batching with MVE dimension-level masking.
+
+The paper's central abstraction — pack multi-dimensional, irregular
+parallelism onto a fixed wide lane axis and mask whole *dimension
+elements* rather than per-element predicates — is exactly the shape of
+continuous-batching decode:
+
+  * the decode batch is a fixed :class:`repro_torch.core.packing.LaneGrid`
+    (requests = the highest dimension; a mask bit per request slot),
+  * arriving requests claim masked-off slots; finished requests release
+    them; prefill and decode interleave freely because every slot feeds
+    its own next token (prompt token while prefilling, last sample after),
+  * ONE batched decode step serves whatever mix is resident: per-slot
+    sequence positions ride in a (B,)-shaped cache index, and inactive
+    slots are simply computed-and-discarded — dimension-level masking,
+    not per-token predication.
+
+The cache lives on the engine's device (``cuda`` unless the caller names
+another) and is updated in place by every step; per step one ``(B,)``
+vector of token ids comes back to the host.  The reference's
+``MVEProgramServer`` comes with the port of ``runtime/scheduler.py``
+(ROADMAP.md, queue A).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.machine import resolve_device
+from ..core.packing import LaneGrid
+from ..models.lm import LM
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (len,) int32
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    # filled by the engine:
+    output: List[int] = dataclasses.field(default_factory=list)
+    submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
+    done_at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class SlotState:
+    request: Request
+    length: int = 0                     # tokens resident in this slot
+    prompt_pos: int = 0                 # prompt tokens consumed
+
+
+class ContinuousBatchingEngine:
+    """Fixed-slot continuous batching, one batched decode per step.
+
+    Greedy decoding; prefill streams prompt tokens through the same
+    batched step (so a long prompt never stalls other slots)."""
+
+    def __init__(self, cfg: ModelConfig, params, batch_slots: int,
+                 max_seq: int, clock: Callable[[], float] = time.monotonic,
+                 device=None):
+        self.cfg = cfg
+        self.model = LM(cfg)
+        self.params = params
+        self.max_seq = max_seq
+        self.device = resolve_device(device)
+        self.grid = LaneGrid((max_seq, batch_slots))   # top dim = requests
+        self.clock = clock
+        self._queue: List[Request] = []
+        self._done: Dict[int, Request] = {}
+        self.cache = self.model.init_cache(batch_slots, max_seq, self.device)
+        self.steps = 0
+
+    # -- request lifecycle ---------------------------------------------------
+    def submit(self, req: Request) -> None:
+        req.submitted_at = self.clock()
+        self._queue.append(req)
+
+    def _try_admit(self) -> None:
+        while self._queue:
+            slot = self.grid.allocate(None)
+            if slot is None:
+                return
+            req = self._queue.pop(0)
+            self.grid._payload[slot] = SlotState(req)
+
+    # -- main loop -------------------------------------------------------------
+    def step(self) -> int:
+        """One engine iteration: admit, one batched decode, evict.
+
+        Returns the number of active slots served."""
+        self._try_admit()
+        active = self.grid.active_slots()
+        if len(active) == 0:
+            return 0
+        b = self.grid.top
+        tokens = np.zeros((b, 1), np.int64)
+        lengths = np.zeros((b,), np.int64)
+        for slot in active:
+            st: SlotState = self.grid.payload(slot)
+            req = st.request
+            if st.prompt_pos < len(req.prompt):
+                tokens[slot, 0] = int(req.prompt[st.prompt_pos])
+            else:
+                tokens[slot, 0] = req.output[-1]
+            lengths[slot] = st.length
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cache,
+            torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(lengths).to(self.device))
+        # greedy pick on the device; the first maximum wins, as np.argmax
+        picks = logits[:, : self.cfg.vocab_size].argmax(dim=-1).cpu().numpy()
+        self.steps += 1
+
+        served = 0
+        for slot in active:
+            st = self.grid.payload(slot)
+            req = st.request
+            st.length += 1
+            served += 1
+            if st.prompt_pos < len(req.prompt):
+                st.prompt_pos += 1
+                if st.prompt_pos < len(req.prompt):
+                    continue             # still prefilling
+            nxt = int(picks[slot])
+            req.output.append(nxt)
+            if req.first_token_at is None:
+                req.first_token_at = self.clock()
+            eos = (req.eos_id is not None and nxt == req.eos_id)
+            if (len(req.output) >= req.max_new_tokens or eos
+                    or st.length >= self.max_seq - 1):
+                req.done_at = self.clock()
+                self._done[req.rid] = req
+                self.grid.release(slot)
+        return served
+
+    def run_until_drained(self, max_iters: int = 10_000
+                          ) -> Dict[int, Request]:
+        it = 0
+        while (self._queue or len(self.grid.active_slots())) and \
+                it < max_iters:
+            self.step()
+            it += 1
+        return self._done
+
+    @property
+    def occupancy(self) -> float:
+        return self.grid.occupancy()

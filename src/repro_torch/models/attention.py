@@ -1,0 +1,130 @@
+"""GQA attention: chunked-causal (prefill), cached decode.
+
+Prefill attention takes the hand-written flash kernel
+(:func:`repro_torch.kernels.ops.flash_attention`) wherever the reference's
+``use_pallas=True`` route does — no ``segment_ids`` and a head dim of 64 or
+128 — and the plain chunked route otherwise.  The reference's sharding
+constraints are no-ops outside a mesh and are left out.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels import ops as kops
+from ..kernels.flash_attention import HEAD_DIMS
+
+NEG_INF = -1e30
+
+
+def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """(B,S,Hq,D) -> (B,S,K,G,D)."""
+    b, s, hq, d = q.shape
+    return q.reshape(b, s, kv_heads, hq // kv_heads, d)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True,
+                      segment_ids: Optional[torch.Tensor] = None,
+                      kv_segment_ids: Optional[torch.Tensor] = None,
+                      chunk: int = 512) -> torch.Tensor:
+    """q: (B,Sq,Hq,D); k/v: (B,Sk,K,D) -> (B,Sq,Hq,D)."""
+    b, sq, hq, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+
+    if segment_ids is None and d in HEAD_DIMS:
+        # the flash route: (B,H,S,D) views, no copies; the kernel serves
+        # q head h from kv head h // (Hq/K), which is the reference's
+        # jnp.repeat of the kv heads
+        out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal)
+        return out.transpose(1, 2)
+
+    g = hq // kh
+    kr = k.repeat_interleave(g, dim=2) if g > 1 else k     # (B,Sk,Hq,D)
+    vr = v.repeat_interleave(g, dim=2) if g > 1 else v
+
+    chunk = min(chunk, sq)
+    kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
+    kpos = torch.arange(sk, device=q.device)
+    offset = sk - sq
+    outs = []
+    for start in range(0, sq, chunk):
+        qc = q[:, start:start + chunk]
+        c = qc.shape[1]
+        # operands in the model type, products accumulated in f32 and then
+        # rounded to it, as the reference's einsum does
+        logits = torch.einsum("bchd,bshd->bhcs", qc, kr)
+        logits = logits.float() * scale
+        valid = torch.ones(b, 1, c, sk, dtype=torch.bool, device=q.device)
+        if causal:
+            qpos = start + torch.arange(c, device=q.device) + offset
+            valid = valid & (qpos[:, None] >= kpos[None, :])[None, None]
+        if segment_ids is not None and kv_seg is not None:
+            seg_c = segment_ids[:, start:start + chunk]
+            valid = valid & (seg_c[:, None, :, None] ==
+                             kv_seg[:, None, None, :])
+        logits = torch.where(valid, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhcs,bshd->bchd", probs.to(vr.dtype), vr)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_index) -> torch.Tensor:
+    """One-token attention over a (B,S,K,D) cache filled up to and
+    including ``cache_index`` (an int, or a ``(B,)`` tensor of one index
+    per row)."""
+    b, one, hq, d = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    if k_cache.dtype == torch.float8_e4m3fn:     # quantized KV cache
+        k_cache = k_cache.to(q.dtype)
+        v_cache = v_cache.to(q.dtype)
+    qg = _grouped(q, kh)                                   # (B,1,K,G,D)
+    # the einsum in the operands' (promoted) type, then f32, then the scale
+    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    logits = torch.einsum("bokgd,bskd->bkgos", qg.to(dt), k_cache.to(dt))
+    logits = logits.float() * scale
+    ci = torch.as_tensor(cache_index, device=q.device).reshape(-1)
+    valid = (torch.arange(s, device=q.device)[None, :] <= ci[:, None]
+             )[:, None, None, None, :]
+    logits = torch.where(valid, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgos,bskd->bokgd", probs.to(v_cache.dtype),
+                       v_cache)
+    return out.reshape(b, one, hq, d).to(q.dtype)
+
+
+def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor,
+                 cache_index) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write the new token's K/V at ``cache_index``, **in place** (the
+    reference returns updated copies; the port saves copying the whole
+    cache per token), and return the caches.
+
+    An int writes one sequence slice of every row, clamped into the cache
+    as ``dynamic_update_slice`` clamps; a ``(B,)`` tensor writes each row
+    at its own position (continuous-batching decode): an index in
+    ``[-S, 0)`` counts from the end, and a row whose index lies outside
+    the cache keeps its contents, as the reference's scatter drops it."""
+    s = k_cache.shape[1]
+    if isinstance(cache_index, int):
+        i = min(max(cache_index, 0), s - 1)
+        k_cache[:, i] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, i] = v_new[:, 0].to(v_cache.dtype)
+        return k_cache, v_cache
+    ci = cache_index.to(k_cache.device).long()
+    ci = torch.where(ci < 0, ci + s, ci)
+    keep = ((ci >= 0) & (ci < s))[:, None, None]
+    ci = ci.clamp(0, s - 1)
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[rows, ci] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                      cache[rows, ci])
+    return k_cache, v_cache

@@ -1,0 +1,149 @@
+"""Shared model components: parameter declaration trees, norms, RoPE,
+activations.
+
+Parameters are declared as :class:`ParamDef` leaves of plain nested dicts
+carrying *logical* sharding axes (kept so the trees match the reference's;
+the port has no mesh yet); ``abstract_tree`` / ``materialize_tree`` turn a
+declaration into shapes and types or into initialised tensors.
+
+Every bf16 rounding point of the reference is kept where it is: the norm
+rounds to the input's type before the scale, RoPE rotates in the model
+type.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16, "float8": torch.float8_e4m3fn}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"          # normal | zeros | ones | small
+    dtype: str = "bfloat16"
+    scale: float = 0.02
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+class ShapeDtype(NamedTuple):
+    """The port's ``jax.ShapeDtypeStruct``: what a leaf will be."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def tree_map_defs(fn: Callable[[ParamDef], Any], tree):
+    """``fn`` on every :class:`ParamDef` of a nested dict, same structure."""
+    if is_def(tree):
+        return fn(tree)
+    return {k: tree_map_defs(fn, v) for k, v in tree.items()}
+
+
+def tree_leaves(tree, prefix: str = ""):
+    """``[(path, leaf)]`` of a nested dict in the reference's flattening
+    order (keys sorted, depth first); paths join keys with ``/``."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out = []
+    for k in sorted(tree):
+        out += tree_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+    return out
+
+
+def abstract_tree(tree):
+    return tree_map_defs(lambda d: ShapeDtype(d.shape, DTYPES[d.dtype]),
+                         tree)
+
+
+def axes_tree(tree):
+    return tree_map_defs(lambda d: d.axes, tree)
+
+
+def materialize_tree(tree, generator: torch.Generator, device=None):
+    """Initialised tensors for a declaration tree, drawn leaf by leaf (in
+    :func:`tree_leaves` order) from ``generator`` on its own device, then
+    placed on ``device`` (default: the generator's).  The numbers are not
+    the reference's (``jax.random`` and ``torch.Generator`` differ); tests
+    carry the reference's parameters across instead."""
+    gen_dev = generator.device
+    dev = gen_dev if device is None else torch.device(device)
+
+    def make(d: ParamDef) -> torch.Tensor:
+        dt = DTYPES[d.dtype]
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=dev)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=dev)
+        x = torch.randn(d.shape, generator=generator, device=gen_dev,
+                        dtype=torch.float32)
+        x = x * (d.scale * 0.1 if d.init == "small" else d.scale)
+        return x.to(device=dev, dtype=dt)
+
+    flat = {path: make(d) for path, d in tree_leaves(tree)}
+
+    def rebuild(node, prefix=""):
+        if is_def(node):
+            return flat[prefix]
+        return {k: rebuild(v, f"{prefix}/{k}" if prefix else k)
+                for k, v in node.items()}
+    return rebuild(tree)
+
+
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "silu":
+        return F.silu
+    if name == "gelu":                      # jax.nn.gelu: tanh form
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "squared_relu":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(f"unknown activation {name}")
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, split-halves convention.  x: (B,S,H,D).
+
+    Angles in f32 (position precision); the rotation itself in the model
+    type, as the reference does."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs            # (B,S,half)
+    sin = torch.sin(angles).to(x.dtype)[:, :, None, :]
+    cos = torch.cos(angles).to(x.dtype)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
+    pos = np.arange(length)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10_000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.as_tensor(table, dtype=torch.float32, device=device)
+

@@ -4,12 +4,8 @@ The same inputs — made with NumPy from a seed — go through the JAX
 reference (``repro``, on the CPU) and the PyTorch port (``repro_torch``, on
 ``device="cpu"``, where the kernels' wrappers take their plain versions),
 and everything observable is compared bit for bit: memory, every register
-with its element type, the Tag latch, and the cost-model trace.
-
-One stated exception: the bits of a NaN.  Where both sides hold a NaN its
-sign and payload are not compared (``jnp.maximum`` keeps an operand's NaN,
-``torch.maximum`` returns the canonical one); a NaN on one side only is
-still a mismatch.
+with its element type, the Tag latch, and the cost-model trace.  NaNs
+included: sign and payload must match too.
 """
 import numpy as np
 
@@ -29,14 +25,10 @@ _UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 
 
 def assert_bits_equal(want, got, what=""):
-    """Same element type, same bits (NaNs: same positions)."""
+    """Same element type, same bits (NaN sign and payload included)."""
     want, got = np.asarray(want), np.asarray(got)
     assert want.dtype == got.dtype, (what, want.dtype, got.dtype)
     assert want.shape == got.shape, (what, want.shape, got.shape)
-    if want.dtype.kind == "f":
-        nan = np.isnan(want)
-        np.testing.assert_array_equal(nan, np.isnan(got), err_msg=what)
-        want, got = np.where(nan, 0, want), np.where(nan, 0, got)
     if want.dtype.kind in "fiu":
         u = _UINT[want.dtype.itemsize]
         want = np.ascontiguousarray(want).view(u)

@@ -1,6 +1,8 @@
 """The port stands alone: ``repro_torch`` imports and runs with ``jax`` and
-the reference package made unimportable, and importing it neither builds
-nor loads a CUDA kernel.
+the reference package made unimportable — every module of it, the MVE path
+and the LM slice (prefill, decode, the serving engine) — and importing it
+neither builds nor loads a CUDA kernel.  A new module of the port that
+imports ``jax`` or ``repro`` fails both tests here.
 """
 import os
 import pathlib
@@ -30,6 +32,28 @@ from repro_torch.core.machine import to_numpy
 run = patterns.PATTERNS["{pattern}"]()
 mem, state = patterns.run_pattern(run, device="cpu")
 run.check(to_numpy(mem), state)
+for needed in ("repro_torch.configs", "repro_torch.core.packing",
+               "repro_torch.kernels.flash_attention",
+               "repro_torch.kernels.bitplane_gemm", "repro_torch.models.lm",
+               "repro_torch.launch.steps", "repro_torch.launch.serve"):
+    assert needed in mods, needed
+# the LM slice too: prefill (flash route), decode, the serving engine
+import dataclasses, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import ContinuousBatchingEngine, Request
+from repro_torch.models import LM
+cfg = dataclasses.replace(get_config("qwen2-0.5b", reduced=True),
+                          num_heads=2, num_kv_heads=1, head_dim=64,
+                          d_model=128, num_layers=1)
+model = LM(cfg)
+params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+tokens = torch.arange(1, 9).reshape(1, 8)
+logits, cache = model.prefill(params, {"tokens": tokens,
+                                       "positions": tokens - 1})
+assert torch.isfinite(logits.float()).all()
+engine = ContinuousBatchingEngine(cfg, params, 2, 16, device="cpu")
+engine.submit(Request(rid=0, prompt=np.arange(1, 4), max_new_tokens=2))
+assert len(engine.run_until_drained()[0].output) == 2
 assert not _build._LIBS
 assert not any(m == "jax" or m.startswith("jax.") or m == "repro"
                or m.startswith("repro.") for m in sys.modules
@@ -60,6 +84,6 @@ def test_port_sources_name_neither_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     files = list((SRC / "repro_torch").rglob("*.py"))
     files.append(SRC.parent / "chip_smoke.py")
-    assert len(files) > 15
+    assert len(files) > 30
     for path in files:
         assert not pat.search(path.read_text()), path
