@@ -15,21 +15,27 @@ non-zero:
 2. ``build``   — every CUDA kernel (``mdgather``, ``mdscatter``,
    ``flash_attention``, ``bitplane_gemm``) is built from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
-   compiler process per source, started together.
+   compiler process per source, started together; ``cuobjdump`` counts the
+   HMMA/IMMA instructions of each kernel, and the bf16 flash kernel and the
+   bit-plane kernel must have them (they run on the tensor cores).
 3. ``kernels`` — each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main paths give it: the MVE gather/scatter
    bit for bit (8192 lanes; 1-4 dims with a stride-0 dim; colliding stores;
    a dimension mask; negative addresses; fp32/int32/bf16/uint8; one image
    and a batch of 1024); flash attention on the reference's test shapes
-   and at qwen2-0.5b's prefill shapes (4 x 14 q heads over 2 kv heads,
-   S = 1024 and 1025), fp32 within 3e-5 on the test shapes and 1e-4 on the
-   prefill shapes, bf16 within one bf16 rounding step of the output
-   (rtol 1e-2, atol 8e-3);
+   (fp32 and bf16), a bf16 view that is not 16-byte aligned, and at
+   qwen2-0.5b's prefill shapes (4 x 14 q heads over 2 kv heads, S = 1024
+   and 1025, D = 64, and D = 128 in bf16), fp32 within 3e-5 on the test
+   shapes and 1e-4 on the prefill shapes, bf16 within one bf16 rounding
+   step of the output (rtol 1e-2, atol 8e-3);
    the int8 and bit-plane products bit for bit on the reference's test
-   shapes and qwen2-0.5b's MLP shape (x 4096x896 @ w 896x4864), 4 and 8
-   planes.  Each is timed with CUDA events at its main-path shape beside
-   its plain version, one PyTorch library call (timed only, the port never
-   calls it) and the card's bound for the same work.
+   shapes, qwen2-0.5b's MLP shape (x 4096x896 @ w 896x4864) and a
+   16 x 131104 @ 131104 x 16 product whose int32 sums wrap (x = w = -128,
+   and random), 4 and 8 planes, and every plane count 1..8 on an aligned
+   and a ragged shape.  Each is timed with CUDA events at its
+   main-path shape beside its plain version, one PyTorch library call
+   (timed only, the port never calls it) and the card's bound for the same
+   work; the float32 flash kernel is timed beside the bf16 one.
 4. ``path``    — the MVE main path at the Table IV geometry
    (``MVEConfig()``, 8192 lanes): every one of the 14 Section-IV patterns
    at its default size through ``compile_program(...).run`` on ``cuda``,
@@ -99,6 +105,45 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+# the kernels that must run on the tensor cores, and the SASS mnemonic of
+# their matrix instructions
+TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": "HMMA",
+                       "bitplane_gemm_kernel": "IMMA"}
+
+
+def sass_mma_counts(build, libs) -> dict:
+    """HMMA / IMMA instructions per kernel in the built libraries' SASS
+    (``cuobjdump --dump-sass``, beside ``nvcc`` in the CUDA toolkit); fails
+    if a kernel of ``TENSOR_CORE_KERNELS`` has none of its mnemonic."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    counts = {}
+    for path in libs.values():
+        sass = subprocess.run([str(tool), "--dump-sass", str(path)],
+                              check=True, capture_output=True, text=True,
+                              timeout=300).stdout
+        for block in sass.split("Function : ")[1:]:
+            fn = block.split(None, 1)[0]
+            counts[fn] = {op: block.count(op) for op in ("HMMA", "IMMA")}
+    for kernel, op in TENSOR_CORE_KERNELS.items():
+        mine = {fn: c for fn, c in counts.items() if kernel in fn}
+        if not mine or not all(c[op] for c in mine.values()):
+            raise AssertionError(f"{kernel}: no {op} in its SASS: {mine}")
+    return counts
+
+
+def ptxas_usage(log: str) -> dict:
+    """``{kernel: "registers ...; spills ..."}`` from ``nvcc -Xptxas -v``
+    output."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            usage[fn] = []
+        elif fn and ("spill" in line or "registers" in line):
+            usage[fn].append(line.split(":", 1)[-1].strip())
+    return {fn: "; ".join(parts) for fn, parts in usage.items()}
 
 
 def time_ms(fn, iters: int) -> float:
@@ -273,6 +318,7 @@ FLASH_BF16_TOL = dict(rtol=1e-2, atol=8e-3)
 LM_BATCH, LM_SEQ, Q_HEADS, KV_HEADS, HEAD_DIM = 4, 1024, 14, 2, 64
 GEMM_SHAPES = [(8, 16, 8), (128, 128, 128), (100, 60, 200), (130, 96, 257)]
 MLP_SHAPE = (LM_BATCH * LM_SEQ, 896, 4864)       # x (M, K) @ w (K, N)
+WRAP_SHAPE = (16, 131104, 16)       # 16384 * K > 2**31: int32 sums wrap
 
 
 def flash_bound(b, h, hk, sq, sk, d, elem, causal=True):
@@ -329,9 +375,15 @@ def check_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
         q, k, v = (torch.randn(2, 3, n, d, generator=gen, device="cuda")
                    for n in (sq, sk, sk))
         flash_case(q, k, v, causal, FLASH_FP32_TOL, (sq, sk, causal, d))
+        flash_case(*(x.to(torch.bfloat16) for x in (q, k, v)), causal,
+                   FLASH_BF16_TOL, ("bf16", sq, sk, causal, d))
     q, k, v = (torch.randn(1, 2, 96, 64, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     flash_case(q, k, v, True, FLASH_BF16_TOL, "bf16 (1, 2, 96, 64)")
+    # a view whose base is not 16-byte aligned: the wrapper copies it
+    flat = torch.randn(2 * 3 * 80 * 64 + 1, generator=gen, device="cuda")
+    odd = flat.to(torch.bfloat16)[1:].view(2, 3, 80, 64)
+    flash_case(odd, odd, odd, True, FLASH_BF16_TOL, "bf16 unaligned view")
     for s in (LM_SEQ, LM_SEQ + 1):
         q = torch.randn(LM_BATCH, Q_HEADS, s, HEAD_DIM, generator=gen,
                         device="cuda")
@@ -341,6 +393,11 @@ def check_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
                    f"qwen2-0.5b fp32 S={s}")
         flash_case(*(x.to(torch.bfloat16) for x in (q, k, v)), True,
                    FLASH_BF16_TOL, f"qwen2-0.5b bf16 S={s}")
+        q, k, v = (torch.randn(LM_BATCH, n, s, 128, generator=gen,
+                               device="cuda").bfloat16()
+                   for n in (Q_HEADS, KV_HEADS, KV_HEADS))
+        flash_case(q, k, v, True, FLASH_BF16_TOL,
+                   f"qwen2-0.5b heads, D=128, bf16 S={s}")
 
     def gemm_case(name, got, want, what):
         nonlocal cases
@@ -350,7 +407,7 @@ def check_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
         worst[name] = max(worst[name], max_abs_err(got, want))
         cases += 1
 
-    for m, k, n in GEMM_SHAPES + [MLP_SHAPE]:
+    for m, k, n in GEMM_SHAPES + [MLP_SHAPE, WRAP_SHAPE]:
         x, w = randint8((m, k), gen), randint8((k, n), gen)
         w4 = randint8((k, n), gen, -8, 8)
         want = ref.int8_matmul_ref(x, w)
@@ -361,7 +418,29 @@ def check_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
                   ref.int8_matmul_ref(x, w4), (m, k, n, "4-bit weights"))
         gemm_case("bitplane_matmul", bitplane_matmul(x, w, 4),
                   ref.bitplane_matmul_ref(x, w, 4), (m, k, n, "4 planes"))
-    return cases, worst
+    # every plane count, staged by cp.async (K, N multiples of 16) and by
+    # scalar loads (not)
+    for m, k, n in ((256, 320, 384), GEMM_SHAPES[-1]):
+        x, w = randint8((m, k), gen), randint8((k, n), gen)
+        for nbits in range(1, 9):
+            gemm_case("bitplane_matmul", bitplane_matmul(x, w, nbits),
+                      ref.bitplane_matmul_ref(x, w, nbits), (m, k, n, nbits))
+    # int32 wrap: 16384 * K > 2**31, so every sum of x = w = -128 wraps in
+    # the plain version; the tensor cores' s32 accumulators (no .satfinite)
+    # must wrap alike, not saturate
+    m, k, n = WRAP_SHAPE
+    x, w = (torch.full(shape, -128, dtype=torch.int8, device="cuda")
+            for shape in ((m, k), (k, n)))
+    want = ref.int8_matmul_ref(x, w)
+    wrapped = int(want[0, 0])
+    if wrapped != 16384 * k - 2**32:
+        raise AssertionError(f"the plain int8 product did not wrap: {wrapped}")
+    what = ("int32 wrap", m, k, n)
+    gemm_case("int8_matmul", int8_matmul(x, w), want, what)
+    gemm_case("bitplane_matmul", bitplane_matmul(x, w), want, what + (8,))
+    gemm_case("bitplane_matmul", bitplane_matmul(x, w, 4),
+              ref.bitplane_matmul_ref(x, w, 4), what + (4,))
+    return cases, worst, wrapped
 
 
 def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
@@ -375,8 +454,15 @@ def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
             for _ in range(2))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bound, by = flash_bound(b, h, hk, s, s, d, 2)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    q128, k128, v128 = (torch.randn(b, n, s, 128, generator=gen,
+                                    device="cuda").bfloat16()
+                        for n in (h, hk, hk))
     rows = {"flash_attention": dict(
-        ms=time_ms(lambda: flash_attention(q, k, v), 20),
+        ms=time_ms(lambda: flash_attention(q, k, v), 50),
+        ms_fp32=time_ms(lambda: flash_attention(q32, k32, v32), 10),
+        ms_d128=time_ms(lambda: flash_attention(q128, k128, v128), 50),
+        bound_ms_d128=flash_bound(b, h, hk, s, s, 128, 2)[0],
         plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), 5),
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                         enable_gqa=True), 50),
@@ -384,7 +470,9 @@ def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
                 "(is_causal, enable_gqa)",
         bound_ms=bound, bound_by=by,
         timed_at=f"bf16 q ({b}, {h}, {s}, {d}), k/v ({b}, {hk}, {s}, {d}), "
-                 "causal")}
+                 "causal (ms, the tensor-core kernel); the same in float32 "
+                 "(ms_fp32, the CUDA-core kernel) and in bf16 at D = 128 "
+                 "(ms_d128, bound_ms_d128)")}
     m, kk, n = MLP_SHAPE
     x, w = randint8((m, kk), gen), randint8((kk, n), gen)
     try:                      # the library call only where it takes the shape
@@ -400,11 +488,11 @@ def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
         library_ms=int_mm_ms, library="torch._int_mm", bound_ms=bound,
         bound_by=by, timed_at=shape)
     rows["bitplane_matmul"] = dict(
-        ms=time_ms(lambda: bitplane_matmul(x, w), 10),
+        ms=time_ms(lambda: bitplane_matmul(x, w), 20),
         plain_ms=time_ms(lambda: ref.bitplane_matmul_ref(x, w), 3),
         library_ms=int_mm_ms, library="torch._int_mm (the 8-plane product)",
         bound_ms=bound, bound_by=by,
-        ms_nbits4=time_ms(lambda: bitplane_matmul(x, w, 4), 10),
+        ms_nbits4=time_ms(lambda: bitplane_matmul(x, w, 4), 20),
         timed_at=shape + ", 8 planes (ms) / 4 planes (ms_nbits4); the "
                  "bound is the one product either computes")
     return rows
@@ -520,7 +608,7 @@ def device_profile(fn) -> dict:
             continue
         busy += dev_us / 1e3
         launches += ev.count
-        flash += dev_us / 1e3 if "flash_fwd_kernel" in ev.key else 0.0
+        flash += dev_us / 1e3 if "flash_fwd" in ev.key else 0.0
         kernels.append((dev_us / 1e3, ev.count, ev.key[:60]))
     return {"wall_ms": wall, "device_busy_ms": busy,
             "device_busy_share": busy / wall, "flash_ms": flash,
@@ -780,12 +868,11 @@ def main() -> int:
     libs = _build.build_all()
     for name in libs:
         _build.load(name)
-    logs = {name: [ln for ln in (_build.BUILD_DIR / f"{name}.log")
-                   .read_text().splitlines() if "registers" in ln]
+    logs = {name: ptxas_usage((_build.BUILD_DIR / f"{name}.log").read_text())
             for name in libs}
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(str(p.relative_to(ROOT)) for p in libs.values()),
-         ptxas=logs)
+         ptxas=logs, sass_mma=sass_mma_counts(_build, libs))
 
     # ---- 3. kernels ------------------------------------------------------
     t0 = time.perf_counter()
@@ -793,8 +880,8 @@ def main() -> int:
     timings, shape_note = time_kernels(ref, mdgather, mdscatter_)
     for row in timings.values():
         row.update(bound_by="bytes", timed_at=shape_note)
-    lm_cases, lm_worst = check_lm_kernels(ref, flash_attention, int8_matmul,
-                                          bitplane_matmul)
+    lm_cases, lm_worst, wrapped = check_lm_kernels(
+        ref, flash_attention, int8_matmul, bitplane_matmul)
     worst.update(lm_worst)
     timings.update(time_lm_kernels(ref, flash_attention, int8_matmul,
                                    bitplane_matmul))
@@ -806,7 +893,9 @@ def main() -> int:
                                        f"shapes), {FLASH_FP32_PATH_TOL} "
                                        f"(prefill shapes); bf16 "
                                        f"{FLASH_BF16_TOL}"},
-         max_abs_err=worst, timings_ms=timings)
+         max_abs_err=worst,
+         int32_wrap=dict(shape=WRAP_SHAPE, x=-128, w=-128, out=wrapped),
+         timings_ms=timings)
 
     # ---- 4-6. the main paths, each with its launch counts ----------------
     (rows, batched, single_s, batch_s), counts = drive(

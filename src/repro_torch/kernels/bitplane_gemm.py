@@ -2,14 +2,26 @@
 
 Replaces the TPU kernels ``repro/kernels/bitplane_gemm.py::_int8_kernel``
 (wrapper ``int8_matmul``) and ``::_bitplane_kernel`` (wrapper
-``bitplane_matmul``).  The CUDA source is ``csrc/bitplane_gemm.cu``: one
-block per 64x64 int32 output tile, K streamed through shared memory 32
-bytes at a time, four int8 values per 32-bit word into ``__dp4a``.  The
-bit-plane kernel keeps the paper's bit-serial structure (Section VII-E):
-``nbits`` binary products ``x @ ((wu >> b) & 1)``, shifted and summed with
-the top plane negative, so ``nbits=4`` costs half of ``nbits=8``.  Both are
-bit-exact: integer sums wrap mod 2**32 exactly as the reference's int32
-arithmetic does.  Ragged M/N/K are masked in the kernel, not padded.
+``bitplane_matmul``).  The CUDA source is ``csrc/bitplane_gemm.cu``:
+
+* ``int8_matmul``: one block per 64x64 int32 output tile, K streamed
+  through shared memory 32 bytes at a time, four int8 values per 32-bit
+  word into ``__dp4a`` on the integer pipes.
+* ``bitplane_matmul``, on the int8 tensor cores: one block of 8 warps per
+  128x128 tile, K in steps of 64 bytes staged by ``cp.async`` in two
+  stages, ``mma.sync`` m16n8k32 (s8 in, s32 accumulators without
+  ``.satfinite``).  w stays (K, N) row-major: its rows are staged in a
+  permuted order so that ``ldmatrix.trans`` and two byte permutes give the
+  column-major B fragments, with no transposed copy.  The paper's
+  bit-serial structure (Section VII-E) stays in the kernel: plane ``b`` is
+  ``word & (0x01010101 << b)``, bytes 0 or ``2**b`` (the top plane
+  negative), and each plane is one tensor-core product into the same
+  accumulators, so ``nbits=4`` costs half the products of ``nbits=8``.
+  K or N not a multiple of 16 is staged by guarded scalar loads.
+
+Both are bit-exact: integer sums wrap mod 2**32 exactly as the reference's
+int32 arithmetic does.  Ragged M/N/K are zeros while staging, not padded in
+device memory.
 
 Bound on this card at the qwen2-0.5b MLP shape: bytes (the kernel's source
 note has the arithmetic).

@@ -1,43 +1,73 @@
 // Forward attention with an online softmax, for Hopper.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_kernel
-// (wrapper flash_attention).  Same arithmetic: q is scaled in fp32, logits
-// of masked positions are set to NEG_INF = -1e30 (not -inf), p is guarded by
-// logits > NEG_INF/2, the running max m, sum l and the accumulator stay in
-// fp32, a row that saw no key divides by 1 and comes out 0, and the causal
-// diagonal sits at offset = Sk - Sq on the unpadded sizes.
-//
-// Design (the simple kernel that is right; wgmma/TMA come later):
-//   grid   (ceil(Sq / 64), B * H): one block per (batch*head, 64-row q tile);
-//   block  64 threads, one q row each: the row's accumulator (D floats), m
-//          and l live in registers;
-//   smem   the q tile (scaled, fp32, rows padded to D + 4 floats so float4
-//          reads of a thread's own row do not conflict) and one kv tile of
-//          32 rows of K and V converted to fp32; every thread of a warp
-//          reads the same K/V row at once (a broadcast);
-//   loop   over kv tiles up to clip((q_last + offset) / 32 + 1, 0, nk): the
-//          tiles past it are masked for every row of the block;
-//   edges  ragged Sq/Sk are masked in the kernel (kv rows past Sk are loaded
-//          as 0 and masked unconditionally; q rows past Sq are computed and
-//          not stored) -- there is no padded copy in device memory.
-// The inputs may be strided views (only the head dimension must be dense),
-// and K/V may have fewer heads than Q: head h reads kv head h / (H / Hkv),
-// which is jnp.repeat of the kv heads without the copy.
+// (wrapper flash_attention).  Same semantics in both kernels below: logits
+// of masked positions are set to NEG_INF = -1e30 (not -inf), p is guarded
+// by logits > NEG_INF/2, the running max m, sum l and the output
+// accumulator stay in fp32, a row that saw no key divides by 1 and comes
+// out 0, and the causal diagonal sits at offset = Sk - Sq on the unpadded
+// sizes.  Ragged Sq/Sk are masked in the kernel (there is no padded copy in
+// device memory); the inputs may be strided views with only the head
+// dimension dense; K/V may have fewer heads than Q: head h reads kv head
+// h / (H / Hkv), which is jnp.repeat of the kv heads without the copy.
 //
 // Bound on this card, at the prefill shape of qwen2-0.5b (B = 4, 14 q heads
 // over 2 kv heads, S = 1024, D = 64, bf16, causal): the 4*D*B*H*S(S+1)/2
 // flops of the visible half (7.5 GFLOP -> 7.6 us at 989 TFLOP/s bf16) weigh
 // more than the bytes (q and o for 14 heads, k and v for 2: 16.8 MB ->
-// 5.0 us at 3.35 TB/s; with the kv heads repeated in memory it would be
-// 29 MB -> 8.8 us).  This kernel computes on the fp32 pipes out of shared
-// memory, so it is far from either bound.
+// 5.0 us at 3.35 TB/s).  So the products have to run on the tensor cores.
+//
+// Which dtype takes which kernel:
+//   bfloat16 -> flash_fwd_mma_kernel, on the tensor cores (mma.sync);
+//   float32  -> flash_fwd_simt_kernel, on the fp32 CUDA cores.  TF32 keeps
+//               about 10 mantissa bits, so a tensor-core product could not
+//               hold the fp32 comparison (3e-5); the fp32 path serves only
+//               the float32 decode-vs-prefill check, not bf16 serving.
+//
+// flash_fwd_mma_kernel (FlashAttention-2 shape):
+//   grid   (ceil(Sq / 64), B * H), the q tiles in reverse so the longest
+//          causal rows start first; block 4 warps, 16 q rows each
+//          (64-row tiles make 896 blocks at the prefill shape, 6.8 per SM,
+//          where 128-row tiles would make 3.4: fewer blocks to even out
+//          the unequal lengths of causal rows);
+//   q      the warp's 16 x D fragment is loaded once with ldmatrix, in bf16
+//          and unscaled: the scale multiplies the fp32 logits, so no bit of
+//          q is rounded away (the reference scales q in fp32);
+//   k, v   64-row tiles staged with 16-byte cp.async in two stages: tile
+//          j+1 loads while tile j is computed.  Rows are padded to D + 8
+//          bf16 (a 16-byte skew), so the eight rows an ldmatrix reads hit
+//          eight distinct groups of four banks;
+//   S      = Q K^T with mma.m16n8k16 bf16 -> fp32; K, row-major in shared
+//          memory, is the .col B operand as it stands (ldmatrix, no .trans);
+//   softmax row max and row sum over the fp32 accumulator fragment, the
+//          max shared within the quad of lanes that hold a row
+//          (__shfl_xor_sync 1, 2); l is summed from the fp32 p and reduced
+//          over the quad once, at the end;
+//   P V    p is rounded to bf16 in registers and used directly as the A
+//          operand (the C fragment of m16n8k16 is its A fragment); V goes
+//          in through ldmatrix.trans; O accumulates in fp32 registers.
+//          Rounding p to bf16 is the one rounding point the reference
+//          (P V in fp32) does not have; it stays within the card's limit,
+//          rtol 1e-2 / atol 8e-3 (tests/test_torch_kernel_numerics.py
+//          emulates it);
+//   masks  only on tiles that cross the warp's diagonal or the Sk edge;
+//          tiles past the block's diagonal are skipped by the loop bound,
+//          and a warp skips a tile that lies wholly past its own rows.
+//   Needs 16-byte-aligned rows (base pointers and strides); the wrapper
+//   makes an operand that is not so contiguous before the launch.
+//
+// flash_fwd_simt_kernel (float32): one thread per q row (64 per block)
+// holding its fp32 accumulator, m and l in registers; q scaled in fp32 as
+// the TPU kernel does, rows padded to D + 4 floats; K/V tiles of 32 rows
+// converted to fp32 in shared memory and read as broadcasts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define FA_BQ 64            // q rows per block = threads per block
-#define FA_BK 32            // kv rows per shared-memory tile
+#include "mma_sync.cuh"
+
 #define FA_NEG_INF (-1e30f)
+#define FA_LOG2E 1.4426950408889634f
 
 struct FaShape {
     long long heads, kv_group;          // H, H / Hkv
@@ -49,24 +79,244 @@ struct FaShape {
     float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+#define FM_ROWS 64                  // q rows per block = kv rows per tile
+#define FM_THREADS 128              // 4 warps x 16 q rows
+
+template <int D>
+constexpr size_t fm_smem_bytes() {  // q tile + two stages of k and v
+    return (size_t)5 * FM_ROWS * (D + 8) * sizeof(__nv_bfloat16);
 }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
+
+// Stage rows row0 .. row0 + 63 of one head (row stride `stride` elements)
+// into a padded tile; rows at or past `end` are filled with zeros.
+template <int D>
+__device__ __forceinline__ void fm_stage(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src,
+                                         long long stride, long long row0,
+                                         long long end, int tid) {
+    constexpr int LD = D + 8, CHUNKS = D / 8;
+#pragma unroll
+    for (int it = 0; it < FM_ROWS * CHUNKS / FM_THREADS; ++it) {
+        const int i = tid + it * FM_THREADS;
+        const int r = i / CHUNKS, c = i % CHUNKS;
+        const long long row = row0 + r;
+        const bool in = row < end;
+        cp_async16(smem_addr(dst + r * LD + c * 8),
+                   in ? src + row * stride + c * 8 : src, in ? 16 : 0);
+    }
 }
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FM_THREADS)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ out, FaShape s) {
+    extern __shared__ float4 fm_smem[];
+    constexpr int LD = D + 8, TILE = FM_ROWS * LD;
+    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(fm_smem);
+    __nv_bfloat16* k_s = q_s + TILE;            // two stages
+    __nv_bfloat16* v_s = k_s + 2 * TILE;        // two stages
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const long long bh = blockIdx.y;
+    const long long b = bh / s.heads, h = bh % s.heads;
+    const long long hk = h / s.kv_group;
+    const long long q0 = (long long)(gridDim.x - 1 - blockIdx.x) * FM_ROWS;
+    const __nv_bfloat16* qb = q + b * s.q_sb + h * s.q_sh;
+    const __nv_bfloat16* kb = k + b * s.k_sb + hk * s.k_sh;
+    const __nv_bfloat16* vb = v + b * s.v_sb + hk * s.v_sh;
+
+    const long long nk = (s.sk + FM_ROWS - 1) / FM_ROWS;
+    long long upper = nk;
+    if (s.causal) {
+        const long long last =
+            (q0 + FM_ROWS < s.sq ? q0 + FM_ROWS : s.sq) - 1 + s.offset;
+        upper = last < 0 ? 0 : (last / FM_ROWS + 1 < nk ? last / FM_ROWS + 1
+                                                        : nk);
+    }
+
+    // group 0: the q tile; group 1: kv tile 0
+    fm_stage<D>(q_s, qb, s.q_ss, q0, s.sq, tid);
+    cp_async_commit();
+    if (upper > 0) {
+        fm_stage<D>(k_s, kb, s.k_ss, 0, s.sk, tid);
+        fm_stage<D>(v_s, vb, s.v_ss, 0, s.sk, tid);
+    }
+    cp_async_commit();
+
+    // lane addresses: A (q) and V^T tiles take rows (lane & 7) + 8 *
+    // bit 3 of lane, column 8 * bit 4; K takes rows (lane & 7) + 8 * bit 4,
+    // column 8 * bit 3 (see mma_sync.cuh for the fragment layouts)
+    const int a_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                       (lane >> 4) * 8;
+    const int k_lane = ((lane & 7) + (lane >> 4) * 8) * LD +
+                       ((lane >> 3) & 1) * 8;
+
+    cp_async_wait<1>();
+    __syncthreads();
+    uint32_t qf[D / 16][4];
+    const uint32_t q_addr = smem_addr(q_s + warp * 16 * LD + a_lane);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], q_addr + kk * 32);
+
+    const long long qw0 = q0 + warp * 16;       // the warp's first q row
+    const long long pos0 = qw0 + g + s.offset;  // causal position, row g
+    float o[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+        o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
+
+    for (long long j = 0; j < upper; ++j) {
+        const int st = (int)(j & 1);
+        if (j + 1 < upper) {
+            const long long next = (j + 1) * FM_ROWS;
+            fm_stage<D>(k_s + (st ^ 1) * TILE, kb, s.k_ss, next, s.sk, tid);
+            fm_stage<D>(v_s + (st ^ 1) * TILE, vb, s.v_ss, next, s.sk, tid);
+        }
+        cp_async_commit();
+        cp_async_wait<1>();                     // tile j has landed
+        __syncthreads();
+
+        const long long k0 = j * FM_ROWS;
+        if (!s.causal || k0 <= qw0 + 15 + s.offset) {
+            // S = Q K^T for the warp's 16 rows x 64 keys
+            float sc[FM_ROWS / 8][4];
+#pragma unroll
+            for (int n = 0; n < FM_ROWS / 8; ++n)
+                sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+            const uint32_t k_addr = smem_addr(k_s + st * TILE + k_lane);
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+                for (int np = 0; np < FM_ROWS / 16; ++np) {
+                    uint32_t r[4];
+                    ldsm_x4(r, k_addr + (np * 16 * LD + kk * 16) * 2);
+                    mma_bf16_16816(sc[2 * np], qf[kk], r[0], r[1]);
+                    mma_bf16_16816(sc[2 * np + 1], qf[kk], r[2], r[3]);
+                }
+            }
+
+            // scale in fp32, mask where the tile crosses the diagonal or Sk
+            const bool edge = (s.causal && k0 + FM_ROWS - 1 > qw0 + s.offset)
+                              || k0 + FM_ROWS > s.sk;
+            float tmax[2] = {FA_NEG_INF, FA_NEG_INF};
+#pragma unroll
+            for (int n = 0; n < FM_ROWS / 8; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float x = sc[n][e] * s.scale;
+                    if (edge) {
+                        const long long key = k0 + n * 8 + 2 * t + (e & 1);
+                        const long long pos = pos0 + (e >> 1) * 8;
+                        const bool valid =
+                            key < s.sk && (!s.causal || pos >= key);
+                        x = valid ? x : FA_NEG_INF;
+                    }
+                    sc[n][e] = x;
+                    tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+                }
+            }
+            float alpha[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                tmax[i] = fmaxf(tmax[i],
+                                __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+                tmax[i] = fmaxf(tmax[i],
+                                __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+                const float m_new = fmaxf(m[i], tmax[i]);
+                alpha[i] = exp2f((m[i] - m_new) * FA_LOG2E);
+                m[i] = m_new;
+                l[i] *= alpha[i];
+            }
+#pragma unroll
+            for (int n = 0; n < FM_ROWS / 8; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float x = sc[n][e];
+                    const float p = x > FA_NEG_INF / 2
+                                        ? exp2f((x - m[e >> 1]) * FA_LOG2E)
+                                        : 0.f;
+                    sc[n][e] = p;
+                    l[e >> 1] += p;
+                }
+            }
+#pragma unroll
+            for (int n = 0; n < D / 8; ++n) {
+                o[n][0] *= alpha[0];
+                o[n][1] *= alpha[0];
+                o[n][2] *= alpha[1];
+                o[n][3] *= alpha[1];
+            }
+
+            // O += P V: p in bf16 as the A operand, straight from registers
+            const uint32_t v_addr = smem_addr(v_s + st * TILE + a_lane);
+#pragma unroll
+            for (int kk = 0; kk < FM_ROWS / 16; ++kk) {
+                const uint32_t a[4] = {
+                    pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]),
+                    pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]),
+                    pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                    pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+                for (int dp = 0; dp < D / 16; ++dp) {
+                    uint32_t r[4];
+                    ldsm_x4_trans(r, v_addr + (kk * 16 * LD + dp * 16) * 2);
+                    mma_bf16_16816(o[2 * dp], a, r[0], r[1]);
+                    mma_bf16_16816(o[2 * dp + 1], a, r[2], r[3]);
+                }
+            }
+        }
+        __syncthreads();             // stage st is free for tile j + 2
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        if (l[i] == 0.f) l[i] = 1.f;            // rows that saw no key
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const long long row = qw0 + g + 8 * i;
+        if (row >= s.sq) continue;
+        __nv_bfloat16* orow = out + (bh * s.sq + row) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+                __floats2bfloat162_rn(o[n][2 * i] / l[i],
+                                      o[n][2 * i + 1] / l[i]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+#define FA_BQ 64            // q rows per block = threads per block
+#define FA_BK 32            // kv rows per shared-memory tile
 
 template <int D>
 constexpr size_t fa_smem_bytes() {
     return (size_t)(FA_BQ * (D + 4) + 2 * FA_BK * D) * sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_BQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, FaShape s) {
+flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      FaShape s) {
     extern __shared__ float4 fa_smem[];
     constexpr int QS = D + 4;
     float* q_s = reinterpret_cast<float*>(fa_smem);   // FA_BQ x QS
@@ -79,16 +329,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long h = bh % s.heads;
     const long long hk = h / s.kv_group;
     const long long q0 = (long long)blockIdx.x * FA_BQ;
-    const T* qb = q + b * s.q_sb + h * s.q_sh;
-    const T* kb = k + b * s.k_sb + hk * s.k_sh;
-    const T* vb = v + b * s.v_sb + hk * s.v_sh;
+    const float* qb = q + b * s.q_sb + h * s.q_sh;
+    const float* kb = k + b * s.k_sb + hk * s.k_sh;
+    const float* vb = v + b * s.v_sb + hk * s.v_sh;
 
     // the q tile, scaled in fp32 as the TPU kernel does; rows past Sq are 0
     for (int i = t; i < FA_BQ * D; i += FA_BQ) {
         const int r = i / D, c = i % D;
         const long long row = q0 + r;
-        q_s[r * QS + c] =
-            row < s.sq ? to_f32(qb[row * s.q_ss + c]) * s.scale : 0.f;
+        q_s[r * QS + c] = row < s.sq ? qb[row * s.q_ss + c] * s.scale : 0.f;
     }
 
     const long long nk = (s.sk + FA_BK - 1) / FA_BK;
@@ -113,8 +362,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int r = i / D, c = i % D;
             const long long key = k0 + r;
             const bool in = key < s.sk;
-            k_s[i] = in ? to_f32(kb[key * s.k_ss + c]) : 0.f;
-            v_s[i] = in ? to_f32(vb[key * s.v_ss + c]) : 0.f;
+            k_s[i] = in ? kb[key * s.k_ss + c] : 0.f;
+            v_s[i] = in ? vb[key * s.v_ss + c] : 0.f;
         }
         __syncthreads();
 
@@ -172,32 +421,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     if (qrow < s.sq) {
         const float lf = l == 0.f ? 1.f : l;       // rows that saw no key
-        T* o = out + (bh * s.sq + qrow) * D;
+        float* o = out + (bh * s.sq + qrow) * D;
 #pragma unroll
-        for (int d = 0; d < D; ++d) store_f32(o + d, acc[d] / lf);
+        for (int d = 0; d < D; ++d) o[d] = acc[d] / lf;
     }
 }
 
-template <typename T, int D>
-static int launch(const void* q, const void* k, const void* v, void* out,
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename T, typename Kernel>
+static int launch(Kernel kernel, size_t smem, int rows, int threads,
+                  const void* q, const void* k, const void* v, void* out,
                   const FaShape& s, long long bh, cudaStream_t stream) {
-    const size_t smem = fa_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((s.sq + FA_BQ - 1) / FA_BQ), (unsigned)bh);
-    flash_fwd_kernel<T, D><<<grid, FA_BQ, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, s);
+    const dim3 grid((unsigned)((s.sq + rows - 1) / rows), (unsigned)bh);
+    kernel<<<grid, threads, smem, stream>>>((const T*)q, (const T*)k,
+                                            (const T*)v, (T*)out, s);
     return (int)cudaGetLastError();
 }
 
 // q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D), each given by element strides of
 // its first three dimensions (the last is dense); out: (B, H, Sq, D)
-// contiguous, of q's type.  dtype 0 = float32, 1 = bfloat16; head_dim 64 or
-// 128.  The caller guarantees B*H, Sq > 0 and H % Hkv == 0.  Returns the
-// CUDA error code of the first failing call (0 = success), or -1 for a type
-// or head dimension no kernel is instantiated for.
+// contiguous, of q's type.  dtype 0 = float32, 1 = bfloat16 (whose base
+// pointers and strides must be 16-byte aligned); head_dim 64 or 128.  The
+// caller guarantees B*H, Sq > 0 and H % Hkv == 0.  Returns the CUDA error
+// code of the first failing call (0 = success), or -1 for a type or head
+// dimension no kernel is instantiated for.
 extern "C" int flash_attention_launch(
         const void* q, const void* k, const void* v, void* out, int dtype,
         int head_dim, long long batch, long long heads, long long kv_heads,
@@ -219,12 +472,18 @@ extern "C" int flash_attention_launch(
     const long long bh = batch * heads;
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0 && head_dim == 64)
-        return launch<float, 64>(q, k, v, out, s, bh, st);
+        return launch<float>(flash_fwd_simt_kernel<64>, fa_smem_bytes<64>(),
+                             FA_BQ, FA_BQ, q, k, v, out, s, bh, st);
     if (dtype == 0 && head_dim == 128)
-        return launch<float, 128>(q, k, v, out, s, bh, st);
+        return launch<float>(flash_fwd_simt_kernel<128>, fa_smem_bytes<128>(),
+                             FA_BQ, FA_BQ, q, k, v, out, s, bh, st);
     if (dtype == 1 && head_dim == 64)
-        return launch<__nv_bfloat16, 64>(q, k, v, out, s, bh, st);
+        return launch<__nv_bfloat16>(flash_fwd_mma_kernel<64>,
+                                     fm_smem_bytes<64>(), FM_ROWS, FM_THREADS,
+                                     q, k, v, out, s, bh, st);
     if (dtype == 1 && head_dim == 128)
-        return launch<__nv_bfloat16, 128>(q, k, v, out, s, bh, st);
+        return launch<__nv_bfloat16>(flash_fwd_mma_kernel<128>,
+                                     fm_smem_bytes<128>(), FM_ROWS,
+                                     FM_THREADS, q, k, v, out, s, bh, st);
     return -1;
 }

@@ -1,0 +1,83 @@
+// Warp-level tensor-core building blocks shared by the flash-attention and
+// bit-plane GEMM kernels: 16-byte cp.async staging into shared memory,
+// ldmatrix fragment loads, and the two mma.sync shapes they use.
+//
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 / k32"),
+// with g = lane / 4 and t = lane % 4:
+//   A (16 x 16 b16, or 16 x 32 bytes), four 32-bit registers:
+//       a0 row g, a1 row g + 8 (first half of k), a2 row g, a3 row g + 8
+//       (second half of k); each register holds the k values 2t, 2t+1
+//       (b16) or 4t .. 4t+3 (bytes) of its half.
+//   B (16 x 8 b16, or 32 x 8 bytes), two registers: column g, the same k
+//       values of the first (b0) and second (b1) half.
+//   C (16 x 8, fp32 or s32): c0, c1 at row g, columns 2t, 2t+1; c2, c3 at
+//       row g + 8.
+// ldmatrix.x4 hands lane l the row l / 4, b16 columns 2(l % 4), +1 of each
+// of four 8 x 8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
+// matrix i.  With .trans each matrix arrives transposed.
+#pragma once
+
+#include <stdint.h>
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Copy 16 bytes from global to shared memory without holding registers;
+// src_bytes = 0 writes 16 zeros and reads nothing (src must still be a
+// valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+
+// c += a @ b: bf16 16x16 by 16x8, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a @ b: s8 16x32 by 32x8, s32 accumulators that wrap mod 2^32 (no
+// .satfinite, so the sum is the reference's int32 arithmetic).
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}

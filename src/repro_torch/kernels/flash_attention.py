@@ -1,14 +1,27 @@
-"""Forward attention on Hopper: the online-softmax (flash) kernel.
+"""Forward attention on Hopper: the online-softmax (flash) kernels.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
 (wrapper ``flash_attention``).  The CUDA source is
-``csrc/flash_attention.cu``: one block per (batch*head, 64-row q tile), one
-thread per q row holding its fp32 accumulator, running max and sum in
-registers, kv tiles of 32 rows staged in shared memory; masking with
-``-1e30`` and the ``logits > -1e30/2`` guard exactly as the TPU kernel, so
-a row that sees no key comes out 0 (the plain version gives NaN there, as
-the reference's oracle does).  Ragged ``Sq``/``Sk`` are masked inside the
-kernel; nothing is padded in device memory.
+``csrc/flash_attention.cu``, with one kernel per dtype:
+
+* bfloat16 takes ``flash_fwd_mma_kernel``, on the tensor cores: one block
+  per (batch*head, 64-row q tile), 4 warps of 16 q rows; K/V tiles of 64
+  rows staged by ``cp.async`` in two stages; ``S = Q K^T`` and ``O += P V``
+  with ``mma.sync`` m16n8k16 (bf16 in, fp32 accumulators); the softmax
+  scale on the fp32 logits; ``p`` rounded to bf16 in registers for
+  ``P V``, ``l`` summed from the fp32 ``p``.  ``cp.async`` copies 16-byte
+  rows, so an operand whose base or strides are not 16-byte aligned is
+  made contiguous first (:func:`_kernel_operand`).
+* float32 takes ``flash_fwd_simt_kernel``, on the fp32 CUDA cores (one
+  thread per q row): TF32 tensor cores keep about 10 mantissa bits, too few
+  for the fp32 comparison (3e-5).  It serves the float32 checks, not bf16
+  serving.
+
+Both mask with ``-1e30`` and the ``logits > -1e30/2`` guard exactly as the
+TPU kernel, so a row that sees no key comes out 0 (the plain version gives
+NaN there, as the reference's oracle does).  Ragged ``Sq``/``Sk`` are masked
+inside the kernel; nothing is padded in device memory.  Both are counted in
+``flash_attention.launches``.
 
 Bound on this card at the qwen2-0.5b prefill shape: operations (the
 kernel's source note has the arithmetic).
@@ -42,6 +55,18 @@ def _entry():
     return fn
 
 
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel takes it: the head dimension dense and, for
+    bfloat16 (staged by 16-byte ``cp.async``), the base pointer and the
+    strides of the first three dimensions 16-byte aligned; otherwise a
+    contiguous copy."""
+    ok = t.stride(-1) == 1
+    if t.dtype == torch.bfloat16:
+        ok = ok and t.data_ptr() % 16 == 0 and all(
+            s % 8 == 0 for s in t.stride()[:3])
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -53,7 +78,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``Hkv == H`` the two are the same call).  ``D`` is 64 or 128, the type
     float32 or bfloat16, all three on one device; ``scale`` defaults to
     ``1/sqrt(D)``; the causal diagonal sits at ``Sk - Sq``.  Strided views
-    are taken as they are as long as the head dimension is dense.  A CUDA
+    are taken as they are as long as the head dimension is dense (and, in
+    bfloat16, rows are 16-byte aligned; else they are copied).  A CUDA
     tensor always goes through the kernel; only a CPU tensor takes the
     plain version.
     """
@@ -78,7 +104,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     out = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

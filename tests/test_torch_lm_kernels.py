@@ -21,7 +21,8 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitplane_gemm import bitplane_matmul, int8_matmul
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (_kernel_operand,
+                                                 flash_attention)
 from repro_torch.models.attention import chunked_attention
 
 from _torch_parity import assert_bits_equal
@@ -131,6 +132,27 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(x, x.double(), x)
     with pytest.raises(TypeError):
         flash_attention(x.half(), x.half(), x.half())
+
+
+def test_bf16_operands_are_copied_only_when_rows_are_unaligned():
+    """The bf16 kernel stages 16-byte rows with cp.async: a view whose base
+    or strides are not 16-byte aligned is handed over as a contiguous copy;
+    aligned strided views (the model's transposes) and fp32 are not."""
+    n = 2 * 80 * 3 * 64
+    x = torch.arange(n + 8, dtype=torch.float32).bfloat16()
+    view = x[:n].view(2, 80, 3, 64).transpose(1, 2)
+    assert _kernel_operand(view) is view
+    for t in (x[1:1 + n].view(2, 3, 80, 64),           # base 2 bytes off
+              x[:n].view(2, 80, 3, 64)[..., 1:57],    # the same, strided
+              x[:26112].view(2, 3, 64, 68)[..., :64]):  # rows 136 bytes apart
+        got = _kernel_operand(t)
+        assert got is not t and torch.equal(got, t)
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    narrow = x[:n].view(2, 80, 3, 64)[..., :56]       # 16-byte rows
+    assert _kernel_operand(narrow) is narrow
+    odd32 = x.float()[1:1 + n].view(2, 3, 80, 64)      # fp32: no cp.async
+    assert _kernel_operand(odd32) is odd32
+    assert _kernel_operand(x[:n].view(2, 3, 80, 64)[..., ::2]).stride(-1) == 1
 
 
 # ---------------------------------------------------------------------------
