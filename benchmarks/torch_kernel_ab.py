@@ -1,0 +1,153 @@
+"""Two trees of the PyTorch/CUDA port, kernel against kernel, on one card.
+
+Times ``mdscatter_`` at the store walks of its three routes (the
+``transpose`` pattern's contiguous store, its transposing walk, whole rows
+colliding; fp32, 8192 lanes, image 50176, 1 and 1024 images, all lanes
+active), ``mdgather`` at the transposing walk, and ``int8_matmul`` /
+``bitplane_matmul`` (8 and 4 planes) at qwen2-0.5b's MLP shape (x 4096x896
+@ w 896x4864), each beside its PyTorch library call (the scatter also
+with its device time alone: calls queued behind a sleeping kernel), for
+every source tree given, in the order given.  Each tree runs in a process of its own
+(both are the package ``repro_torch``) and builds its kernels into its own
+``build/``.  Needs a CUDA device.
+
+    python -m benchmarks.torch_kernel_ab --src OLD/src src src OLD/src \\
+        --out chiprun_out/ab.json
+
+Run the trees in turns (old, new, new, old) so that a drift of the card
+shows as a difference between the two runs of one tree.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+BATCH, LANES, IMAGE = 1024, 8192, 50176
+SCATTER_WALKS = {"contiguous": ((512, 16), (1, 512), 0),
+                 "distinct": ((512, 16), (49, 1), 0),
+                 "colliding": ((64, 128), (1, 0), 0)}
+MLP_SHAPE = (4096, 896, 4864)
+
+
+def time_ms(fn, iters: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time per call with the host out of the way: the calls are
+    queued behind a sleeping kernel, so the device runs them back to back
+    (``time_ms`` times what a caller sees, host overhead included)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)          # ~0.1 s, longer than the queueing
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def measure() -> dict:
+    """Every time, from the ``repro_torch`` first on ``sys.path``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitplane_gemm import (bitplane_matmul,
+                                                   int8_matmul)
+    from repro_torch.kernels.mdgather import mdgather
+    from repro_torch.kernels.mdscatter import mdscatter_
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mask = torch.ones(LANES, dtype=torch.bool, device="cuda")
+    out = {}
+    for batch, iters in ((BATCH, 50), (1, 500)):
+        shape = (batch, IMAGE) if batch > 1 else (IMAGE,)
+        dst = torch.randn(shape, generator=gen, device="cuda")
+        vals = torch.randn(shape[:-1] + (LANES,), generator=gen,
+                           device="cuda")
+        for route, (dims, strides, base) in SCATTER_WALKS.items():
+            addr = ref.mdv_lane_addresses(dims, strides, base, LANES,
+                                          "cuda")
+            call = (lambda: mdscatter_(dst, vals, dims, strides, base,
+                                       mask))
+            lib = (lambda: dst.index_copy_(-1, addr, vals))
+            out[f"mdscatter {route} B={batch}"] = time_ms(call, iters)
+            out[f"index_copy_ {route} B={batch}"] = time_ms(lib, iters)
+            out[f"mdscatter {route} B={batch} device"] = device_ms(call, 100)
+            out[f"index_copy_ {route} B={batch} device"] = device_ms(lib,
+                                                                     100)
+        dims, strides, base = SCATTER_WALKS["distinct"]
+        out[f"mdgather B={batch}"] = time_ms(
+            lambda: mdgather(dst, dims, strides, base, lanes=LANES), iters)
+    m, k, n = MLP_SHAPE
+    x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int16).to(torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int16).to(torch.int8)
+    if not torch.equal(int8_matmul(x, w), ref.int8_matmul_ref(x, w)):
+        raise AssertionError("int8_matmul != its plain version")
+    out["int8_matmul"] = time_ms(lambda: int8_matmul(x, w), 50)
+    out["bitplane_matmul 8"] = time_ms(lambda: bitplane_matmul(x, w), 50)
+    out["bitplane_matmul 4"] = time_ms(lambda: bitplane_matmul(x, w, 4), 50)
+    out["torch._int_mm"] = time_ms(lambda: torch._int_mm(x, w), 50)
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", nargs="+", default=["src"],
+                    help="the trees' src directories, in the order to run")
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if args.one:
+        sys.path.insert(0, str(Path(args.src[0]).resolve()))
+        print(json.dumps(measure()), flush=True)
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip()
+    rows = [{"card": card, "torch": torch.__version__}]
+    print(json.dumps(rows[0]), flush=True)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for src in args.src:
+        proc = subprocess.run(
+            [sys.executable, "-m", "benchmarks.torch_kernel_ab", "--one",
+             "--src", src], check=True, capture_output=True, text=True,
+            env=env, cwd=Path(__file__).resolve().parents[1], timeout=900)
+        rows.append({"src": src, **json.loads(proc.stdout.splitlines()[-1])})
+        print(json.dumps(rows[-1]), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

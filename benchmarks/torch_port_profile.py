@@ -26,8 +26,7 @@ from repro_torch.core import MVEConfig, compile_program
 from repro_torch.core.machine import as_memory
 from repro_torch.core.patterns import PATTERNS
 
-OURS = ("mdgather_kernel", "mdscatter_owner_kernel",
-        "mdscatter_store_kernel")
+OURS = ("mdgather_kernel", "mdscatter_")     # every mdscatter route's kernel
 
 
 def wall_ms(fn, iters: int) -> float:

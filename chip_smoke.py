@@ -16,13 +16,19 @@ non-zero:
    ``flash_attention``, ``bitplane_gemm``) is built from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
    compiler process per source, started together; ``cuobjdump`` counts the
-   HMMA/IMMA instructions of each kernel, and the bf16 flash kernel and the
-   bit-plane kernel must have them (they run on the tensor cores).
+   HMMA/IMMA instructions of each kernel, and the bf16 flash kernel and
+   both instances of the int8 tensor-core GEMM (``int8_matmul``'s and
+   ``bitplane_matmul``'s) must have them.
 3. ``kernels`` — each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main paths give it: the MVE gather/scatter
    bit for bit (8192 lanes; 1-4 dims with a stride-0 dim; colliding stores;
-   a dimension mask; negative addresses; fp32/int32/bf16/uint8; one image
-   and a batch of 1024); flash attention on the reference's test shapes
+   contiguous stores whose tail runs past the image or whose negative base
+   wraps; a dimension mask; negative addresses;
+   fp32/int32/bf16/uint8/int64; one image and a batch of 1024), each of
+   the scatter's three routes (contiguous, distinct, colliding) taken at
+   least once, and a profiled call of the contiguous and of the distinct
+   route issuing exactly one device kernel and no memset; flash attention
+   on the reference's test shapes
    (fp32 and bf16), a bf16 view that is not 16-byte aligned, and at
    qwen2-0.5b's prefill shapes (4 x 14 q heads over 2 kv heads, S = 1024
    and 1025, D = 64, and D = 128 in bf16), fp32 within 3e-5 on the test
@@ -35,7 +41,8 @@ non-zero:
    and a ragged shape.  Each is timed with CUDA events at its
    main-path shape beside its plain version, one PyTorch library call
    (timed only, the port never calls it) and the card's bound for the same
-   work; the float32 flash kernel is timed beside the bf16 one.
+   work; the scatter at the ``transpose`` pattern's store walk and at one
+   walk of each other route, the float32 flash kernel beside the bf16 one.
 4. ``path``    — the MVE main path at the Table IV geometry
    (``MVEConfig()``, 8192 lanes): every one of the 14 Section-IV patterns
    at its default size through ``compile_program(...).run`` on ``cuda``,
@@ -107,10 +114,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-# the kernels that must run on the tensor cores, and the SASS mnemonic of
-# their matrix instructions
+# the kernels that must run on the tensor cores (a substring of their
+# mangled names: bitplane_gemm_kernel<true> is int8_matmul's instance,
+# <false> bitplane_matmul's), and the SASS mnemonic of their matrix
+# instructions
 TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": "HMMA",
-                       "bitplane_gemm_kernel": "IMMA"}
+                       "bitplane_gemm_kernelILb1E": "IMMA",
+                       "bitplane_gemm_kernelILb0E": "IMMA"}
 
 
 def sass_mma_counts(build, libs) -> dict:
@@ -147,12 +157,31 @@ def ptxas_usage(log: str) -> dict:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn()`` over ``iters`` back-to-back calls, on the
+    device's clock: the host's overhead per call shows where it is longer
+    than the device's work."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of ``fn()`` alone: ``iters`` calls queued behind a
+    sleeping kernel (about 0.1 s, longer than the host takes to queue
+    them), so the device runs them back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -199,17 +228,24 @@ WALKS = [
     ((8192,), (9,), 100),
     ((64, 128), (-3, 1), 50),
 ]
-# store walks add collisions: a stride-0 dimension makes whole rows collide
-# (the highest lane must win), and a partial overlap (2x + 3y).
-STORE_WALKS = WALKS + [((3, 2), (1, 0), 2), ((64, 128), (2, 3), 0)]
-DTYPES = [torch.float32, torch.int32, torch.bfloat16, torch.uint8]
 IMAGE = 1 << 16
+# store walks add collisions: a stride-0 dimension makes whole rows collide
+# (the highest lane must win), and a partial overlap (2x + 3y); then two
+# contiguous runs that leave the image: a tail past its end, and a
+# negative base that wraps to +N.  Between them they take all three
+# routes of mdscatter_ (contiguous, distinct, colliding).
+STORE_WALKS = WALKS + [((3, 2), (1, 0), 2), ((64, 128), (2, 3), 0),
+                       ((8192,), (1,), IMAGE - 2536),
+                       ((8192,), (1,), 100 - IMAGE)]
+DTYPES = [torch.float32, torch.int32, torch.bfloat16, torch.uint8,
+          torch.int64]
 
 
 def check_kernels(ref, mdgather, mdscatter_):
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"mdgather": 0.0, "mdscatter": 0.0}
     cases = 0
+    routes = dict(mdscatter_.routes)
     for batch in (1, BATCH):
         for dtype in DTYPES:
             shape = (IMAGE,) if batch == 1 else (batch, IMAGE)
@@ -250,55 +286,121 @@ def check_kernels(ref, mdgather, mdscatter_):
         again = mdscatter_(dst.clone(), vals, (64, 128), (1, 0), 0)
         if not torch.equal(first, again):
             raise AssertionError("mdscatter is not deterministic")
-    return cases, worst
+    routes = {r: mdscatter_.routes[r] - routes[r] for r in routes}
+    if not all(routes.values()):
+        raise AssertionError(f"a route of mdscatter never ran: {routes}")
+    return cases, worst, routes
+
+
+def device_ops(fn) -> dict:
+    """``{name: count}`` of the device operations (kernels, memsets,
+    copies) one call of ``fn`` issues, under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key[:60]: ev.count for ev in prof.key_averages()
+            if getattr(ev, "self_device_time_total", 0.0)
+            and ev.device_type.name != "CPU"}
+
+
+def check_scatter_launches(mdscatter_):
+    """A call of the contiguous and of the distinct route is one device
+    kernel and nothing else (no memset), for one image and for a batch;
+    the colliding route's operations are recorded.  Each walk is called
+    once before: its first call uploads the walk's lane order (the distinct
+    and colliding routes' thread order), once per walk and device."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for batch in (1, BATCH):
+        for route, (dims, strides, base, n) in SCATTER_SHAPES.items():
+            shape = (n,) if batch == 1 else (batch, n)
+            dst = random_tensor(shape, torch.float32, gen)
+            vals = random_tensor(shape[:-1] + (LANES,), torch.float32, gen)
+            mask = torch.rand(LANES, generator=gen, device="cuda") < 0.7
+            mdscatter_(dst, vals, dims, strides, base, mask)
+            before = mdscatter_.routes[route]
+            ops = device_ops(lambda: mdscatter_(dst, vals, dims, strides,
+                                                base, mask))
+            if mdscatter_.routes[route] != before + 1:
+                raise AssertionError(f"{dims} {strides} did not take the "
+                                     f"{route} route")
+            if route != "colliding" and (
+                    sum(ops.values()) != 1 or any(
+                        "emset" in k or "mdscatter" not in k for k in ops)):
+                raise AssertionError(f"mdscatter {route} route, B={batch}: "
+                                     f"device operations {ops}")
+            out[f"{route}, B={batch}"] = ops
+    return out
+
+
+# The store shapes of the three routes of mdscatter_, over the transpose
+# pattern's image of 50176 fp32: its real store (contiguous; the kernel
+# table's main shape), its transposing load walk stored back (distinct),
+# and whole rows colliding on one address each (colliding).
+SCATTER_SHAPES = {"contiguous": ((512, 16), (1, 512), 0, 50176),
+                  "distinct": ((512, 16), (49, 1), 0, 50176),
+                  "colliding": ((64, 128), (1, 0), 0, 50176)}
 
 
 def time_kernels(ref, mdgather, mdscatter_):
-    """Time both kernels at the main path's shape — the transposing 2-D
-    walk of 8192 fp32 lanes over the ``transpose`` pattern's image — for a
-    batch of 1024 images (the ``ms`` keys) and for one image."""
+    """Time both kernels for a batch of 1024 images (the ``ms`` keys) and
+    for one image (``_single``), fp32, 8192 lanes, over the ``transpose``
+    pattern's image: the gather at its transposing load walk, the scatter
+    at its store walk (``ms``) and at the other two routes' walks
+    (``ms_distinct``, ``ms_colliding``); ``device_ms*`` is the scatter's
+    device time without the host's overhead per call.  Bounds count each
+    needed element read once and each stored element written once, plus
+    the lane mask."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    dims, strides, base, n = (512, 16), (49, 1), 0, 50176
-    addr_host = np.asarray(
-        ref.mdv_lane_addresses(dims, strides, base, LANES).cpu())
-    unique = int(np.unique(addr_host).size)
-    out = {}
-    for batch, iters in ((BATCH, 30), (1, 300)):
-        shape = (n,) if batch == 1 else (batch, n)
-        image = random_tensor(shape, torch.float32, gen)
-        vals = random_tensor(shape[:-1] + (LANES,), torch.float32, gen)
-        mask = torch.ones(LANES, dtype=torch.bool, device="cuda")
+    shapes = [("mdgather", "", SCATTER_SHAPES["distinct"])] + [
+        ("mdscatter", "" if route == "contiguous" else f"_{route}", walk)
+        for route, walk in SCATTER_SHAPES.items()]
+    out, notes = {}, {}
+    for name, tag, (dims, strides, base, n) in shapes:
+        addr_host = np.asarray(
+            ref.mdv_lane_addresses(dims, strides, base, LANES).cpu())
+        unique = int(np.unique(addr_host).size)
         addr = torch.from_numpy(addr_host).cuda()
-        dst = image.clone()
-        elem = image.element_size()
-        # least bytes: each needed input element read once, each output
-        # element written once (the scatter also reads its lane mask)
-        gather_bytes = batch * (unique + LANES) * elem
-        scatter_bytes = batch * (LANES + unique) * elem + LANES
-        rows = {
-            "mdgather": dict(
-                ms=time_ms(lambda: mdgather(image, dims, strides, base,
-                                            lanes=LANES), iters),
-                plain_ms=time_ms(lambda: ref.mdgather_ref(
-                    image, dims, strides, base, LANES), iters),
-                library_ms=time_ms(lambda: torch.index_select(
-                    image, -1, addr), iters),
-                bound_ms=gather_bytes / HBM_BYTES_PER_S * 1e3),
-            "mdscatter": dict(
-                ms=time_ms(lambda: mdscatter_(dst, vals, dims, strides,
-                                              base, mask), iters),
-                plain_ms=time_ms(lambda: ref.mdscatter_ref(
-                    dst, vals, dims, strides, base, mask), iters),
-                library_ms=time_ms(lambda: dst.index_copy_(
-                    -1, addr, vals), iters),
-                bound_ms=scatter_bytes / HBM_BYTES_PER_S * 1e3),
-        }
-        for name, row in rows.items():
+        mask = torch.ones(LANES, dtype=torch.bool, device="cuda")
+        for batch, iters in ((BATCH, 30), (1, 300)):
+            shape = (n,) if batch == 1 else (batch, n)
+            image = random_tensor(shape, torch.float32, gen)
+            vals = random_tensor(shape[:-1] + (LANES,), torch.float32, gen)
+            elem = image.element_size()
+            if name == "mdgather":
+                nbytes = batch * (unique + LANES) * elem
+                row = dict(
+                    ms=time_ms(lambda: mdgather(image, dims, strides, base,
+                                                lanes=LANES), iters),
+                    plain_ms=time_ms(lambda: ref.mdgather_ref(
+                        image, dims, strides, base, LANES), iters),
+                    library_ms=time_ms(lambda: torch.index_select(
+                        image, -1, addr), iters))
+            else:
+                # every lane is active, so each address has one winner:
+                # read the mask and each winner's value, write the address
+                nbytes = 2 * batch * unique * elem + LANES
+                dst = image.clone()
+                row = dict(
+                    ms=time_ms(lambda: mdscatter_(dst, vals, dims, strides,
+                                                  base, mask), iters),
+                    device_ms=device_ms(lambda: mdscatter_(
+                        dst, vals, dims, strides, base, mask), 100),
+                    plain_ms=time_ms(lambda: ref.mdscatter_ref(
+                        dst, vals, dims, strides, base, mask), iters),
+                    library_ms=time_ms(lambda: dst.index_copy_(
+                        -1, addr, vals), iters))
+            row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            suffix = tag + ("" if batch == BATCH else "_single")
             for key, value in row.items():
-                out.setdefault(name, {})[
-                    key if batch == BATCH else f"{key}_single"] = value
-    shape_note = (f"fp32, dims {dims}, strides {strides}, {LANES} lanes, "
-                  f"image {n}, batch {BATCH} (ms) / 1 (ms_single)")
+                out.setdefault(name, {})[key + suffix] = value
+        notes[name + tag] = f"dims {dims}, strides {strides}, image {n}"
+    shape_note = (f"fp32, {LANES} lanes, batch {BATCH} (ms) / 1 "
+                  f"(ms_single); {notes}")
     return out, shape_note
 
 
@@ -876,7 +978,8 @@ def main() -> int:
 
     # ---- 3. kernels ------------------------------------------------------
     t0 = time.perf_counter()
-    cases, worst = check_kernels(ref, mdgather, mdscatter_)
+    cases, worst, routes = check_kernels(ref, mdgather, mdscatter_)
+    scatter_ops = check_scatter_launches(mdscatter_)
     timings, shape_note = time_kernels(ref, mdgather, mdscatter_)
     for row in timings.values():
         row.update(bound_by="bytes", timed_at=shape_note)
@@ -893,7 +996,8 @@ def main() -> int:
                                        f"shapes), {FLASH_FP32_PATH_TOL} "
                                        f"(prefill shapes); bf16 "
                                        f"{FLASH_BF16_TOL}"},
-         max_abs_err=worst,
+         max_abs_err=worst, mdscatter_routes=routes,
+         mdscatter_device_ops=scatter_ops,
          int32_wrap=dict(shape=WRAP_SHAPE, x=-128, w=-128, out=wrapped),
          timings_ms=timings)
 

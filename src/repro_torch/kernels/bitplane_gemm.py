@@ -2,29 +2,32 @@
 
 Replaces the TPU kernels ``repro/kernels/bitplane_gemm.py::_int8_kernel``
 (wrapper ``int8_matmul``) and ``::_bitplane_kernel`` (wrapper
-``bitplane_matmul``).  The CUDA source is ``csrc/bitplane_gemm.cu``:
+``bitplane_matmul``).  Both run one kernel of ``csrc/bitplane_gemm.cu``,
+``bitplane_gemm_kernel<kFullBytes>``, on the int8 tensor cores: one block
+of 8 warps per 128x128 int32 tile, K in steps of 64 bytes staged by
+``cp.async`` in two stages, ``mma.sync`` m16n8k32 (s8 in, s32 accumulators
+without ``.satfinite``).  w stays (K, N) row-major: its rows are staged in a
+permuted order so that ``ldmatrix.trans`` and two byte permutes give the
+column-major B fragments, with no transposed copy.  K or N not a multiple
+of 16 is staged by guarded scalar loads.  The two instances differ only in
+what each K step multiplies:
 
-* ``int8_matmul``: one block per 64x64 int32 output tile, K streamed
-  through shared memory 32 bytes at a time, four int8 values per 32-bit
-  word into ``__dp4a`` on the integer pipes.
-* ``bitplane_matmul``, on the int8 tensor cores: one block of 8 warps per
-  128x128 tile, K in steps of 64 bytes staged by ``cp.async`` in two
-  stages, ``mma.sync`` m16n8k32 (s8 in, s32 accumulators without
-  ``.satfinite``).  w stays (K, N) row-major: its rows are staged in a
-  permuted order so that ``ldmatrix.trans`` and two byte permutes give the
-  column-major B fragments, with no transposed copy.  The paper's
-  bit-serial structure (Section VII-E) stays in the kernel: plane ``b`` is
-  ``word & (0x01010101 << b)``, bytes 0 or ``2**b`` (the top plane
-  negative), and each plane is one tensor-core product into the same
-  accumulators, so ``nbits=4`` costs half the products of ``nbits=8``.
-  K or N not a multiple of 16 is staged by guarded scalar loads.
+* ``int8_matmul`` (``kFullBytes``): the raw weight bytes, one tensor-core
+  product per 32 bytes of K.
+* ``bitplane_matmul``: the paper's bit-serial structure (Section VII-E)
+  stays in the kernel: plane ``b`` is ``word & (0x01010101 << b)``, bytes
+  0 or ``2**b`` (the top plane negative), and each plane is one
+  tensor-core product into the same accumulators, so ``nbits=4`` costs
+  half the products of ``nbits=8``.
 
 Both are bit-exact: integer sums wrap mod 2**32 exactly as the reference's
 int32 arithmetic does.  Ragged M/N/K are zeros while staging, not padded in
 device memory.
 
-Bound on this card at the qwen2-0.5b MLP shape: bytes (the kernel's source
-note has the arithmetic).
+Bound on this card at the qwen2-0.5b MLP shape: bytes, ``M*K + K*N`` read
+and ``4*M*N`` written (the kernel's source note has the arithmetic); the
+bit-plane kernel's own floor is ``nbits`` int8 products of tensor-core
+time.
 
 The plain PyTorch versions are :func:`repro_torch.kernels.ref.int8_matmul_ref`
 and :func:`~repro_torch.kernels.ref.bitplane_matmul_ref`; the wrappers take
@@ -40,6 +43,7 @@ from . import _build
 from .ref import bitplane_matmul_ref, int8_matmul_ref
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+TILE = 128          # output tile edge of the kernel; M rides on gridDim.y
 
 
 def _entry(name: str):
@@ -60,7 +64,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise TypeError(f"x {x.dtype}, w {w.dtype}: both must be int8")
     if x.device != w.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
-    if x.is_cuda and x.shape[0] > 65535 * 64:
+    if x.is_cuda and x.shape[0] > 65535 * TILE:
         raise ValueError(f"M = {x.shape[0]} exceeds the kernel's grid")
 
 

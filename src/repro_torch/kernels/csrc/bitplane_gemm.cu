@@ -8,6 +8,9 @@
 //                     paper's bit-serial precision study (Section VII-E), so
 //                     the plane loop stays in the kernel: nbits planes cost
 //                     nbits tensor-core products.
+// Both are one kernel template, bitplane_gemm_kernel<kFullBytes>, on the
+// int8 tensor cores; its two instances share the staging, the fragment
+// loads and the epilogue, and differ only in what each K step multiplies.
 // The TPU kernels hold all of K in VMEM per 128x128 output tile and pad M/N.
 // Here ragged M/N/K are zeros while staging, never padded in device memory.
 // Integer sums wrap mod 2^32 like the reference's int32 arithmetic, so any
@@ -19,13 +22,7 @@
 // The bit-plane kernel does nbits such products by design, so its own floor
 // is nbits x 18 us of int8 tensor-core time (144 us for 8 planes).
 //
-// int8_gemm_kernel: one block of 256 threads per 64x64 int32 tile (4x4
-// outputs per thread), K in steps of 32 bytes staged in shared memory, four
-// int8 values packed per 32-bit word (x row-major, w transposed so a word
-// holds four consecutive k of one column), multiplied with __dp4a on the
-// integer pipes.
-//
-// bitplane_gemm_kernel, on the int8 tensor cores:
+// bitplane_gemm_kernel:
 //   tile   128x128 int32 per block of 8 warps (2 along M x 4 along N, 64x32
 //          each: 4 x 4 mma.m16n8k32 accumulators of 4 registers);
 //   stage  K in steps of 64 bytes, x and w by 16-byte cp.async in two
@@ -41,116 +38,18 @@
 //          plus two __byte_perm per register transpose the 4x4 byte blocks
 //          in registers: each lane gets columns 2g and 2g+1, which become
 //          an even and an odd n-tile; w needs no transposed copy;
-//   planes the B registers are loaded once per K step; plane b's operand
-//          is word & (0x01010101 << b), bytes 0 or 2^b as s8 (0x80 = -128
-//          for b = 7, already the negative top power); a top plane b < 7 is
-//          negated with __vneg4.  Each plane is one mma (s32, no
-//          .satfinite, so sums wrap as int32 does) into the same
-//          accumulators: no shift-add is needed.
+//   int8   (kFullBytes) the B registers are the raw weight bytes: one mma
+//          per 32 bytes of K (s32, no .satfinite, so sums wrap as int32
+//          does);
+//   planes (!kFullBytes) the B registers are loaded once per K step; plane
+//          b's operand is word & (0x01010101 << b), bytes 0 or 2^b as s8
+//          (0x80 = -128 for b = 7, already the negative top power); a top
+//          plane b < 7 is negated with __vneg4.  Each plane is one mma
+//          into the same accumulators: no shift-add is needed.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_sync.cuh"
-
-#define GM_TILE 64                 // output tile edge (M and N)
-#define GM_BK 32                   // K bytes staged per step
-#define GM_KW (GM_BK / 4)          // packed words per staged row
-#define GM_THREADS 256             // 16 x 16 threads, 4 x 4 outputs each
-
-struct GemmTiles {
-    int xs[GM_TILE][GM_KW + 1];    // xs[m][w]: x[m0+m][k0+4w .. +3]
-    int ws[GM_TILE][GM_KW + 1];    // ws[n][w]: w[k0+4w .. +3][n0+n]
-};
-
-// Stage one K step of both operands, packing 4 bytes per word; everything
-// outside the matrices is 0.
-__device__ __forceinline__ void stage(const int8_t* __restrict__ x,
-                                      const int8_t* __restrict__ w,
-                                      GemmTiles& t, long long M, long long N,
-                                      long long K, long long m0,
-                                      long long n0, long long k0, int tid) {
-    for (int i = tid; i < GM_TILE * GM_KW; i += GM_THREADS) {
-        const int r = i / GM_KW, wd = i % GM_KW;
-        const long long row = m0 + r;
-        uint32_t packed = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-            const long long kk = k0 + 4 * wd + b;
-            const uint32_t byte =
-                (row < M && kk < K) ? (uint8_t)x[row * K + kk] : 0u;
-            packed |= byte << (8 * b);
-        }
-        t.xs[r][wd] = (int)packed;
-    }
-    for (int i = tid; i < GM_TILE * GM_KW; i += GM_THREADS) {
-        const int c = i % GM_TILE, wd = i / GM_TILE;
-        const long long col = n0 + c;
-        uint32_t packed = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-            const long long kk = k0 + 4 * wd + b;
-            const uint32_t byte =
-                (col < N && kk < K) ? (uint8_t)w[kk * N + col] : 0u;
-            packed |= byte << (8 * b);
-        }
-        t.ws[c][wd] = (int)packed;
-    }
-}
-
-__device__ __forceinline__ void store_tile(int32_t* __restrict__ out,
-                                           const uint32_t (&acc)[4][4],
-                                           long long M, long long N,
-                                           long long m0, long long n0,
-                                           int tx, int ty) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const long long row = m0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const long long col = n0 + tx + 16 * j;
-            if (row < M && col < N) out[row * N + col] = (int32_t)acc[i][j];
-        }
-    }
-}
-
-__global__ void __launch_bounds__(GM_THREADS)
-int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 int32_t* __restrict__ out, long long M, long long N,
-                 long long K) {
-    __shared__ GemmTiles t;
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const long long m0 = (long long)blockIdx.y * GM_TILE;
-    const long long n0 = (long long)blockIdx.x * GM_TILE;
-    int acc[4][4] = {};
-    for (long long k0 = 0; k0 < K; k0 += GM_BK) {
-        stage(x, w, t, M, N, K, m0, n0, k0, tid);
-        __syncthreads();
-#pragma unroll
-        for (int wd = 0; wd < GM_KW; ++wd) {
-            int a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = t.xs[ty + 16 * i][wd];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = t.ws[tx + 16 * j][wd];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-    uint32_t bits[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bits[i][j] = (uint32_t)acc[i][j];
-    store_tile(out, bits, M, N, m0, n0, tx, ty);
-}
-
-// ---------------------------------------------------------------------------
-// bit-plane product: int8 tensor cores
-// ---------------------------------------------------------------------------
 
 #define BP_TILE 128                // output tile edge (M and N)
 #define BP_BK 64                   // K bytes per step
@@ -224,6 +123,7 @@ __device__ __forceinline__ void bp_stage(const int8_t* __restrict__ x,
     }
 }
 
+template <bool kFullBytes>
 __global__ void __launch_bounds__(BP_THREADS, 2)
 bitplane_gemm_kernel(const int8_t* __restrict__ x,
                      const int8_t* __restrict__ w, int32_t* __restrict__ out,
@@ -279,21 +179,29 @@ bitplane_gemm_kernel(const int8_t* __restrict__ x,
                 bw[2 * c][1] = __byte_perm(r[2], r[3], 0x6420);
                 bw[2 * c + 1][1] = __byte_perm(r[2], r[3], 0x7531);
             }
-            // bit-serial over planes: plane b's bytes are 0 or 2^b as s8
-            // (0x80 = -128 for b = 7); a top plane below 7 is negated
-            for (int b = 0; b < nbits; ++b) {
-                const uint32_t mask = 0x01010101u << b;
-                const bool negate = b == nbits - 1 && b < 7;
+            if constexpr (kFullBytes) {
 #pragma unroll
-                for (int n = 0; n < 4; ++n) {
-                    uint32_t p0 = bw[n][0] & mask, p1 = bw[n][1] & mask;
-                    if (negate) {
-                        p0 = __vneg4(p0);
-                        p1 = __vneg4(p1);
-                    }
+                for (int n = 0; n < 4; ++n)
 #pragma unroll
                     for (int i = 0; i < 4; ++i)
-                        mma_s8_16832(acc[i][n], a[i], p0, p1);
+                        mma_s8_16832(acc[i][n], a[i], bw[n][0], bw[n][1]);
+            } else {
+                // bit-serial over planes: plane b's bytes are 0 or 2^b as
+                // s8 (0x80 = -128 for b = 7); a top plane below 7 is negated
+                for (int b = 0; b < nbits; ++b) {
+                    const uint32_t mask = 0x01010101u << b;
+                    const bool negate = b == nbits - 1 && b < 7;
+#pragma unroll
+                    for (int n = 0; n < 4; ++n) {
+                        uint32_t p0 = bw[n][0] & mask, p1 = bw[n][1] & mask;
+                        if (negate) {
+                            p0 = __vneg4(p0);
+                            p1 = __vneg4(p1);
+                        }
+#pragma unroll
+                        for (int i = 0; i < 4; ++i)
+                            mma_s8_16832(acc[i][n], a[i], p0, p1);
+                    }
                 }
             }
         }
@@ -328,21 +236,29 @@ bitplane_gemm_kernel(const int8_t* __restrict__ x,
     }
 }
 
-static dim3 gemm_grid(long long M, long long N) {
-    return dim3((unsigned)((N + GM_TILE - 1) / GM_TILE),
-                (unsigned)((M + GM_TILE - 1) / GM_TILE));
+template <bool kFullBytes>
+static int launch(const void* x, const void* w, void* out, long long M,
+                  long long N, long long K, int nbits, void* stream) {
+    // cp.async needs every row start 16-byte aligned (and K = 0, where x
+    // and w may be null, reads nothing on the scalar path)
+    const int aligned = K > 0 && K % 16 == 0 && N % 16 == 0 &&
+                        (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0;
+    const dim3 grid((unsigned)((N + BP_TILE - 1) / BP_TILE),
+                    (unsigned)((M + BP_TILE - 1) / BP_TILE));
+    bitplane_gemm_kernel<kFullBytes>
+        <<<grid, BP_THREADS, 0, (cudaStream_t)stream>>>(
+            (const int8_t*)x, (const int8_t*)w, (int32_t*)out, M, N, K,
+            nbits, aligned);
+    return (int)cudaGetLastError();
 }
 
 // x: M x K int8, w: K x N int8, out: M x N int32, all contiguous row-major;
-// the caller guarantees M, N > 0.  Returns the CUDA error code of the launch
-// (0 = success).
+// the caller guarantees M, N > 0 and M within gridDim.y * 128.  Returns the
+// CUDA error code of the launch (0 = success).
 extern "C" int int8_gemm_launch(const void* x, const void* w, void* out,
                                 long long M, long long N, long long K,
                                 void* stream) {
-    int8_gemm_kernel<<<gemm_grid(M, N), GM_THREADS, 0,
-                       (cudaStream_t)stream>>>(
-        (const int8_t*)x, (const int8_t*)w, (int32_t*)out, M, N, K);
-    return (int)cudaGetLastError();
+    return launch<true>(x, w, out, M, N, K, 8, stream);
 }
 
 // As int8_gemm_launch, computed over the nbits (1..8) low planes of w;
@@ -351,13 +267,5 @@ extern "C" int bitplane_gemm_launch(const void* x, const void* w, void* out,
                                     long long M, long long N, long long K,
                                     int nbits, void* stream) {
     if (nbits < 1 || nbits > 8) return -1;
-    // cp.async needs every row start 16-byte aligned
-    const int aligned = K % 16 == 0 && N % 16 == 0 &&
-                        (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0;
-    const dim3 grid((unsigned)((N + BP_TILE - 1) / BP_TILE),
-                    (unsigned)((M + BP_TILE - 1) / BP_TILE));
-    bitplane_gemm_kernel<<<grid, BP_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)x, (const int8_t*)w, (int32_t*)out, M, N, K, nbits,
-        aligned);
-    return (int)cudaGetLastError();
+    return launch<false>(x, w, out, M, N, K, nbits, stream);
 }

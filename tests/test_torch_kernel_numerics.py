@@ -15,7 +15,11 @@ package) and held against the reference's Pallas kernels in interpret mode:
   four weight bytes masked with ``0x01010101 << b`` (bytes 0 or ``2**b``,
   ``0x80 = -128`` on plane 7), negated byte by byte on a top plane below 7;
   summing ``x @ op_b`` over the planes in wrapping int32 must equal the
-  reference bit for bit.
+  reference bit for bit;
+* the int8 instance of the same kernel (``bitplane_gemm_kernel<true>``,
+  ``int8_matmul``): one s8 product per 32 bytes of K on the raw packed
+  words, no plane masks, accumulated in wrapping int32 step by step, must
+  equal the reference's ``_int8_kernel`` bit for bit.
 
 The plain versions in ``repro_torch.kernels.ref`` stay the oracles the
 kernels are held against on the card.
@@ -28,6 +32,7 @@ import pytest
 import torch
 
 from repro.kernels.bitplane_gemm import bitplane_matmul as pallas_bitplane
+from repro.kernels.bitplane_gemm import int8_matmul as pallas_int8
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 
 from repro_torch.kernels import ref
@@ -207,4 +212,61 @@ def test_bitplane_operands_wrap_as_int32():
     assert got[0, 0] == 16384 * k - 2**32                 # it wrapped
     want = pallas_bitplane(jnp.asarray(x), jnp.asarray(w), nbits=8,
                            interpret=True)
+    assert_bits_equal(np.asarray(want), got)
+
+
+# ---------------------------------------------------------------------------
+# (c) the int8 product on the same tensor cores: full bytes, one mma per step
+# ---------------------------------------------------------------------------
+
+MMA_K = 32                                     # K bytes of one m16n8k32
+
+
+def _wrap32(a):
+    return (a + 2**31) % 2**32 - 2**31
+
+
+def emulate_int8_mma(x, w):
+    """``x @ w`` as the int8 instance multiplies it: the B registers are the
+    raw packed weight words (no plane mask), one s8 product per 32 bytes of
+    K (zero-filled past K), each added into int32 accumulators that wrap."""
+    m, k = x.shape
+    words = _words(w)
+    kp = -(-k // MMA_K) * MMA_K
+    xw = np.zeros((m, kp), np.int64)
+    xw[:, :k] = x
+    op = np.zeros((w.shape[1], kp), np.int64)
+    op[:, :words.shape[1] * 4] = words.view(np.int8)
+    acc = np.zeros((m, w.shape[1]), np.int64)
+    for k0 in range(0, kp, MMA_K):
+        acc = _wrap32(acc + xw[:, k0:k0 + MMA_K] @ op[:, k0:k0 + MMA_K].T)
+    return acc.astype(np.int32)
+
+
+@pytest.mark.parametrize("m, k, n", [(40, 101, 24), (130, 257, 96),
+                                     (8, 16, 8), (1, 3, 5)])
+def test_int8_operands_equal_the_reference(m, k, n):
+    """Random int8 x and w, K not a multiple of 4 and M, N ragged against
+    the 128x128 tile: bit for bit equal to the reference's ``_int8_kernel``
+    in interpret mode and to the port's plain version."""
+    rng = np.random.default_rng(m * k * n)
+    x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    got = emulate_int8_mma(x, w)
+    want = pallas_int8(jnp.asarray(x), jnp.asarray(w), interpret=True)
+    assert_bits_equal(np.asarray(want), got, "pallas")
+    plain = ref.int8_matmul_ref(torch.from_numpy(x), torch.from_numpy(w))
+    assert_bits_equal(plain.numpy(), got, "plain")
+
+
+def test_int8_operands_wrap_as_int32():
+    """x = w = -128 with 16384 * K > 2**31: the step-by-step int32 sums
+    wrap to the reference's -2,146,959,360, as the s32 accumulators without
+    ``.satfinite`` do."""
+    k = 131104
+    x = np.full((16, k), -128, np.int8)
+    w = np.full((k, 16), -128, np.int8)
+    got = emulate_int8_mma(x, w)
+    assert got[0, 0] == 16384 * k - 2**32 == -2146959360
+    want = pallas_int8(jnp.asarray(x), jnp.asarray(w), interpret=True)
     assert_bits_equal(np.asarray(want), got)

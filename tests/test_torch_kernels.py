@@ -73,8 +73,14 @@ def test_mdgather_matches_reference_and_pallas(case, dtype):
                       got, "vs Pallas interpret")
 
 
+# row-major continuations and a contiguous run: the stores the patterns
+# issue (the CUDA wrapper's "contiguous" route)
+CONTIGUOUS_STORES = [((100,), (1,), 3), ((16, 8), (1, 16), 2),
+                     ((4, 4, 4), (1, 4, 16), 0), ((8, 8), (1, 8), 5)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
-@pytest.mark.parametrize("case", _cases(seed=2), ids=str)
+@pytest.mark.parametrize("case", _cases(seed=2) + CONTIGUOUS_STORES, ids=str)
 def test_mdscatter_matches_reference_and_pallas(case, dtype):
     dims, strides, base = case
     dst_t, dst_j = _source(dims, strides, base, dtype, seed=3)
