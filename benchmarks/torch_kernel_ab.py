@@ -3,11 +3,12 @@
 Times ``mdscatter_`` at the store walks of its three routes (the
 ``transpose`` pattern's contiguous store, its transposing walk, whole rows
 colliding; fp32, 8192 lanes, image 50176, 1 and 1024 images, all lanes
-active), ``mdgather`` at the transposing walk, and ``int8_matmul`` /
+active), ``mdgather`` at three load walks (the transposing walk, a
+contiguous run, gemm's replicating row walk), and ``int8_matmul`` /
 ``bitplane_matmul`` (8 and 4 planes) at qwen2-0.5b's MLP shape (x 4096x896
-@ w 896x4864), each beside its PyTorch library call (the scatter also
-with its device time alone: calls queued behind a sleeping kernel), for
-every source tree given, in the order given.  Each tree runs in a process of its own
+@ w 896x4864), each beside its PyTorch library call (the gather and the
+scatter also with their device time alone: calls queued behind a sleeping
+kernel), for every source tree given, in the order given.  Each tree runs in a process of its own
 (both are the package ``repro_torch``) and builds its kernels into its own
 ``build/``.  Needs a CUDA device.
 
@@ -30,6 +31,9 @@ BATCH, LANES, IMAGE = 1024, 8192, 50176
 SCATTER_WALKS = {"contiguous": ((512, 16), (1, 512), 0),
                  "distinct": ((512, 16), (49, 1), 0),
                  "colliding": ((64, 128), (1, 0), 0)}
+GATHER_WALKS = {"transposing": ((512, 16), (49, 1), 0),
+                "contiguous": ((8192,), (1,), 0),
+                "replicating": ((64, 128), (0, 16), 0)}
 MLP_SHAPE = (4096, 896, 4864)
 
 
@@ -97,9 +101,19 @@ def measure() -> dict:
             out[f"mdscatter {route} B={batch} device"] = device_ms(call, 100)
             out[f"index_copy_ {route} B={batch} device"] = device_ms(lib,
                                                                      100)
-        dims, strides, base = SCATTER_WALKS["distinct"]
-        out[f"mdgather B={batch}"] = time_ms(
-            lambda: mdgather(dst, dims, strides, base, lanes=LANES), iters)
+        for name, (dims, strides, base) in GATHER_WALKS.items():
+            addr = ref.mdv_lane_addresses(dims, strides, base, LANES,
+                                          "cuda")
+            call = (lambda: mdgather(dst, dims, strides, base, lanes=LANES))
+            if not torch.equal(call(), ref.mdgather_ref(dst, dims, strides,
+                                                        base, LANES)):
+                raise AssertionError(f"mdgather != its plain version: {name}")
+            lib = (lambda: torch.index_select(dst, -1, addr))
+            out[f"mdgather {name} B={batch}"] = time_ms(call, iters)
+            out[f"index_select {name} B={batch}"] = time_ms(lib, iters)
+            out[f"mdgather {name} B={batch} device"] = device_ms(call, 100)
+            out[f"index_select {name} B={batch} device"] = device_ms(lib,
+                                                                     100)
     m, k, n = MLP_SHAPE
     x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
                       dtype=torch.int16).to(torch.int8)

@@ -26,7 +26,7 @@ from repro_torch.core import MVEConfig, compile_program
 from repro_torch.core.machine import as_memory
 from repro_torch.core.patterns import PATTERNS
 
-OURS = ("mdgather_kernel", "mdscatter_")     # every mdscatter route's kernel
+OURS = ("mdgather_", "mdscatter_")       # every route's kernel of both
 
 
 def wall_ms(fn, iters: int) -> float:

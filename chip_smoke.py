@@ -21,13 +21,15 @@ non-zero:
    ``bitplane_matmul``'s) must have them.
 3. ``kernels`` — each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main paths give it: the MVE gather/scatter
-   bit for bit (8192 lanes; 1-4 dims with a stride-0 dim; colliding stores;
-   contiguous stores whose tail runs past the image or whose negative base
-   wraps; a dimension mask; negative addresses;
-   fp32/int32/bf16/uint8/int64; one image and a batch of 1024), each of
-   the scatter's three routes (contiguous, distinct, colliding) taken at
-   least once, and a profiled call of the contiguous and of the distinct
-   route issuing exactly one device kernel and no memset; flash attention
+   bit for bit (8192 lanes; 1-4 dims with a stride-0 dim; every load shape
+   of the patterns; colliding stores; contiguous runs whose tail runs past
+   the image or whose negative base wraps; a dimension mask; negative
+   addresses; fp32/int32/bf16/uint8/int64; one image and a batch of 1024),
+   each of the gather's three routes (contiguous, walk, tiled) and of the
+   scatter's three (contiguous, distinct, colliding) taken at least once,
+   and a profiled call of every gather route and of the scatter's
+   contiguous and distinct routes issuing exactly one device kernel and no
+   memset; flash attention
    on the reference's test shapes
    (fp32 and bf16), a bf16 view that is not 16-byte aligned, and at
    qwen2-0.5b's prefill shapes (4 x 14 q heads over 2 kv heads, S = 1024
@@ -41,8 +43,10 @@ non-zero:
    and a ragged shape.  Each is timed with CUDA events at its
    main-path shape beside its plain version, one PyTorch library call
    (timed only, the port never calls it) and the card's bound for the same
-   work; the scatter at the ``transpose`` pattern's store walk and at one
-   walk of each other route, the float32 flash kernel beside the bf16 one.
+   work; the gather at the ``transpose`` pattern's load walk and at a
+   contiguous and a replicating walk, the scatter at the pattern's store
+   walk and at one walk of each other route, the float32 flash kernel
+   beside the bf16 one.
 4. ``path``    — the MVE main path at the Table IV geometry
    (``MVEConfig()``, 8192 lanes): every one of the 14 Section-IV patterns
    at its default size through ``compile_program(...).run`` on ``cuda``,
@@ -213,11 +217,16 @@ def random_tensor(shape, dtype, gen) -> torch.Tensor:
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+IMAGE = 1 << 16
 # (dims, strides, base): the access shapes of the patterns at 8192 lanes —
 # unit stride (daxpy), row replication (gemm), a transposing CR stride, a
 # 3-D and a 4-D walk with a stride-0 dimension each, and a short vector
-# (fewer active lanes than the register holds); then two walks that leave
-# the image, past its end and before its start (loads clamp, stores drop).
+# (fewer active lanes than the register holds: a zero tail); then two walks
+# that leave the image, past its end and before its start (loads clamp,
+# stores drop); then the rest of the patterns' load shapes (gemm's column
+# replication, intra_pred's, rgb2gray's stride 3) and a contiguous run
+# whose tail clamps past the image.  Between them the loads take all three
+# routes of mdgather (contiguous, walk, tiled).
 WALKS = [
     ((8192,), (1,), 0),
     ((64, 128), (0, 16), 5),
@@ -227,15 +236,17 @@ WALKS = [
     ((100, 3), (1, 100), 11),
     ((8192,), (9,), 100),
     ((64, 128), (-3, 1), 50),
+    ((64, 128), (1, 0), 0),
+    ((3, 3, 256), (1, 0, 3), 0),
+    ((8192,), (3,), 0),
+    ((8192,), (1,), IMAGE - 2536),
 ]
-IMAGE = 1 << 16
 # store walks add collisions: a stride-0 dimension makes whole rows collide
-# (the highest lane must win), and a partial overlap (2x + 3y); then two
-# contiguous runs that leave the image: a tail past its end, and a
-# negative base that wraps to +N.  Between them they take all three
-# routes of mdscatter_ (contiguous, distinct, colliding).
+# (the highest lane must win), and a partial overlap (2x + 3y); then a
+# contiguous run whose negative base wraps to +N (the run whose tail
+# leaves the image is in WALKS).  Between them they take all three routes
+# of mdscatter_ (contiguous, distinct, colliding).
 STORE_WALKS = WALKS + [((3, 2), (1, 0), 2), ((64, 128), (2, 3), 0),
-                       ((8192,), (1,), IMAGE - 2536),
                        ((8192,), (1,), 100 - IMAGE)]
 DTYPES = [torch.float32, torch.int32, torch.bfloat16, torch.uint8,
           torch.int64]
@@ -245,6 +256,7 @@ def check_kernels(ref, mdgather, mdscatter_):
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"mdgather": 0.0, "mdscatter": 0.0}
     cases = 0
+    gather_routes = dict(mdgather.routes)
     routes = dict(mdscatter_.routes)
     for batch in (1, BATCH):
         for dtype in DTYPES:
@@ -286,10 +298,15 @@ def check_kernels(ref, mdgather, mdscatter_):
         again = mdscatter_(dst.clone(), vals, (64, 128), (1, 0), 0)
         if not torch.equal(first, again):
             raise AssertionError("mdscatter is not deterministic")
+    gather_routes = {r: mdgather.routes[r] - gather_routes[r]
+                     for r in gather_routes}
+    if not all(gather_routes.values()):
+        raise AssertionError(f"a route of mdgather never ran: "
+                             f"{gather_routes}")
     routes = {r: mdscatter_.routes[r] - routes[r] for r in routes}
     if not all(routes.values()):
         raise AssertionError(f"a route of mdscatter never ran: {routes}")
-    return cases, worst, routes
+    return cases, worst, gather_routes, routes
 
 
 def device_ops(fn) -> dict:
@@ -337,6 +354,38 @@ def check_scatter_launches(mdscatter_):
     return out
 
 
+def check_gather_launches(mdgather):
+    """A call of each route of mdgather is one device kernel and nothing
+    else (no memset), for one image and for a batch."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for batch in (1, BATCH):
+        for tag, (route, (dims, strides, base, n)) in GATHER_SHAPES.items():
+            shape = (n,) if batch == 1 else (batch, n)
+            src = random_tensor(shape, torch.float32, gen)
+            mdgather(src, dims, strides, base, lanes=LANES)
+            before = mdgather.routes[route]
+            ops = device_ops(lambda: mdgather(src, dims, strides, base,
+                                              lanes=LANES))
+            if mdgather.routes[route] != before + 1:
+                raise AssertionError(f"{dims} {strides} did not take the "
+                                     f"{route} route")
+            if sum(ops.values()) != 1 or any(
+                    "emset" in k or "mdgather" not in k for k in ops):
+                raise AssertionError(f"mdgather {route} route, B={batch}: "
+                                     f"device operations {ops}")
+            out[f"{tag} ({route}), B={batch}"] = ops
+    return out
+
+
+# The load shapes timed, over the transpose pattern's image of 50176 fp32,
+# with the route each takes: its transposing load walk (the kernel table's
+# main shape), a contiguous run (daxpy's, memcpy's) and gemm's replicating
+# row walk.
+GATHER_SHAPES = {"transposing": ("tiled", ((512, 16), (49, 1), 0, 50176)),
+                 "contiguous": ("contiguous", ((8192,), (1,), 0, 50176)),
+                 "replicating": ("walk", ((64, 128), (0, 16), 0, 50176))}
+
 # The store shapes of the three routes of mdscatter_, over the transpose
 # pattern's image of 50176 fp32: its real store (contiguous; the kernel
 # table's main shape), its transposing load walk stored back (distinct),
@@ -349,14 +398,16 @@ SCATTER_SHAPES = {"contiguous": ((512, 16), (1, 512), 0, 50176),
 def time_kernels(ref, mdgather, mdscatter_):
     """Time both kernels for a batch of 1024 images (the ``ms`` keys) and
     for one image (``_single``), fp32, 8192 lanes, over the ``transpose``
-    pattern's image: the gather at its transposing load walk, the scatter
-    at its store walk (``ms``) and at the other two routes' walks
-    (``ms_distinct``, ``ms_colliding``); ``device_ms*`` is the scatter's
-    device time without the host's overhead per call.  Bounds count each
-    needed element read once and each stored element written once, plus
-    the lane mask."""
+    pattern's image: the gather at its transposing load walk (``ms``) and
+    at a contiguous and a replicating walk (``ms_contiguous``,
+    ``ms_replicating``), the scatter at its store walk (``ms``) and at the
+    other two routes' walks (``ms_distinct``, ``ms_colliding``);
+    ``device_ms*`` is the device time without the host's overhead per
+    call.  Bounds count each needed element read once and each stored
+    element written once, plus the lane mask."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [("mdgather", "", SCATTER_SHAPES["distinct"])] + [
+    shapes = [("mdgather", "" if tag == "transposing" else f"_{tag}", walk)
+              for tag, (_, walk) in GATHER_SHAPES.items()] + [
         ("mdscatter", "" if route == "contiguous" else f"_{route}", walk)
         for route, walk in SCATTER_SHAPES.items()]
     out, notes = {}, {}
@@ -376,6 +427,8 @@ def time_kernels(ref, mdgather, mdscatter_):
                 row = dict(
                     ms=time_ms(lambda: mdgather(image, dims, strides, base,
                                                 lanes=LANES), iters),
+                    device_ms=device_ms(lambda: mdgather(
+                        image, dims, strides, base, lanes=LANES), 100),
                     plain_ms=time_ms(lambda: ref.mdgather_ref(
                         image, dims, strides, base, LANES), iters),
                     library_ms=time_ms(lambda: torch.index_select(
@@ -978,7 +1031,9 @@ def main() -> int:
 
     # ---- 3. kernels ------------------------------------------------------
     t0 = time.perf_counter()
-    cases, worst, routes = check_kernels(ref, mdgather, mdscatter_)
+    cases, worst, gather_routes, routes = check_kernels(ref, mdgather,
+                                                        mdscatter_)
+    gather_ops = check_gather_launches(mdgather)
     scatter_ops = check_scatter_launches(mdscatter_)
     timings, shape_note = time_kernels(ref, mdgather, mdscatter_)
     for row in timings.values():
@@ -996,7 +1051,8 @@ def main() -> int:
                                        f"shapes), {FLASH_FP32_PATH_TOL} "
                                        f"(prefill shapes); bf16 "
                                        f"{FLASH_BF16_TOL}"},
-         max_abs_err=worst, mdscatter_routes=routes,
+         max_abs_err=worst, mdgather_routes=gather_routes,
+         mdgather_device_ops=gather_ops, mdscatter_routes=routes,
          mdscatter_device_ops=scatter_ops,
          int32_wrap=dict(shape=WRAP_SHAPE, x=-128, w=-128, out=wrapped),
          timings_ms=timings)

@@ -43,10 +43,6 @@
 
 #include "mdv_walk.cuh"
 
-// images a thread loads before it stores them (its slice of the batch is
-// about batch / gridDim.y images: 8 for 1024 images on 132 SMs)
-#define MDV_INFLIGHT 8
-
 // ---------------------------------------------------------------------------
 // contiguous: lanes [lo, lo + count) of every image land on lane + shift
 // ---------------------------------------------------------------------------

@@ -2,10 +2,10 @@
 // (Algorithm 1): lane l < prod(dims) peels idx_d = rem % dims[d],
 // rem /= dims[d] with dimension 0 fastest, and lands on
 // base + sum_d idx_d * strides[d].  Addresses are 64-bit: strides come
-// from control registers and may be negative or large.  mdv_address peels
-// in 64 bits; mdv_lane_address peels a lane id that fits in 32 bits in
-// 32-bit arithmetic (a 64-bit % or / is a software routine of dozens of
-// instructions) and forms only the address sum in 64 bits.
+// from control registers and may be negative or large.  mdv_lane_address
+// peels a lane id that fits in 32 bits in 32-bit arithmetic (a 64-bit % or
+// / is a software routine of dozens of instructions) and forms only the
+// address sum in 64 bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,6 +13,9 @@
 
 #define MDV_MAX_DIMS 4
 #define MDV_THREADS 256
+// images a thread loads before it stores them (its slice of the batch is
+// about batch / gridDim.y images: 8 for 1024 images on 132 SMs)
+#define MDV_INFLIGHT 8
 
 struct MdvWalk {
     long long dims[MDV_MAX_DIMS];
@@ -21,22 +24,6 @@ struct MdvWalk {
     long long total;   // prod(dims): lanes at or past it are inactive
     int ndims;
 };
-
-__device__ __forceinline__ long long mdv_address(const MdvWalk& w,
-                                                 long long lane) {
-    long long rem = lane;
-    long long addr = w.base;
-#pragma unroll
-    for (int d = 0; d < MDV_MAX_DIMS; ++d) {
-        if (d < w.ndims) {
-            const long long len = w.dims[d];
-            const long long idx = rem % len;
-            rem = rem / len;
-            addr += idx * w.strides[d];
-        }
-    }
-    return addr;
-}
 
 static inline MdvWalk mdv_make_walk(int ndims, long long d0, long long d1,
                                     long long d2, long long d3,
@@ -114,10 +101,4 @@ static inline unsigned mdv_fill_grid_y(unsigned blocks_x, long long batch) {
     long long y = want < batch ? want : batch;
     y = y < 65535 ? y : 65535;
     return (unsigned)(y < 1 ? 1 : y);
-}
-
-// The batch axis rides on gridDim.y, which the hardware caps at 65535;
-// larger batches loop inside the block.
-static inline unsigned mdv_grid_y(long long batch) {
-    return (unsigned)(batch < 65535 ? batch : 65535);
 }

@@ -36,6 +36,19 @@ def assert_bits_equal(want, got, what=""):
     np.testing.assert_array_equal(want, got, err_msg=what)
 
 
+def lane_addresses32(dims, strides, base, active):
+    """``csrc/mdv_walk.cuh::mdv_lane_address`` over lanes ``0 .. active -
+    1``: lane ids peeled in uint32 (dims clamped to 2**32 - 1), the address
+    summed in int64."""
+    rem = np.arange(active, dtype=np.uint32)
+    addr = np.full(active, base, dtype=np.int64)
+    for length, stride in zip(dims, strides):
+        length = np.uint32(min(length, 2**32 - 1))
+        addr += (rem % length).astype(np.int64) * stride
+        rem = rem // length
+    return addr
+
+
 def assert_trace_equal(want, got):
     """TraceEvent streams equal field by field (never a tolerance)."""
     assert len(want) == len(got)

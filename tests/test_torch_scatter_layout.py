@@ -30,7 +30,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.mdscatter import (lane_order, store_addresses,
                                            store_plan)
 
-from _torch_parity import assert_bits_equal
+from _torch_parity import assert_bits_equal, lane_addresses32
 
 LANES = 8192
 IMAGE = 1 << 16
@@ -183,18 +183,6 @@ def test_plan_is_cached_per_walk():
 # the routes, emulated as their kernels execute them
 # ---------------------------------------------------------------------------
 
-def _lane_addresses32(dims, strides, base, active):
-    """``mdv_lane_address``: lane ids peeled in uint32 (dims clamped to
-    2**32 - 1), the address summed in int64."""
-    rem = np.arange(active, dtype=np.uint32)
-    addr = np.full(active, base, dtype=np.int64)
-    for length, stride in zip(dims, strides):
-        length = np.uint32(min(length, 2**32 - 1))
-        addr += (rem % length).astype(np.int64) * stride
-        rem = rem // length
-    return addr
-
-
 def emulate_routes(dst, values, dims, strides, base, mask):
     """``mdscatter_`` on ``(B, N)`` NumPy arrays as the CUDA routes do it."""
     out = dst.copy()
@@ -212,7 +200,7 @@ def emulate_routes(dst, values, dims, strides, base, mask):
     active = min(lanes, math.prod(dims))
 
     def target(lane):          # scatter_target: the wrapped address or -1
-        addr = _lane_addresses32(dims, strides, base, active)[lane]
+        addr = lane_addresses32(dims, strides, base, active)[lane]
         addr = np.where(addr < 0, addr + n, addr)
         return np.where(on[lane] & (addr >= 0) & (addr < n), addr, -1)
 
@@ -290,7 +278,7 @@ def test_lane_walk_in_32_bits_equals_the_64_bit_walk():
         active = min(LANES, math.prod(dims))
         want = ref.mdv_lane_addresses(dims, strides, base, active).numpy()
         np.testing.assert_array_equal(
-            _lane_addresses32(dims, strides, base, active), want)
+            lane_addresses32(dims, strides, base, active), want)
 
 
 def test_store_addresses_are_the_lanes_that_store():
