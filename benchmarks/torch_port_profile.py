@@ -5,11 +5,13 @@ image (host clock around work that ends in a synchronise) and, for the
 patterns whose program does not depend on the seed, ``run_batch`` over a
 device-resident batch of images; a ``torch.profiler`` window over each
 gives the device's busy share and the share of device time spent in the
-hand-written ``mdgather`` / ``mdscatter`` kernels.  Needs a CUDA device;
-prints one JSON object per line and writes them to ``--out``.
+hand-written ``mdgather`` / ``mdscatter`` kernels.  ``--mode`` picks the
+executor (``fused``, ``vm``, or ``both``: each pattern under fused and then
+the VM, one row each, in one process).  Needs a CUDA device; prints one
+JSON object per line and writes them to ``--out``.
 
     PYTHONPATH=src python -m benchmarks.torch_port_profile \
-        --batch 1024 --out torch_port_profile.json
+        --batch 1024 --mode both --out torch_port_profile.json
 """
 from __future__ import annotations
 
@@ -66,8 +68,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--mode", choices=("fused", "vm", "both"),
+                    default="fused")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    modes = ("fused", "vm") if args.mode == "both" else (args.mode,)
     if not torch.cuda.is_available():
         raise SystemExit("torch_port_profile needs a CUDA device")
     card = subprocess.run(
@@ -77,14 +82,15 @@ def main() -> None:
     cfg = MVEConfig()
     dev = torch.device("cuda")
     rows = [{"card": card, "torch": torch.__version__, "batch": args.batch,
-             "iters": args.iters}]
+             "iters": args.iters, "modes": list(modes)}]
     print(json.dumps(rows[0]), flush=True)
-    for name in sorted(PATTERNS):
+    for name, mode in ((n, m) for n in sorted(PATTERNS) for m in modes):
         run = PATTERNS[name]()
-        cp = compile_program(run.program, cfg)
+        cp = compile_program(run.program, cfg, mode=mode)
         vector = sum(1 for i in run.program if i.is_vector())
         image = as_memory(run.memory, dev)
-        row = {"pattern": name, "instructions": len(run.program),
+        row = {"pattern": name, "mode": cp.mode,
+               "instructions": len(run.program),
                "vector_instructions": vector,
                "image_elements": int(image.shape[0])}
 

@@ -49,7 +49,8 @@ non-zero:
    beside the bf16 one.
 4. ``path``    — the MVE main path at the Table IV geometry
    (``MVEConfig()``, 8192 lanes): every one of the 14 Section-IV patterns
-   at its default size through ``compile_program(...).run`` on ``cuda``,
+   at its default size through ``compile_program(..., mode="fused").run``
+   on ``cuda``,
    checked against the pattern's NumPy reference, fused == stepwise bit for
    bit (both on the card), trace priced by the cost model; then
    ``run_pattern_batch`` over 1024 seeds for every pattern whose program
@@ -66,12 +67,32 @@ non-zero:
 6. ``quantized`` — ``quantized_matmul`` at the MLP shape, both
    ``bitserial`` values, equal to the plain product and close to the float
    one.
+4b. ``vm``     — the same path through the program-as-data VM
+   (``compile_program(..., mode="vm")`` on ``cuda``: the reference's
+   lowering and signature, run by the fused datapath): the 14 patterns,
+   each checked against its NumPy reference and equal bit for bit to fused
+   and stepwise on the card (traces equal), all on the one default
+   signature; a ``run_batch`` of ``VM_BATCH`` (1024) images of every
+   pattern whose program does not depend on the seed, equal to the fused
+   batch; four trap programs (NaN and ±inf into integer loads and
+   ``vcvt``, shifts by 0, 31, 32, past and negative, ``vroti``, float16
+   arithmetic) equal to fused and stepwise on the card and to the VM on
+   the CPU but for the NaN bits of the lanes ``C7_NAN_LANES`` names
+   (ROADMAP C7; any other difference fails); a CUDA tensor
+   reaching a plain version of ``mdgather``/``mdscatter`` fails.  Prints
+   the VM's and fused's ``run`` ms (one image) and ``run_batch`` ms (1024),
+   host clock and device time.
+4c. ``targets`` — each of the 13 registered targets compiles and runs the
+   14 patterns on ``cuda``, memory bit-equal to fused; the modeled cycles
+   per target and pattern.
 7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
-Phases 4-6 are the main paths: the launch counters of the kernels each
-runs are set to 0 just before it and read just after; a kernel never
-launched there fails the run.  Without a CUDA device, or without the rest
+Phases 4, 4b, 5 and 6 are the main paths: the launch counters of the
+kernels each runs are set to 0 just before it and read just after (4b:
+around the VM's runs alone, before they are compared); a kernel never
+launched there fails the run.  The kernels line's ``launches`` adds 4 and
+4b.  Without a CUDA device, or without the rest
 of the checkout beside it, the script exits non-zero and prints no result
 line.
 """
@@ -679,7 +700,7 @@ def drive_main_path():
     t0 = time.perf_counter()
     for name in sorted(PATTERNS):
         run = PATTERNS[name]()
-        cp = compile_program(run.program, cfg)        # device: cuda
+        cp = compile_program(run.program, cfg, mode="fused")   # cuda
         mem, state = cp.run(run.memory)
         if mem.device.type != "cuda":
             raise AssertionError(f"{name}: ran on {mem.device}")
@@ -707,10 +728,10 @@ def drive_main_path():
         probe = [PATTERNS[name](seed=s) for s in (0, 1)]
         if probe[0].program != probe[1].program:
             continue                      # data-dependent program (fir, spmm)
-        runs, mems = run_pattern_batch(name, seeds, cfg)
+        runs, mems = run_pattern_batch(name, seeds, cfg, mode="fused")
         if mems.shape != (BATCH,) + runs[0].memory.shape:
             raise AssertionError(f"{name}: batch came back ragged")
-        cp = compile_program(runs[0].program, cfg)
+        cp = compile_program(runs[0].program, cfg, mode="fused")
         for s in SAMPLE:
             one, _ = cp.run(runs[s].memory)
             if not np.array_equal(to_numpy(one).view(np.int32),
@@ -723,6 +744,303 @@ def drive_main_path():
     if len(batched) < 10:
         raise AssertionError(f"only {batched} ran batched")
     return rows, batched, single_s, batch_s
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the program-as-data VM (mode="vm") on the same path
+# ---------------------------------------------------------------------------
+
+VM_BATCH = 1024
+VM_ITERS = 5
+_SPECIAL = [float("nan"), float("inf"), float("-inf"), 3e9, -3e9, 1e10,
+            -1.5, 300.7, 70000.0, -70000.0, 255.5, -0.0, 65504.0, 65520.0,
+            1e-8, 2.0 ** 31]
+
+
+def _special_image() -> np.ndarray:
+    mem = np.zeros(4096)
+    mem[:len(_SPECIAL)] = _SPECIAL
+    rng = np.random.default_rng(3)
+    mem[64:128] = rng.integers(-2 ** 31, 2 ** 31, 64)
+    mem[128:192] = [0, 31, 32, -1, -5, 40, 1, 16] * 8
+    mem[256:320] = rng.standard_normal(64) * 1000
+    mem[320:384] = rng.standard_normal(64) / 1000
+    return mem
+
+
+def vm_trap_programs() -> dict:
+    """One program per place where CUDA torch differs from XLA (the same
+    programs ``tests/test_torch_vm_programs.py`` holds against the
+    reference on the CPU): NaN, ±inf and out-of-range floats into integer
+    loads and ``vcvt``; ``vshi`` by 0, 31, 32 and past, and ``vshr`` by
+    register amounts 0, 31, 32, -1, -5, 40; ``vroti``; float16
+    add/sub/mul."""
+    from repro_torch.core import isa as I
+    from repro_torch.core.isa import DType, Op
+    n = len(_SPECIAL)
+    nonfinite = [I.vsetwidth(32), I.vsetdimc(1), I.vsetdiml(0, n),
+                 I.vsld(DType.F, 0, 0, 1)]
+    for k, dt in enumerate([DType.B, DType.W, DType.DW, DType.QW]):
+        nonfinite += [I.vsld(dt, 1, 0, 1), I.vsst(dt, 1, 1024 + 32 * k, 1),
+                      I.vcvt(dt, 2, 0), I.vsst(dt, 2, 2048 + 32 * k, 1)]
+    nonfinite += [I.vsld(DType.HF, 3, 0, 1), I.vcvt(DType.B, 4, 3),
+                  I.vsst(DType.DW, 4, 3072, 1)]
+    head = [I.vsetwidth(32), I.vsetdimc(1), I.vsetdiml(0, 64),
+            I.vsld(DType.DW, 0, 64, 1)]
+    shifts, k = head + [I.vsld(DType.DW, 1, 128, 1)], 0
+    for dt in (DType.B, DType.W, DType.DW):
+        for amt in (0, 1, 7, 8, 15, 16, 31, 32, 33, -1, -7, -8, -31, -32,
+                    -33):
+            shifts += [I.vshi(dt, 2, 0, amt),
+                       I.vsst(dt, 2, 1024 + 64 * k, 1)]
+            k += 1
+        shifts += [I.vshr_reg(dt, 3, 0, 1), I.vsst(dt, 3, 1024 + 64 * k, 1)]
+        k += 1
+    rotates, k = list(head), 0
+    for dt in (DType.B, DType.W, DType.DW, DType.QW):
+        for amt in (0, 1, 7, 8, 9, 15, 16, 31, 32, 33, 63, 64, -1):
+            rotates += [I.Instr(Op.ROTI, dtype=dt, vd=1, vs1=0, imm=amt),
+                        I.vsst(dt, 1, 1024 + 64 * k, 1)]
+            k += 1
+    half = [I.vsetwidth(32), I.vsetdimc(1), I.vsetdiml(0, 64),
+            I.vsld(DType.HF, 0, 256, 1), I.vsld(DType.HF, 1, 320, 1),
+            I.vsld(DType.F, 2, 256, 1)]
+    for k, f in enumerate([I.vadd, I.vsub, I.vmul]):
+        half += [f(DType.HF, 3, 0, 1), I.vsst(DType.HF, 3, 1024 + 64 * k, 1),
+                 f(DType.HF, 4, 2, 0), I.vsst(DType.HF, 4, 2048 + 64 * k, 1),
+                 f(DType.HF, 5, 3, 4)]
+    half += [I.vsld(DType.HF, 6, 0, 1), I.vadd(DType.HF, 7, 6, 6),
+             I.vsst(DType.HF, 7, 3072, 1)]
+    return {"nonfinite_to_int": nonfinite, "shifts": shifts,
+            "rotates": rotates, "half_rounding": half}
+
+
+def _no_plain_version_on_cuda():
+    """Wrap the plain versions of ``mdgather``/``mdscatter_`` so that a
+    CUDA tensor reaching one raises; returns the restore function."""
+    from repro_torch.kernels import mdgather as g, mdscatter as s
+    saved = (g.mdgather_ref, s.mdscatter_ref)
+
+    def guard(fn):
+        def wrapped(x, *args, **kw):
+            if x.is_cuda:
+                raise AssertionError(f"{fn.__name__} reached with a CUDA "
+                                     "tensor on the VM path")
+            return fn(x, *args, **kw)
+        return wrapped
+
+    g.mdgather_ref, s.mdscatter_ref = guard(saved[0]), guard(saved[1])
+
+    def restore():
+        g.mdgather_ref, s.mdscatter_ref = saved
+    return restore
+
+
+def drive_vm():
+    """The VM path alone (the launch counters see only it): the 14 patterns
+    through ``compile_program(..., mode="vm").run`` on ``cuda``, a
+    ``run_batch`` of ``VM_BATCH`` images of every pattern whose program
+    does not depend on the seed, and the trap programs.  Returns the
+    results for :func:`check_vm`."""
+    from repro_torch.core import MVEConfig, compile_program
+    from repro_torch.core.machine import as_memory
+    from repro_torch.core.patterns import PATTERNS
+
+    cfg = MVEConfig()
+    out = {"single": {}, "batch": {}, "traps": {}}
+    restore = _no_plain_version_on_cuda()
+    try:
+        for name in sorted(PATTERNS):
+            run = PATTERNS[name]()
+            cp = compile_program(run.program, cfg, mode="vm")  # cuda
+            if cp.mode != "vm":
+                raise AssertionError(f"{name}: fell back to {cp.mode}")
+            out["single"][name] = (run, cp, cp.run(run.memory))
+            probe = [PATTERNS[name](seed=s) for s in (0, 1)]
+            if probe[0].program != probe[1].program:
+                continue
+            runs = [PATTERNS[name](seed=s) for s in range(VM_BATCH)]
+            images = as_memory(np.stack([r.memory for r in runs]), "cuda")
+            out["batch"][name] = (runs, images, cp.run_batch(images))
+        for name, prog in vm_trap_programs().items():
+            cp = compile_program(prog, cfg, mode="vm")
+            if cp.mode != "vm":
+                raise AssertionError(f"trap {name}: fell back")
+            out["traps"][name] = (prog, cp.run(_special_image()))
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return out
+
+
+def _batch_equal(a, b) -> bool:
+    (ma, ra, ta), (mb, rb, tb) = a, b
+    return (torch.equal(bits(ma), bits(mb)) and set(ra) == set(rb)
+            and all(ra[k].dtype == rb[k].dtype
+                    and torch.equal(bits(ra[k]), bits(rb[k])) for k in ra)
+            and torch.equal(ta, tb))
+
+
+def check_vm(out):
+    """The VM's results against fused and stepwise on the card (bit for
+    bit, traces equal), its batches against the fused batches, the
+    traps also against the VM on the CPU; then the VM's and fused's times
+    per pattern (host clock per call, and device ms with the calls queued
+    back to back)."""
+    from repro_torch.core import MVEConfig, compile_program, vm
+    from repro_torch.core.interp import MVEInterpreter
+    from repro_torch.core.machine import as_memory, to_numpy
+
+    cfg = MVEConfig()
+    oracle = MVEInterpreter(cfg, compiled=False)
+    sigs, rows = set(), {}
+    for name, (run, cp, (mem, state)) in out["single"].items():
+        run.check(to_numpy(mem), state)
+        fused = compile_program(run.program, cfg, mode="fused")
+        _, f_state = fused.run(run.memory)
+        _, s_state = oracle.run_stepwise(run.program, run.memory)
+        for what, other in (("fused", f_state), ("stepwise", s_state)):
+            if not states_equal(state, other):
+                raise AssertionError(f"{name}: vm != {what} on the card")
+            if len(state.trace) != len(other.trace) or not all(
+                    a.same_as(b) for a, b in zip(state.trace, other.trace)):
+                raise AssertionError(f"{name}: vm trace != {what}")
+        sigs.add(cp._vm._signature(run.memory.shape[0]))
+        image = as_memory(run.memory, "cuda")
+        row = {}
+        for mode, c in (("vm", cp), ("fused", fused)):
+            row[f"{mode}_run_ms"] = wall_ms(lambda: c.run(image), VM_ITERS)
+            row[f"{mode}_run_device_ms"] = device_ms(
+                lambda: c.run_async(image), VM_ITERS)
+        rows[name] = row
+    if sigs != {vm.default_signature(cfg)}:
+        raise AssertionError(f"the 14 programs map to {sigs}, not the one "
+                             "default signature")
+    for name, (runs, images, got) in out["batch"].items():
+        fused = compile_program(runs[0].program, cfg, mode="fused")
+        if not _batch_equal(got, fused.run_batch(images)):
+            raise AssertionError(f"{name}: vm batch != fused batch")
+        for s in SAMPLE:
+            runs[s].check(to_numpy(got[0][s]), None)
+        cp = out["single"][name][1]
+        row = rows[name]
+        for mode, c in (("vm", cp), ("fused", fused)):
+            row[f"{mode}_batch_ms"] = wall_ms(lambda: c.run_batch(images), 3)
+            row[f"{mode}_batch_device_ms"] = device_ms(
+                lambda: c.run_batch_async(images), 3)
+    traps = {}
+    for name, (prog, (mem, state)) in out["traps"].items():
+        image = _special_image()
+        for what, other in (
+                ("fused", compile_program(prog, cfg, mode="fused")),
+                ("stepwise", None)):
+            other = oracle.run_stepwise(prog, image)[1] if other is None \
+                else other.run(image)[1]
+            if not states_equal(state, other):
+                raise AssertionError(f"trap {name}: vm != {what}")
+        # the CPU run is the one the tests hold bit for bit against the
+        # reference: equal here too, but for the NaN lanes of ROADMAP C7
+        cpu = compile_program(prog, cfg, mode="vm", device="cpu").run(image)
+        what = f"trap {name}: vm != vm on the cpu"
+        lanes = nan_bit_diffs(state, _to_cuda_state(cpu[1]), what)
+        if lanes != C7_NAN_LANES.get(name, set()):
+            raise AssertionError(f"{what}: NaN bits differ at "
+                                 f"{sorted(lanes)}")
+        traps[name] = {"instructions": len(prog),
+                       "nan_bits_unlike_the_cpu [where, i, card, cpu]":
+                       sorted(lanes)}
+    return {"patterns": rows, "batched": sorted(out["batch"]),
+            "batch": VM_BATCH, "traps": traps,
+            "signature": list(vm.default_signature(cfg))}
+
+
+# ROADMAP C7: the lanes of each trap program where the card's NaN bits
+# (CUDA's canonical NaN) differ from the CPU's, as (where, lane, card bits,
+# CPU bits).  Any other lane, or other bits, fails the phase.
+C7_NAN_LANES = {
+    "nonfinite_to_int": {("v3", 0, "0x7fff", "0x7e00")},
+    "half_rounding": {("memory", 3072, "0x7fffffff", "0x7fc00000"),
+                      ("v6", 0, "0x7fff", "0x7e00"),
+                      ("v7", 0, "0x7fff", "0x7e00")},
+}
+
+
+def nan_bit_diffs(a, b, what: str) -> set:
+    """Memory, registers and Tag of two states equal bit for bit except at
+    lanes where both hold a NaN; returns those lanes whose NaN bits
+    differ, as ``(where, lane, a bits, b bits)`` (raises on any other
+    difference)."""
+    pairs = [("memory", a.memory, b.memory), ("tag", a.tag, b.tag)]
+    if set(a.regs) != set(b.regs):
+        raise AssertionError(f"{what}: registers {set(a.regs)}")
+    pairs += [(f"v{k}", a.regs[k], b.regs[k]) for k in sorted(a.regs)]
+    out = set()
+    for where, x, y in pairs:
+        if x.dtype != y.dtype:
+            raise AssertionError(f"{what}: {x.dtype} != {y.dtype}")
+        differ = bits(x) != bits(y)
+        if x.is_floating_point():
+            nan_only = differ & torch.isnan(x) & torch.isnan(y)
+            width = (1 << 8 * x.element_size()) - 1
+            for i in nan_only.nonzero().flatten().tolist():
+                out.add((where, i, hex(int(bits(x)[i]) & width),
+                         hex(int(bits(y)[i]) & width)))
+            differ &= ~nan_only
+        if bool(differ.any()):
+            raise AssertionError(f"{what} ({where})")
+    return out
+
+
+def _to_cuda_state(state):
+    import copy
+    st = copy.copy(state)
+    st.memory = state.memory.cuda()
+    st.regs = {k: v.cuda() for k, v in state.regs.items()}
+    st.tag = state.tag.cuda()
+    return st
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Host-clock ms per call of ``fn`` (work ended by a synchronise)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the 13 registered targets
+# ---------------------------------------------------------------------------
+
+def drive_targets():
+    """Every registered target compiles and runs every pattern on
+    ``cuda``: memory bit-equal across targets and to fused; the modeled
+    cycles of each (host arithmetic over the run's trace)."""
+    from repro_torch import targets
+    from repro_torch.core import MVEConfig, compile_program
+    from repro_torch.core.patterns import PATTERNS
+
+    cfg = MVEConfig()
+    names = targets.list_targets()
+    if len(names) != 13:
+        raise AssertionError(f"{len(names)} targets registered: {names}")
+    cycles = {t: {} for t in names}
+    for pattern in sorted(PATTERNS):
+        run = PATTERNS[pattern]()
+        want, _ = compile_program(run.program, cfg, mode="fused").run(
+            run.memory)
+        for t in names:
+            art = targets.compile(run.program, target=t)       # cuda
+            mem, state = art.run(run.memory)
+            if mem.device.type != "cuda":
+                raise AssertionError(f"{t}: ran on {mem.device}")
+            if not torch.equal(bits(mem), bits(want)):
+                raise AssertionError(f"{t} != fused on {pattern}")
+            cycles[t][pattern] = art.timeline(state).total_cycles
+    return {"targets": list(names), "cycles": cycles}
 
 
 # ---------------------------------------------------------------------------
@@ -1060,8 +1378,18 @@ def main() -> int:
     # ---- 4-6. the main paths, each with its launch counts ----------------
     (rows, batched, single_s, batch_s), counts = drive(
         "MVE", ("mdgather", "mdscatter"), drive_main_path)
-    emit("path", patterns=rows, batched=batched, batch=BATCH,
+    emit("path", mode="fused", patterns=rows, batched=batched, batch=BATCH,
          single_seconds=single_s, batch_seconds=batch_s, launches=counts)
+    t0 = time.perf_counter()
+    vm_out, vm_counts = drive("VM", ("mdgather", "mdscatter"), drive_vm)
+    vm_drive_s = time.perf_counter() - t0
+    vm_checks = check_vm(vm_out)
+    del vm_out
+    emit("vm", drive_seconds=vm_drive_s, seconds=time.perf_counter() - t0,
+         launches=vm_counts, **vm_checks)
+    t0 = time.perf_counter()
+    tg = drive_targets()
+    emit("targets", seconds=time.perf_counter() - t0, **tg)
     t0 = time.perf_counter()
     lm, lm_counts = drive("LM", ("flash_attention",), drive_lm,
                           flash_attention)
@@ -1070,8 +1398,8 @@ def main() -> int:
                                               "bitplane_matmul"),
                                 drive_quantized, ops, ref)
     emit("quantized", shape=MLP_SHAPE, launches=quant_counts, **quant)
-    launches = {"mdgather": counts["mdgather"],
-                "mdscatter": counts["mdscatter"],
+    launches = {"mdgather": counts["mdgather"] + vm_counts["mdgather"],
+                "mdscatter": counts["mdscatter"] + vm_counts["mdscatter"],
                 "flash_attention": lm_counts["flash_attention"],
                 "int8_matmul": quant_counts["int8_matmul"],
                 "bitplane_matmul": quant_counts["bitplane_matmul"]}

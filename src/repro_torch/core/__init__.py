@@ -7,8 +7,9 @@ Layers:
   interp   — step executor (the semantic oracle; see docs/ISA.md)
   engine   — whole-program compiler + straight-line eager executor
              (mode "fused"), single image or an explicit batch axis
-  vm       — fault-hook registry; the program-as-data datapath is still
-             to be ported (ROADMAP.md)
+  vm       — the program-as-data VM (mode "vm"): the step list lowered
+             to tables, run by one step loop per signature
+  rvv      — the Section III-C 1D (RVV-style) lowering, for pricing
   cost     — BS/BP/BH/AC cycle models + controller/CB timeline
   patterns — Section IV data-parallel patterns for 12 mobile libraries
              (built with the kernel frontend, :mod:`repro_torch.frontend`)

@@ -359,16 +359,18 @@ class EnergyParams:
     def derive(cls, cfg: MVEConfig, scheme: "str | None" = None
                ) -> "EnergyParams":
         """Derive the in-cache constants for one (scheme, geometry) from
-        the parametric SRAM model instead of the fixed defaults.
+        the parametric SRAM model (:mod:`repro_torch.silicon`,
+        docs/SILICON.md) instead of the fixed defaults.
 
-        The SRAM model (the reference's ``silicon`` package) is not part of
-        this package yet, so this raises; :data:`DEFAULT_ENERGY` holds the
-        Table IV constants meanwhile.
+        Calibration contract: the parametric model supplies *relative*
+        scaling only — each derived constant is the default times the
+        model's ratio between ``cfg`` and the default Table IV geometry —
+        so at the default geometry under the bit-serial scheme the result
+        is byte-identical to :data:`DEFAULT_ENERGY` and every frozen
+        golden row is preserved exactly.
         """
-        raise NotImplementedError(
-            "EnergyParams.derive needs the parametric SRAM model, which "
-            "is still to be ported (ROADMAP.md queue A: silicon/); use "
-            "DEFAULT_ENERGY")
+        from ..silicon.params import derived_energy
+        return derived_energy(cfg, scheme)[0]
 
 
 DEFAULT_ENERGY = EnergyParams()

@@ -38,9 +38,24 @@ Each MVE instruction is its own device operation, so every register
 write-back is a rounding point, exactly as distinct in-cache instructions
 are: the engine reproduces the step interpreter bit for bit.
 
-Execution modes.  This package's executor is ``mode="fused"`` (the
-default).  The program-as-data VM (``mode="vm"``) is still to be ported and
-raises ``NotImplementedError``.
+A write-back whose lane mask covers every lane and that does not read the
+Tag skips the blend with the old register (decided on the host from the
+step's mask): every lane takes the result.
+
+Execution modes.  ``compile_program(..., mode=...)`` selects the executor:
+
+  "fused" — (default) the straight-line step code above;
+  "vm"    — the reference's program-as-data lowering
+            (:mod:`repro_torch.core.vm`): the step list as dense tables,
+            bucketed to a signature that groups programs for batching and
+            counts executors as the reference does, run by the same
+            straight-line code.  Programs it cannot host (more than
+            ``vm.N_REGS`` live registers) fall back to fused
+            (``cache_info().vm_fallbacks``), and memory images other than
+            float32/float64 run fused.
+
+Both modes run/run_batch/trace identically and are equivalence-tested
+against the stepwise oracle.
 """
 from __future__ import annotations
 
@@ -62,8 +77,9 @@ from .isa import Instr, Op
 from .machine import (TORCH_DTYPE, ControlState, MVEConfig, apply_config,
                       as_memory, cbs_from_lane_mask, convert,
                       flatten_indices, lane_dim_mask, resolve_device,
-                      stream_shape, touched_lines)
-from .vm import VMUnsupported, fire_fault_hook
+                      store_layout, stream_shape, touched_lines)
+from .vm import VMProgram, VMUnsupported, fire_fault_hook
+from .vm import cache_info as _vm_cache_info
 from .vm import set_fault_hook  # noqa: F401  (re-export: one hook registry)
 
 
@@ -107,6 +123,9 @@ class _Step:
     # strided accesses: the resolved walk handed to mdv_gather/mdv_scatter_
     dims: Optional[Tuple[int, ...]] = None
     strides: Optional[Tuple[int, ...]] = None
+    addr: Optional[np.ndarray] = None        # static element addresses
+    store_layout: Optional[tuple] = None     # mode="vm": store_layout()
+    whole: bool = False                      # lane mask covers every lane
     # random-base (Eq. 1) accesses: pointer slice + static inner offsets
     ptr_base: Optional[int] = None
     top_len: Optional[int] = None
@@ -179,6 +198,15 @@ class CompiledProgram:
         isa.validate(self.program, wordlines=cfg.wordlines)
         self._compile_walk()
         self._operands: Dict[torch.device, _DeviceOperands] = {}
+        self._vm: Optional[VMProgram] = None
+        if mode == "vm":
+            try:
+                self._vm = VMProgram(self.steps, cfg, self.n_random,
+                                     self._execute_on)
+            except VMUnsupported:
+                global _VM_FALLBACKS
+                _VM_FALLBACKS += 1
+                self.mode = "fused"
 
     # -- compilation -------------------------------------------------------
     def _compile_walk(self) -> None:
@@ -206,7 +234,7 @@ class CompiledProgram:
             cbm = cbs_from_lane_mask(lane_mask, cfg)
             elements = int(lane_mask.sum())
             step = _Step(instr, lane_mask=lane_mask, cb_mask=cbm,
-                         mask_slot=n_masked)
+                         mask_slot=n_masked, whole=bool(lane_mask.all()))
             n_masked += 1
 
             if op in isa.MEMORY_OPS:
@@ -235,6 +263,9 @@ class CompiledProgram:
                         addr += np.where(coords[:, d] >= 0,
                                          coords[:, d], 0) * strides[d]
                     step.dims, step.strides = dims, strides
+                    step.addr = addr
+                    if store and self.mode == "vm":   # the VM's tables
+                        step.store_layout = store_layout(addr, lane_mask)
                     lines = touched_lines(addr, lane_mask,
                                           instr.dtype.nbytes)
                 step.event = TraceEvent(op, instr.dtype, elements, cbm,
@@ -282,19 +313,20 @@ class CompiledProgram:
                     gathered = mdv_gather(memory, step.dims, step.strides,
                                           instr.base, lanes=cfg.lanes)
                 else:
-                    addr = self._random_addresses(step, memory, ops)
+                    addr = _step_random_addresses(step, memory, ops)
                     rand_addrs[step.rand_slot] = addr
                     gathered = torch.gather(memory, -1,
                                             addr.clamp(0, n - 1))
-                regs[instr.vd] = torch.where(mask, convert(gathered, dt),
-                                             old(instr.vd))
+                gathered = convert(gathered, dt)
+                regs[instr.vd] = gathered if step.whole else \
+                    torch.where(mask, gathered, old(instr.vd))
                 continue
             if op is Op.SST:
                 mdv_scatter_(memory, convert(old(instr.vs1), memory.dtype),
                              step.dims, step.strides, instr.base, mask)
                 continue
             if op is Op.RST:
-                addr = self._random_addresses(step, memory, ops)
+                addr = _step_random_addresses(step, memory, ops)
                 rand_addrs[step.rand_slot] = addr
                 _scatter_last_lane_wins_(
                     memory, convert(old(instr.vs1), memory.dtype), addr,
@@ -315,25 +347,19 @@ class CompiledProgram:
                 if op in isa.COMPARE_OPS:
                     tag = torch.where(mask, result, tag)
                     continue
+            result = convert(result, dt)
+            if step.whole and not instr.predicated:
+                regs[instr.vd] = result
+                continue
             keep = mask & tag if instr.predicated else mask
-            regs[instr.vd] = torch.where(keep, convert(result, dt),
-                                         old(instr.vd))
+            regs[instr.vd] = torch.where(keep, result, old(instr.vd))
 
         return memory, regs, tag, rand_addrs
 
-    @staticmethod
-    def _random_addresses(step: _Step, memory: torch.Tensor,
-                          ops: _DeviceOperands) -> torch.Tensor:
-        """Run-time element addresses of a random-base access (Eq. 1): the
-        pointer array is part of the data.  int64, leading axes as
-        ``memory``."""
-        ptrs = memory[..., step.ptr_base: step.ptr_base + step.top_len]
-        if ptrs.shape[-1] == 0:
-            raise ValueError(f"pointer array at {step.ptr_base} lies "
-                             "outside the memory image")
-        ptrs = convert(ptrs, torch.int32).to(torch.int64)
-        top_idx = ops.top_idx[step.rand_slot].clamp(max=ptrs.shape[-1] - 1)
-        return ptrs[..., top_idx] + ops.offsets[step.rand_slot]
+    def _execute_on(self, memory: torch.Tensor):
+        """:meth:`_execute` with this program's operands on ``memory``'s
+        device (the datapath ``mode="vm"`` runs)."""
+        return self._execute(memory, self._device_operands(memory.device))
 
     # -- public API --------------------------------------------------------
     def _device_operands(self, dev: torch.device) -> _DeviceOperands:
@@ -378,7 +404,9 @@ class CompiledProgram:
 
     def _dispatch(self, memory, dev: torch.device, batched: bool):
         """Pack (for named operands), place the image(s) on the device as
-        an executor-owned copy, and enqueue the program."""
+        an executor-owned copy, and enqueue the program through the VM
+        (float32-canonical images under ``mode="vm"``) or directly.
+        Returns ``(kind, pending)``."""
         if isinstance(memory, dict):
             kernel = self._bound_kernel()
             memory = kernel.pack_batch(memory) if batched \
@@ -388,7 +416,28 @@ class CompiledProgram:
             raise ValueError(
                 f"expected a {'(B, N) batch of images' if batched else 'flat (N,) image'}, "
                 f"got shape {tuple(mem.shape)}")
-        return self._execute(mem, self._device_operands(dev))
+        if self._use_vm(mem):
+            vm = self._vm
+            return "vm", (vm.run_batch_async(mem) if batched
+                          else vm.run_async(mem))
+        return "fused", self._execute(mem, self._device_operands(dev))
+
+    @staticmethod
+    def _vm_dtype(dtype) -> bool:
+        """True for a float32-canonical memory type (float64 or float32 —
+        what every pattern uses), as a torch or NumPy dtype."""
+        if isinstance(dtype, torch.dtype):
+            return dtype in (torch.float64, torch.float32)
+        return np.dtype(dtype) in (np.float64, np.float32)
+
+    def _use_vm(self, memory) -> bool:
+        """Route through the VM unless the memory type needs the
+        exact semantics of the fused executor; reads ``memory.dtype``
+        without materializing the array."""
+        dtype = getattr(memory, "dtype", None)
+        if dtype is None:
+            dtype = np.asarray(memory).dtype
+        return self.mode == "vm" and self._vm_dtype(dtype)
 
     def run_async(self, memory, device=None):
         """Dispatch one execution without blocking on host results.
@@ -410,7 +459,10 @@ class CompiledProgram:
         """Materialize a :meth:`run_async` dispatch into ``(mem, state)``."""
         fire_fault_hook("engine.finalize", tier=self.mode)
         try:
-            mem, regs, tag, rand_addrs = pending
+            kind, out = pending
+            if kind == "vm":
+                out = self._vm.finalize(out)
+            mem, regs, tag, rand_addrs = out
             trace = self._finalize_trace(rand_addrs)
         except _PASSTHROUGH:
             raise
@@ -428,7 +480,8 @@ class CompiledProgram:
     def run(self, memory, device=None
             ) -> Tuple[torch.Tensor, ExecutionResult]:
         """Execute on one memory image; returns ``(memory, state)`` exactly
-        like :meth:`MVEInterpreter.run` (trace included)."""
+        like :meth:`MVEInterpreter.run` (trace included).  Dispatches to
+        the VM or the fused executor per ``mode``."""
         return self.finalize_run(self.run_async(memory, device))
 
     def run_batch(self, memories, device=None
@@ -450,8 +503,7 @@ class CompiledProgram:
         dev = self._run_device(device)
         fire_fault_hook("engine.dispatch", tier=self.mode)
         try:
-            mem, regs, tag, _ = self._dispatch(memories, dev, batched=True)
-            return mem, dict(regs), tag
+            return self._dispatch(memories, dev, batched=True)
         except _PASSTHROUGH:
             raise
         except Exception as e:
@@ -460,22 +512,43 @@ class CompiledProgram:
 
     def finalize_batch(self, pending):
         fire_fault_hook("engine.finalize", tier=self.mode)
-        return pending
+        try:
+            kind, out = pending
+            if kind == "vm":
+                return self._vm.finalize_batch(out)
+            mem, regs, tag, _ = out
+            return mem, dict(regs), tag
+        except _PASSTHROUGH:
+            raise
+        except Exception as e:
+            raise FinalizeError(f"batch finalize failed ({self.mode} "
+                                f"mode): {type(e).__name__}: {e}") from e
 
     def batch_group_key(self, memory) -> tuple:
         """Scheduling key: requests whose keys are equal can be stacked
-        into one ``run_batch`` dispatch (batching stacks *memories* under
-        one program, so the program's identity is part of the key)."""
+        into one ``run_batch`` dispatch.  The key is the VM signature for
+        VM-routed requests (program identity rides along: batching stacks
+        *memories* under one program) and the program itself for
+        fused-routed ones."""
         mem = np.asarray(memory) if not hasattr(memory, "shape") else memory
         size = int(mem.shape[-1])
         dtype = str(getattr(mem, "dtype", "float64"))
+        if self._use_vm(memory):
+            return ("vm", self._vm._signature(size), size, dtype)
         return ("fused", id(self), size, dtype)
 
     def warmup(self, memory_size, batch: Optional[int] = None,
                dtype=torch.float32) -> "CompiledProgram":
-        """Nothing to warm: execution is eager, there is no executable to
-        compile ahead of time.  Kept, with the reference's signature, so
-        call chains written against it carry over.  Returns ``self``."""
+        """Upload this program's masks and pointer tables to its device;
+        under ``mode="vm"`` (float images) also record the signature's
+        executor.  Nothing is compiled ahead of time.  ``memory_size`` is
+        an element count (or an example image); returns ``self`` so calls
+        chain with :func:`compile_program`."""
+        if not isinstance(memory_size, int):
+            memory_size = int(np.asarray(memory_size).shape[-1])
+        self._device_operands(self.device)
+        if self.mode == "vm" and self._vm_dtype(dtype):
+            self._vm.warmup(memory_size, batch)
         return self
 
     def _finalize_trace(self, rand_addrs) -> List[TraceEvent]:
@@ -499,6 +572,29 @@ class CompiledProgram:
         """The compile-time trace; exact unless the program uses
         random-base accesses (then run() fills the ``lines`` fields)."""
         return [s.event for s in self.steps]
+
+
+def random_addresses(memory: torch.Tensor, ptr_base: int, top_len: int,
+                     top_idx: torch.Tensor,
+                     offsets: torch.Tensor) -> torch.Tensor:
+    """Run-time element addresses of a random-base access (Eq. 1): the
+    pointer array at ``ptr_base`` is part of the data.  Lane ``l`` adds
+    ``offsets[l]`` to pointer ``top_idx[l]``, saturated to int32 (NaN ->
+    0), in int64.  Leading axes as ``memory``."""
+    ptrs = memory[..., ptr_base: ptr_base + top_len]
+    if ptrs.shape[-1] == 0:
+        raise ValueError(f"pointer array at {ptr_base} lies outside the "
+                         "memory image")
+    ptrs = convert(ptrs, torch.int32).to(torch.int64)
+    top_idx = top_idx.clamp(max=ptrs.shape[-1] - 1)
+    return ptrs[..., top_idx] + offsets
+
+
+def _step_random_addresses(step: _Step, memory: torch.Tensor,
+                           ops: _DeviceOperands) -> torch.Tensor:
+    return random_addresses(memory, step.ptr_base, step.top_len,
+                            ops.top_idx[step.rand_slot],
+                            ops.offsets[step.rand_slot])
 
 
 def _scatter_last_lane_wins_(memory: torch.Tensor, values: torch.Tensor,
@@ -535,28 +631,59 @@ _CACHE: "OrderedDict[tuple, CompiledProgram]" = OrderedDict()
 _CACHE_CAPACITY = 256
 _CACHE_LOCK = threading.RLock()   # submit() may compile from many threads
 _HITS = _MISSES = _EVICTIONS = 0
+_VM_FALLBACKS = 0
+# Per-target LRU counters: cache_tag -> [hits, misses].  Tagged compiles
+# (one tag per :mod:`repro_torch.targets` target) get their own key space,
+# so an RVV or Neon compilation of a program never aliases — or evicts in
+# place of — the MVE entry for the same text.
+_TAG_COUNTS: Dict[str, List[int]] = {}
 
-#: Default (and, until the VM is ported, only) execution mode.  The
-#: stepwise interpreter remains the semantic oracle.
+#: Default execution mode: ``"fused"`` (the reference defaults to ``"vm"``
+#: to avoid an XLA compile per program, which this package never pays;
+#: ``"vm"`` adds its lowering to each compile and runs the same datapath).
+#: The stepwise interpreter remains the semantic oracle of both.
 DEFAULT_MODE = "fused"
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineCacheInfo:
-    """Snapshot of the compile cache (see :func:`cache_info`)."""
+    """Snapshot of the compile caches (see :func:`cache_info`)."""
 
     program_hits: int          # compile_program served from the LRU
-    program_misses: int        # fresh compile walks
+    program_misses: int        # fresh compile walks (+ VM lowerings)
     program_evictions: int
     program_size: int
+    vm_fallbacks: int          # vm-mode requests lowered to fused instead
+    vm_signatures: int         # distinct VM signatures seen
+    vm_hits: int               # VM dispatches of a known signature
+    vm_executors: int          # (signature, single-or-batch) pairs seen
+    # cache_tag -> {"hits": n, "misses": n} for target-tagged compiles;
+    # untagged compiles count only in the totals above.
+    per_target: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
+
+    @property
+    def vm_xla_compiles(self) -> int:
+        """The reference's name for :attr:`vm_executors` (nothing is
+        compiled here)."""
+        return self.vm_executors
 
 
 def cache_info() -> EngineCacheInfo:
-    """Hit/miss/eviction counters of the program LRU."""
+    """Hit/miss/eviction counters of the program LRU plus the VM's
+    signature counters.  ``per_target`` breaks the LRU
+    counters down by compile tag, one per registered
+    :mod:`repro_torch.targets` target that has compiled anything."""
+    v = _vm_cache_info()
     with _CACHE_LOCK:
+        per_target = {tag: {"hits": c[0], "misses": c[1]}
+                      for tag, c in _TAG_COUNTS.items()}
         return EngineCacheInfo(
             program_hits=_HITS, program_misses=_MISSES,
-            program_evictions=_EVICTIONS, program_size=len(_CACHE))
+            program_evictions=_EVICTIONS, program_size=len(_CACHE),
+            vm_fallbacks=_VM_FALLBACKS, vm_signatures=v.signatures,
+            vm_hits=v.hits, vm_executors=v.executors,
+            per_target=per_target)
 
 
 def _attach_kernel(cp: CompiledProgram, kernel) -> CompiledProgram:
@@ -587,9 +714,18 @@ def _attach_kernel(cp: CompiledProgram, kernel) -> CompiledProgram:
     return cp
 
 
+def _count_tag(tag: Optional[str], hit: bool) -> None:
+    """Record a tagged LRU hit/miss (caller holds ``_CACHE_LOCK``)."""
+    if tag is None:
+        return
+    counts = _TAG_COUNTS.setdefault(tag, [0, 0])
+    counts[0 if hit else 1] += 1
+
+
 def compile_program(program: isa.Program,
                     cfg: MVEConfig | None = None,
                     mode: str | None = None,
+                    cache_tag: Optional[str] = None,
                     opt_level: Optional[int] = None,
                     device=None) -> CompiledProgram:
     """Compile (with caching) an MVE program for the given machine config.
@@ -601,22 +737,29 @@ def compile_program(program: isa.Program,
 
     The returned :class:`CompiledProgram` is memory-image independent: the
     same object executes any number of images (or a batch) without another
-    compile walk, and repeated calls with an equal program, config and
-    device return the cached compilation.  ``device`` is where it executes
-    (default ``cuda``; without a card that raises — pass ``"cpu"``).
+    compile walk, and repeated calls with an equal program, config, mode,
+    tag and device return the cached compilation.  ``device`` is where it
+    executes (default ``cuda``; without a card that raises — pass
+    ``"cpu"``).
 
-    ``mode`` selects the executor: only ``"fused"`` exists in this package
-    so far.  ``mode="vm"`` and ``opt_level=`` raise ``NotImplementedError``
-    until the VM and the optimizer are ported (ROADMAP.md queue A).
+    ``mode`` selects the executor (default :data:`DEFAULT_MODE`):
+    ``"fused"`` runs the step list as straight-line code, ``"vm"`` also
+    lowers it to the reference's VM tables and signature and runs the same
+    code.  Programs the VM cannot host fall back to fused
+    (``cache_info().vm_fallbacks``).
+
+    ``cache_tag`` namespaces the LRU key: compilations made on behalf of
+    one :mod:`repro_torch.targets` target (the target's name) never alias
+    another target's entries for the same program text, and
+    ``cache_info().per_target`` reports hits/misses per tag.
+
+    ``opt_level=`` raises ``NotImplementedError`` until the optimizer is
+    ported (ROADMAP.md queue A).
     """
     global _HITS, _MISSES, _EVICTIONS
     cfg = cfg or MVEConfig()
     mode = mode or DEFAULT_MODE
-    if mode == "vm":
-        raise NotImplementedError(
-            'mode="vm": the program-as-data VM is still to be ported '
-            "(ROADMAP.md queue A: core/vm.py); use mode=\"fused\"")
-    if mode != "fused":
+    if mode not in ("vm", "fused"):
         raise ValueError(f"unknown engine mode {mode!r}")
     if opt_level:
         raise NotImplementedError(
@@ -627,11 +770,12 @@ def compile_program(program: isa.Program,
     if hasattr(program, "plan") and hasattr(program, "program"):
         kernel = program            # a frontend Kernel (duck-typed:
         program = kernel.program    # no core -> frontend import cycle)
-    key = (tuple(program), cfg, mode, dev)
+    key = (tuple(program), cfg, mode, cache_tag, dev)
     with _CACHE_LOCK:
         cp = _CACHE.get(key)
         if cp is not None:
             _HITS += 1
+            _count_tag(cache_tag, hit=True)
             _CACHE.move_to_end(key)
             return _attach_kernel(cp, kernel)
     # Construct outside the lock: a multi-ms compile walk must not stall
@@ -649,11 +793,17 @@ def compile_program(program: isa.Program,
         cp = _CACHE.get(key)
         if cp is not None:
             _HITS += 1
+            _count_tag(cache_tag, hit=True)
             _CACHE.move_to_end(key)
             return _attach_kernel(cp, kernel)
         _MISSES += 1
+        _count_tag(cache_tag, hit=False)
         cp = _CACHE[key] = built
         _attach_kernel(cp, kernel)
+        if cp.mode != mode:
+            # VM-unsupported fallback: alias the fused key too, so an
+            # explicit mode="fused" request reuses this compilation.
+            _CACHE.setdefault((key[0], key[1], cp.mode, cache_tag, dev), cp)
         while len(_CACHE) > _CACHE_CAPACITY:
             _CACHE.popitem(last=False)
             _EVICTIONS += 1
@@ -662,8 +812,11 @@ def compile_program(program: isa.Program,
 
 def clear_cache() -> None:
     """Drop all cached compilations and reset the LRU counters (tests /
-    memory pressure)."""
-    global _HITS, _MISSES, _EVICTIONS
+    memory pressure).  The VM's signature counters persist — clear them
+    separately via :func:`repro_torch.core.vm.clear_executors`."""
+    global _HITS, _MISSES, _EVICTIONS, _VM_FALLBACKS
     with _CACHE_LOCK:
         _CACHE.clear()
+        _TAG_COUNTS.clear()
         _HITS = _MISSES = _EVICTIONS = 0
+        _VM_FALLBACKS = 0

@@ -72,6 +72,10 @@ def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return x
     if x.dtype.is_floating_point and not dtype.is_floating_point:
         info = torch.iinfo(dtype)
+        if x.dtype == torch.float32 and info.bits <= 16:
+            # bounds exact in float32: the clamped value converts directly
+            return torch.nan_to_num(x, nan=0.0).clamp(
+                info.min, info.max).to(dtype)
         wide = torch.nan_to_num(x.to(torch.float64), nan=0.0)
         return wide.clamp(info.min, info.max).to(torch.int64).to(dtype)
     return x.to(dtype)
@@ -368,6 +372,56 @@ def touched_lines(addr: np.ndarray, mask: np.ndarray, nbytes: int) -> int:
     if not mask.any():
         return 0
     return int(np.unique((addr[mask] * nbytes) // 64).size)
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (bucketing helper for the executors)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+# Out-of-bounds scatter sentinel base.  Dropped lanes get ``OOB_BASE +
+# lane`` so a sorted-unique index vector stays sorted and unique after
+# masking (every modeled memory is far below 2**30 elements).
+OOB_BASE = 1 << 30
+
+
+def store_layout(addr: np.ndarray, mask: np.ndarray):
+    """Classify a static store's per-lane addresses (the VM lowering's
+    table of a store slot):
+
+    * ``("none",)``            — no active lane; the store is a no-op.
+    * ``("contig", base)``     — every active lane ``l`` writes ``base + l``
+      (true for all dense row-major-continuation stores, i.e. every static
+      store in the Section-IV patterns).
+    * ``("scatter", idx, perm)`` — general case: ``idx`` is a sorted,
+      unique, collision-resolved index vector (masked lanes and all but the
+      last writer of each address are pushed out of bounds, preserving the
+      last-lane-wins scatter order) and ``perm`` reorders the source lanes
+      to match.
+
+    The executors store through ``mdv_scatter_``, which routes the same
+    walk by :func:`repro_torch.kernels.mdscatter.store_plan`; this
+    classification is what the lowering keeps of each store.
+    """
+    lanes = addr.shape[0]
+    if not mask.any():
+        return ("none",)
+    lane = np.arange(lanes, dtype=np.int64)
+    delta = addr[mask] - lane[mask]
+    base = int(delta[0])
+    if base >= 0 and (delta == base).all():
+        return ("contig", base)
+    # Keep, per distinct address, only the highest active lane (last wins).
+    act = np.flatnonzero(mask)
+    order_a = np.argsort(addr[act], kind="stable")
+    sorted_a = addr[act][order_a]
+    last = np.ones(len(act), dtype=bool)
+    last[:-1] = sorted_a[:-1] != sorted_a[1:]
+    winners = act[order_a[last]]
+    key = OOB_BASE + lane
+    key[winners] = addr[winners]
+    perm = np.argsort(key, kind="stable")
+    return ("scatter", key[perm].astype(np.int64), perm.astype(np.int32))
 
 
 def cbs_touched(dims: Tuple[int, ...], dim_mask: np.ndarray,

@@ -16,8 +16,8 @@ Each pattern models one representative kernel of the 12 Swan libraries
   * an analytic workload descriptor for the packed-SIMD (Neon) and GPU
     baseline cost models of Figure 7/8/9.
 
-The RVV baseline lowering of these programs (the reference's
-``core/rvv.py``) is still to be ported.
+The RVV baseline trace for the same pattern is obtained by lowering the
+MVE program with :func:`repro_torch.core.rvv.compile_to_rvv`.
 """
 from __future__ import annotations
 

@@ -256,15 +256,21 @@ class Kernel:                         # the engine can track attachments
                 target: Optional[object] = None,
                 opt_level: Optional[int] = None, device=None):
         """The cached :class:`~repro_torch.core.engine.CompiledProgram`
-        for this kernel on ``device`` (default ``cuda``).
+        for this kernel on ``device`` (default ``cuda``) — or, with
+        ``target=`` (a registered name like ``"rvv-1d"`` or a
+        :class:`~repro_torch.targets.Target`), the uniform
+        :class:`~repro_torch.targets.CompiledArtifact` exposing
+        ``run``/``run_batch``/``timeline``/``energy``/``instruction_mix``
+        under that target's cost models.  The kernel runs unchanged on
+        every target.
 
-        ``target=`` (pricing and lowering under another registered target)
-        and ``opt_level=`` (the optimizer pass pipeline) are still to be
-        ported and raise ``NotImplementedError`` (ROADMAP.md queue A)."""
+        ``opt_level=`` (the optimizer pass pipeline) is still to be ported
+        and raises ``NotImplementedError`` (ROADMAP.md queue A)."""
         if target is not None:
-            raise NotImplementedError(
-                "target=: the pluggable target API is still to be ported "
-                "(ROADMAP.md queue A: targets/)")
+            from ..targets import compile as compile_for_target
+            return compile_for_target(self, target=target, cfg=cfg,
+                                      mode=mode, opt_level=opt_level,
+                                      device=device)
         from ..core.engine import compile_program
         return compile_program(self, cfg, mode=mode, opt_level=opt_level,
                                device=device)

@@ -6,6 +6,13 @@ reference (``repro``, on the CPU) and the PyTorch port (``repro_torch``, on
 and everything observable is compared bit for bit: memory, every register
 with its element type, the Tag latch, and the cost-model trace.  NaNs
 included: sign and payload must match too.
+
+Outside that contract: a random-base access (``vrld``/``vrst``) whose
+pointer is NaN, ±inf or outside int32.  The reference's executors disagree
+with each other there (undefined float -> int casts, an int32 add that
+wraps); ``test_torch_faults.py::test_c6_nonfinite_pointers`` writes their
+values down and holds the port's executors to each other instead.  The
+generators here make finite, in-range pointers only.
 """
 import numpy as np
 
@@ -83,6 +90,35 @@ def check_program(ref_program, memory):
         assert_state_equal(ref_state, state, name)
         assert_trace_equal(ref_state.trace, state.trace)
     return fused
+
+
+def check_all_executors(ref_program, memory):
+    """port VM == port fused == port stepwise == reference stepwise ==
+    reference VM on one image (memory, registers, Tag, trace); returns the
+    port VM's ``(memory, state)`` and its compiled program."""
+    from repro.core import compile_program as ref_compile
+    ref_mem, ref_state = REF_ORACLE.run_stepwise(ref_program, memory)
+    ref_vm = ref_compile(ref_program, mode="vm")
+    vm_mem, vm_state = ref_vm.run(memory)
+    vm_state.memory = np.asarray(vm_mem)
+    what = f"reference {ref_vm.mode}"
+    assert_bits_equal(ref_state.memory, vm_state.memory, f"{what} memory")
+    assert set(ref_state.regs) == set(vm_state.regs), what
+    for r, v in ref_state.regs.items():
+        assert_bits_equal(v, np.asarray(vm_state.regs[r]), f"{what} v{r}")
+    assert_bits_equal(ref_state.tag, np.asarray(vm_state.tag), what)
+    assert_trace_equal(ref_state.trace, vm_state.trace)
+    program = convert.program_from_reference(ref_program)
+    cp = compile_program(program, mode="vm", device="cpu")
+    assert cp.mode == ref_vm.mode           # the same fallback decision
+    out = cp.run(memory)
+    fused = compile_program(program, mode="fused", device="cpu").run(memory)
+    stepwise = PORT_ORACLE.run_stepwise(program, memory)
+    for name, (_, state) in (("vm", out), ("fused", fused),
+                             ("stepwise", stepwise)):
+        assert_state_equal(ref_state, state, name)
+        assert_trace_equal(ref_state.trace, state.trace)
+    return out, cp
 
 
 # ---------------------------------------------------------------------------

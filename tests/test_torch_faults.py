@@ -7,20 +7,30 @@ reference ``run_stepwise``, bit for bit, NaN bits included.
   collisions are resolved after the wrap, highest lane winning.
 * C2 — ``vmax``/``vmin`` return the NaN bits and zero signs that
   ``jnp.maximum``/``jnp.minimum`` return on XLA:CPU.
+* C6 — a random-base access whose pointer is NaN, ±inf or past int32: the
+  reference's executors disagree with each other (undefined float -> int
+  casts, index narrowing, an int32 add that wraps); the port saturates the
+  pointer to int32 (NaN -> 0) and adds in int64, the same in all its
+  executors.  The reference's values are written down here, not copied.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import compile_program as ref_compile
 from repro.core import isa as ref_isa
 from repro.core.isa import DType
 from repro.kernels import ref as jref
 
+from repro_torch import convert
+from repro_torch.core.engine import compile_program
 from repro_torch.kernels import ref
 from repro_torch.kernels.mdscatter import mdscatter
 
-from _torch_parity import _image, assert_bits_equal, check_program
+from _torch_parity import (PORT_ORACLE, REF_ORACLE, _image,
+                           assert_bits_equal, assert_state_equal,
+                           assert_trace_equal, check_program)
 
 I = ref_isa
 N = 4096
@@ -130,3 +140,111 @@ def test_c2_vmax_vmin_keep_the_references_nan_bits():
     # hands it back unchanged rather than as torch's canonical NaN
     r3 = state.regs[3].numpy().view(np.uint32)
     assert r3[0] == 0xFFC00000
+
+
+def _c6_image(p):
+    """Each cell holds its own address; the pointer table at 600 is
+    ``[p, 50]``."""
+    mem = np.arange(N, dtype=np.float32)
+    mem[600:602] = [p, 50.0]
+    return mem
+
+
+_C6_PROGRAMS = {
+    # vrld through the table, then a dense store of the lanes to 2000
+    "vrld": [I.vsetwidth(32), I.vsetdimc(2), I.vsetdiml(0, 4),
+             I.vsetdiml(1, 2), I.vrld(DType.F, 0, 600, 1, 0),
+             I.vsst(DType.F, 0, 2000, 1, 2)],
+    # values 100.. loaded, then stored through the table
+    "vrst": [I.vsetwidth(32), I.vsetdimc(2), I.vsetdiml(0, 4),
+             I.vsetdiml(1, 2), I.vsld(DType.F, 0, 100, 1, 2),
+             I.vrst(DType.F, 0, 600, 1, 0)],
+}
+
+_ROW0, _ROW1, _LAST = [0, 1, 2, 3], [50, 51, 52, 53], [N - 1]
+
+#: (op, p) -> executor -> (what the run did, the access's trace ``lines``):
+#: for ``vrld`` the addresses lanes 0-3 read (the cells hold their
+#: address), for ``vrst`` the cells written.  "port" is every executor of
+#: the port.
+C6 = {
+    ("vrld", "nan"): {"ref_step": ([0] * 4, 2), "ref_fused": (_ROW0, 2),
+                      "ref_vm": (_ROW0, 2), "port": (_ROW0, 2)},
+    ("vrld", "+inf"): {"ref_step": ([0] * 4, 2),
+                       "ref_fused": ([N - 1, 0, 0, 0], 3),
+                       "ref_vm": ([N - 1, 0, 0, 0], 3),
+                       "port": ([N - 1] * 4, 3)},
+    ("vrld", "-inf"): {"ref_step": ([0] * 4, 2), "ref_fused": ([0] * 4, 2),
+                       "ref_vm": ([0] * 4, 2), "port": ([0] * 4, 2)},
+    ("vrld", "3e9"): {"ref_step": ([N - 1] * 4, 2),
+                      "ref_fused": ([N - 1, 0, 0, 0], 3),
+                      "ref_vm": ([N - 1, 0, 0, 0], 3),
+                      "port": ([N - 1] * 4, 3)},
+    ("vrst", "nan"): {"ref_step": (_ROW0 + _ROW1, 2),
+                      "ref_fused": (_ROW0 + _ROW1 + _LAST, 2),
+                      "ref_vm": (_ROW0 + _ROW1, 2),
+                      "port": (_ROW0 + _ROW1, 2)},
+    ("vrst", "+inf"): {"ref_step": (_ROW0 + _ROW1, 2),
+                       "ref_fused": (_ROW1 + _LAST, 3),
+                       "ref_vm": (_ROW1, 3), "port": (_ROW1, 3)},
+    ("vrst", "-inf"): {"ref_step": (_ROW0 + _ROW1, 2),
+                       "ref_fused": (_ROW1 + _LAST, 2),
+                       "ref_vm": (_ROW1, 2), "port": (_ROW1, 2)},
+    ("vrst", "3e9"): {"ref_step": (_ROW1, 2),
+                      "ref_fused": (_ROW1 + _LAST, 3),
+                      "ref_vm": (_ROW1, 3), "port": (_ROW1, 3)},
+}
+_P = {"nan": np.nan, "+inf": np.inf, "-inf": -np.inf, "3e9": 3e9}
+
+
+def _c6_observed(op, image, mem, state):
+    mem = np.asarray(mem, dtype=np.float32)
+    if op == "vrld":
+        did = mem[2000:2004].astype(np.int64).tolist()
+    else:
+        did = np.flatnonzero(mem.view(np.uint32)
+                             != image.view(np.uint32)).tolist()
+    lines = [ev.lines for ev in state.trace if ev.op.name in ("RLD", "RST")]
+    assert len(lines) == 1
+    return did, lines[0]
+
+
+@pytest.mark.parametrize("op,p", sorted(C6))
+def test_c6_nonfinite_pointers(op, p):
+    """The port's executors — stepwise, fused, VM, and the VM and fused
+    batches — agree with each other bit for bit (memory, registers, Tag,
+    trace); the reference's three executors give the values written down
+    in :data:`C6`, which the port does not copy."""
+    program, image = _C6_PROGRAMS[op], _c6_image(_P[p])
+    want = C6[(op, p)]
+    ref_runs = {"ref_step": REF_ORACLE.run_stepwise(program, image),
+                "ref_fused": ref_compile(program, mode="fused").run(image),
+                "ref_vm": ref_compile(program, mode="vm").run(image)}
+    for name, (mem, state) in ref_runs.items():
+        assert _c6_observed(op, image, mem, state) == want[name], name
+
+    port_program = convert.program_from_reference(program)
+    mem_s, st_s = PORT_ORACLE.run_stepwise(port_program, image)
+    assert _c6_observed(op, image, mem_s.numpy(), st_s) == want["port"]
+    batch = np.stack([image, _c6_image(1000.0)])
+    for mode in ("fused", "vm"):
+        cp = compile_program(port_program, mode=mode, device="cpu")
+        assert cp.mode == mode
+        mem, state = cp.run(image)
+        assert_bits_equal(mem_s.numpy(), mem.numpy(), mode)
+        assert_state_equal(_as_reference_state(st_s), state, mode)
+        assert_trace_equal(st_s.trace, state.trace)
+        mems, regs, tag = cp.run_batch(batch)
+        assert_bits_equal(mem_s.numpy(), mems[0].numpy(), f"{mode} batch")
+        for k, v in st_s.regs.items():
+            assert_bits_equal(v.numpy(), regs[k][0].numpy(), f"{mode} v{k}")
+        assert_bits_equal(st_s.tag.numpy(), tag[0].numpy())
+
+
+def _as_reference_state(state):
+    """A port state in the shape ``assert_state_equal`` compares against
+    (NumPy memory, registers and Tag)."""
+    from types import SimpleNamespace
+    return SimpleNamespace(memory=state.memory.numpy(),
+                           regs={k: v.numpy() for k, v in state.regs.items()},
+                           tag=state.tag.numpy())

@@ -1,7 +1,9 @@
 """The port stands alone: ``repro_torch`` imports and runs with ``jax`` and
 the reference package made unimportable — every module of it, the MVE path
-and the LM slice (prefill, decode, the serving engine) — and importing it
-neither builds nor loads a CUDA kernel.  A new module of the port that
+(fused and VM), the targets, timing and silicon models, and the LM slice
+(prefill, decode, the serving engine) — and importing it neither builds
+nor loads a CUDA kernel.  The VM's and the targets' entry points default
+to ``cuda``.  A new module of the port that
 imports ``jax`` or ``repro`` fails both tests here.
 """
 import os
@@ -35,8 +37,39 @@ run.check(to_numpy(mem), state)
 for needed in ("repro_torch.configs", "repro_torch.core.packing",
                "repro_torch.kernels.flash_attention",
                "repro_torch.kernels.bitplane_gemm", "repro_torch.models.lm",
-               "repro_torch.launch.steps", "repro_torch.launch.serve"):
+               "repro_torch.launch.steps", "repro_torch.launch.serve",
+               "repro_torch.core.vm", "repro_torch.core.rvv",
+               "repro_torch.timing.uarch", "repro_torch.timing.model",
+               "repro_torch.silicon.sram", "repro_torch.silicon.params",
+               "repro_torch.silicon.area", "repro_torch.silicon.sweep",
+               "repro_torch.silicon.autotune", "repro_torch.targets.base",
+               "repro_torch.targets.builtin", "repro_torch.targets.timed",
+               "repro_torch.targets.bicameral"):
     assert needed in mods, needed
+# the VM, the targets and the silicon model run too
+from repro_torch import targets
+from repro_torch.core import cost, engine
+from repro_torch.core.machine import MVEConfig
+vm_mem, vm_state = engine.compile_program(run.program, mode="vm",
+                                          device="cpu").run(run.memory)
+run.check(to_numpy(vm_mem), vm_state)
+assert len(targets.list_targets()) == 13
+art = targets.compile(run.program, target="rvv-1d-timed", device="cpu")
+assert art.timeline(art.run(run.memory)[1]).total_cycles > 0
+assert cost.EnergyParams.derive(MVEConfig()) == cost.DEFAULT_ENERGY
+# their entry points default to the card: cuda, never the CPU instead
+import torch
+for make in (lambda: engine.compile_program(run.program, mode="vm"),
+             lambda: targets.compile(run.program, target="neon").cp):
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        try:
+            make()
+        except RuntimeError as err:
+            assert "cuda" in str(err)
+        else:
+            raise AssertionError("a CUDA default ran without a card")
 # the LM slice too: prefill (flash route), decode, the serving engine
 import dataclasses, torch
 from repro_torch.configs import get_config
