@@ -13,7 +13,7 @@ non-zero:
 1. ``device``  — ``torch.cuda`` must be available; the card's name and
    power limit as ``nvidia-smi`` gives them.
 2. ``build``   — every CUDA kernel (``mdgather``, ``mdscatter``,
-   ``flash_attention``, ``bitplane_gemm``) is built from
+   ``flash_attention``, ``bitplane_gemm``, ``float_ops``) is built from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
    compiler process per source, started together; ``cuobjdump`` counts the
    HMMA/IMMA instructions of each kernel, and the bf16 flash kernel and
@@ -46,7 +46,14 @@ non-zero:
    work; the gather at the ``transpose`` pattern's load walk and at a
    contiguous and a replicating walk, the scatter at the pattern's store
    walk and at one walk of each other route, the float32 flash kernel
-   beside the bf16 one.
+   beside the bf16 one.  ``float_ops`` (the MVE float arithmetic and
+   float32 <-> float16 conversions with x86's NaN and denormal bits, ROADMAP
+   C7): add/sub/mul of float32 and float16 and both conversions on random
+   bit patterns (NaNs with payloads, signalling, infinities, denormals)
+   and every NaN case of the trap programs, at one image and at 1024 x
+   8192 lanes, bit-equal to the plain version on the card and on the CPU;
+   every float16 value widened; timed beside ``torch.add`` /
+   ``Tensor.to`` and the bytes bound.
 4. ``path``    — the MVE main path at the Table IV geometry
    (``MVEConfig()``, 8192 lanes): every one of the 14 Section-IV patterns
    at its default size through ``compile_program(..., mode="fused").run``
@@ -74,30 +81,51 @@ non-zero:
    and stepwise on the card (traces equal), all on the one default
    signature; a ``run_batch`` of ``VM_BATCH`` (1024) images of every
    pattern whose program does not depend on the seed, equal to the fused
-   batch; four trap programs (NaN and ±inf into integer loads and
+   batch; nine trap programs (NaN and ±inf into integer loads and
    ``vcvt``, shifts by 0, 31, 32, past and negative, ``vroti``, float16
-   arithmetic) equal to fused and stepwise on the card and to the VM on
-   the CPU but for the NaN bits of the lanes ``C7_NAN_LANES`` names
-   (ROADMAP C7; any other difference fails); a CUDA tensor
-   reaching a plain version of ``mdgather``/``mdscatter`` fails.  Prints
+   arithmetic, and x86's NaN and denormal bits: NaN in one operand or
+   both, ``inf - inf``, ``0 * inf``, signalling payloads, float16 round
+   trips and memory, denormals through every float operation) equal to
+   fused and stepwise on the card and to the VM on the CPU, bit for bit,
+   NaN payloads included; a CUDA tensor reaching a plain version of
+   ``mdgather``/``mdscatter`` or of the float ops fails.  Prints
    the VM's and fused's ``run`` ms (one image) and ``run_batch`` ms (1024),
    host clock and device time.
 4c. ``targets`` — each of the 13 registered targets compiles and runs the
    14 patterns on ``cuda``, memory bit-equal to fused; the modeled cycles
    per target and pattern.
+4d. ``opt``    — the 14 patterns compiled at ``opt_level=None`` and at each
+   level up to ``MAX_OPT_LEVEL``, one image and (seed-independent
+   programs) a batch of 1024 images on ``cuda``: memory, registers and
+   Tag bit-equal to ``opt_level=None``; device ms and launches per batch
+   (5 batches in one profiled window) per level and pattern.
+4e. ``serve``  — the 64-request Table III stream
+   (``benchmarks/torch_serving_bench.request_stream``) through
+   ``MVEProgramServer`` on ``cuda``: per-request ``run`` in sequence, a
+   cold scheduler, a warmed server (best of 3 replays) and one profiled
+   replay; every ticket resolves bit-equal to the port's stepwise run on
+   the CPU, no demotion, no CUDA tensor reaching a plain version; then the
+   seeded 10 % ``FaultPlan`` (``seed=2026``, ``sticky_rids=(11,)``, the
+   cross audit on every request): the firing log equal to the CPU run's,
+   request 11 quarantined, every other request bit-exact.  Prints
+   requests/s (sequential, cold, steady), p50/p95 latency, the device's
+   busy share, host-blocking calls per drain cycle, chaos wall time over
+   clean.
 7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
-Phases 4, 4b, 5 and 6 are the main paths: the launch counters of the
-kernels each runs are set to 0 just before it and read just after (4b:
-around the VM's runs alone, before they are compared); a kernel never
-launched there fails the run.  The kernels line's ``launches`` adds 4 and
-4b.  Without a CUDA device, or without the rest
+Phases 4, 4b, 4d, 4e, 5 and 6 are the main paths: the launch counters of
+the kernels each runs are set to 0 just before it and read just after (4b:
+around the VM's runs alone, before they are compared; 4e: around the
+fault-free serving, not the chaos replays); a kernel never launched there
+fails the run.  The kernels line's ``launches`` adds 4, 4b, 4d and 4e for
+the MVE kernels.  Without a CUDA device, or without the rest
 of the checkout beside it, the script exits non-zero and prints no result
 line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -121,6 +149,10 @@ KERNELS = {                    # name: (CUDA source, the TPU kernel replaced)
     "int8_matmul": ("bitplane_gemm", "src/repro/kernels/bitplane_gemm.py:35"),
     "bitplane_matmul": ("bitplane_gemm",
                         "src/repro/kernels/bitplane_gemm.py:43"),
+    # no Pallas kernel stands behind these two: the line is the reference's
+    # XLA float add (and a load's conversion) whose bits they give
+    "float_binary": ("float_ops", "src/repro/core/interp.py:214"),
+    "float_convert": ("float_ops", "src/repro/core/interp.py:156"),
 }
 LANES = 8192
 BATCH = 1024
@@ -478,6 +510,120 @@ def time_kernels(ref, mdgather, mdscatter_):
     return out, shape_note
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: float_ops, the MVE float arithmetic with x86's bits (ROADMAP C7)
+# ---------------------------------------------------------------------------
+
+def float_operands(np_dtype, shape, rng) -> torch.Tensor:
+    """Random bit patterns of ``np_dtype``: a quarter NaN or infinite (some
+    signalling), for float32 a sixteenth denormal, the rest anything; the
+    NaN and denormal pairs of the trap programs at the front."""
+    nbits = 8 * np.dtype(np_dtype).itemsize
+    ut = np.uint32 if nbits == 32 else np.uint16
+    n = int(np.prod(shape))
+    u = rng.integers(0, 2 ** nbits, n, dtype=np.uint64).astype(ut)
+    q = n // 16
+    u[:4 * q] |= ut(0x7F800000 if nbits == 32 else 0x7C00)
+    u[:q] &= ut(~(0x00400000 if nbits == 32 else 0x0200) & (2 ** nbits - 1))
+    if nbits == 32:
+        u[4 * q:5 * q] &= ut(0x807FFFFF)
+    u = u[rng.permutation(n)]
+    return torch.from_numpy(u.view(np_dtype).reshape(shape).copy())
+
+
+def _special_pairs(np_dtype):
+    a, b = (np.array(col, np.uint32).view(np.float32)
+            for col in zip(*(NAN_PAIRS + DENORMAL_PAIRS)))
+    return (a, b) if np_dtype == np.float32 else \
+        (a.astype(np.float16), b.astype(np.float16))
+
+
+def check_float_ops(ref, float_binary, float_convert):
+    """Each kernel against its plain version on the same CUDA tensors and
+    against the plain version on the CPU (the reference's bits), bit for
+    bit: add/sub/mul of float32 and float16 operands and both conversions,
+    random and special values, one image and a batch of 1024 images; every
+    float16 value widened."""
+    rng = np.random.default_rng(7)
+    cases = 0
+    for np_dtype in (np.float32, np.float16):
+        for shape in ((LANES,), (BATCH, LANES)):
+            a_h = float_operands(np_dtype, shape, rng)
+            b_h = float_operands(np_dtype, shape, rng)
+            sa, sb = _special_pairs(np_dtype)
+            a_h.view(-1)[:len(sa)] = torch.from_numpy(sa)
+            b_h.view(-1)[:len(sb)] = torch.from_numpy(sb)
+            a, b = a_h.cuda(), b_h.cuda()
+            for op in ref.FLOAT_BINARY_OPS:
+                got = float_binary(op, a, b)
+                for where, want in (
+                        ("plain on the card", ref.float_binary_ref(op, a, b)),
+                        ("plain on the cpu",
+                         ref.float_binary_ref(op, a_h, b_h).cuda())):
+                    torch.cuda.synchronize()
+                    if not torch.equal(bits(got), bits(want)):
+                        raise AssertionError(
+                            f"float_binary({op}) != {where}: {np_dtype} "
+                            f"{shape}")
+                    cases += 1
+            dst = torch.float16 if np_dtype == np.float32 else torch.float32
+            got = float_convert(a, dst)
+            for where, want in (
+                    ("plain on the card", ref.float_convert_ref(a, dst)),
+                    ("plain on the cpu",
+                     ref.float_convert_ref(a_h, dst).cuda())):
+                torch.cuda.synchronize()
+                if not torch.equal(bits(got), bits(want)):
+                    raise AssertionError(f"float_convert != {where}: "
+                                         f"{np_dtype} -> {dst} {shape}")
+                cases += 1
+    every_half = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.float16)
+    got = float_convert(every_half.cuda(), torch.float32)
+    if not torch.equal(bits(got.cpu()), bits(ref.float_convert_ref(
+            every_half, torch.float32))):
+        raise AssertionError("float_convert != plain on every float16")
+    return cases + 1
+
+
+def time_float_ops(ref, float_binary, float_convert):
+    """float32 add and the float32 -> float16 conversion at one image and
+    at 1024 images of 8192 lanes: the kernel, its plain version, the
+    torch op it replaces, and the bound (bytes: operands read once, the
+    result written once)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {"float_binary": {}, "float_convert": {}}
+    for batch, iters, suffix in ((BATCH, 30, ""), (1, 300, "_single")):
+        a = torch.randn(batch, LANES, generator=gen, device="cuda")
+        b = torch.randn(batch, LANES, generator=gen, device="cuda")
+        n = a.numel()
+        rows = {
+            "float_binary": dict(
+                ms=time_ms(lambda: float_binary("add", a, b), iters),
+                device_ms=device_ms(lambda: float_binary("add", a, b), 100),
+                plain_ms=time_ms(lambda: ref.float_binary_ref("add", a, b),
+                                 iters),
+                library_ms=time_ms(lambda: torch.add(a, b), iters),
+                bound_ms=3 * 4 * n / HBM_BYTES_PER_S * 1e3),
+            "float_convert": dict(
+                ms=time_ms(lambda: float_convert(a, torch.float16), iters),
+                device_ms=device_ms(
+                    lambda: float_convert(a, torch.float16), 100),
+                plain_ms=time_ms(
+                    lambda: ref.float_convert_ref(a, torch.float16), iters),
+                library_ms=time_ms(lambda: a.to(torch.float16), iters),
+                bound_ms=(4 + 2) * n / HBM_BYTES_PER_S * 1e3)}
+        for name, row in rows.items():
+            for key, value in row.items():
+                out[name][key + suffix] = value
+    for name, what in (("float_binary", "float32 add (torch.add)"),
+                       ("float_convert", "float32 -> float16 "
+                                         "(Tensor.to)")):
+        out[name].update(bound_by="bytes", timed_at=(
+            f"{what}, {LANES} lanes, batch {BATCH} (ms) / 1 (ms_single)"))
+    return out
+
+
 # the LM slice's kernels: the reference's test shapes, then the main path's
 FLASH_SWEEP = [(128, 128, True, 64), (1, 128, True, 64), (77, 200, True, 64),
                (64, 64, False, 128), (128, 128, True, 128),
@@ -769,12 +915,16 @@ def _special_image() -> np.ndarray:
 
 
 def vm_trap_programs() -> dict:
-    """One program per place where CUDA torch differs from XLA (the same
-    programs ``tests/test_torch_vm_programs.py`` holds against the
-    reference on the CPU): NaN, ±inf and out-of-range floats into integer
-    loads and ``vcvt``; ``vshi`` by 0, 31, 32 and past, and ``vshr`` by
-    register amounts 0, 31, 32, -1, -5, 40; ``vroti``; float16
-    add/sub/mul."""
+    """``{name: (program, image)}``, one program per place where CUDA torch
+    differs from XLA (the same programs ``tests/test_torch_vm_programs.py``
+    and ``tests/test_torch_float_ops.py`` hold against the reference on the
+    CPU): NaN, ±inf and out-of-range floats into integer loads and
+    ``vcvt``; ``vshi`` by 0, 31, 32 and past, and ``vshr`` by register
+    amounts 0, 31, 32, -1, -5, 40; ``vroti``; float16 add/sub/mul; and
+    x86's NaN and denormal bits (ROADMAP C7): NaN in ``a`` only, in ``b``
+    only, in both with other payloads and signs, ``inf - inf``,
+    ``0 * inf``, signalling payloads, float16 round trips, a float16
+    image, float32 denormals through every float operation."""
     from repro_torch.core import isa as I
     from repro_torch.core.isa import DType, Op
     n = len(_SPECIAL)
@@ -811,28 +961,117 @@ def vm_trap_programs() -> dict:
                  f(DType.HF, 5, 3, 4)]
     half += [I.vsld(DType.HF, 6, 0, 1), I.vadd(DType.HF, 7, 6, 6),
              I.vsst(DType.HF, 7, 3072, 1)]
-    return {"nonfinite_to_int": nonfinite, "shifts": shifts,
-            "rotates": rotates, "half_rounding": half}
+    image = _special_image()
+    traps = {"nonfinite_to_int": nonfinite, "shifts": shifts,
+             "rotates": rotates, "half_rounding": half}
+    traps = {name: (prog, image) for name, prog in traps.items()}
+    head = [I.vsetwidth(32), I.vsetdimc(1), I.vsetdiml(0, 64)]
+
+    def arith(dt):
+        p = head + [I.vsld(dt, 0, 0, 1), I.vsld(dt, 1, 64, 1)]
+        for k, f in enumerate([I.vadd, I.vsub, I.vmul]):
+            p += [f(dt, 2 + k, 0, 1), I.vsst(dt, 2 + k, 1024 + 64 * k, 1),
+                  f(dt, 5 + k, 1, 0)]
+        return p + [I.vadd(dt, 8, 2, 3), I.vmul(dt, 9, 8, 1),
+                    I.vsst(dt, 9, 2048, 1)]
+
+    conversions = head + [
+        I.vsld(DType.F, 0, 0, 1), I.vcvt(DType.HF, 1, 0),
+        I.vcvt(DType.F, 2, 1), I.vsst(DType.F, 2, 1024, 1),
+        I.vsld(DType.HF, 3, 64, 1), I.vsst(DType.HF, 3, 2048, 1),
+        I.vsld(DType.F, 4, 2048, 1), I.vcvt(DType.HF, 5, 4),
+        I.vadd(DType.HF, 6, 1, 3), I.vsst(DType.HF, 6, 3072, 1)]
+    denormals = head + [I.vsld(DType.F, 0, 0, 1), I.vsld(DType.F, 1, 64, 1)]
+    for k, f in enumerate([I.vadd, I.vsub, I.vmul, I.vmin, I.vmax]):
+        denormals += [f(DType.F, 2 + k, 0, 1),
+                      I.vsst(DType.F, 2 + k, 1024 + 64 * k, 1)]
+    for k, op in enumerate([Op.GT, Op.GTE, Op.LT, Op.LTE, Op.EQ, Op.NEQ]):
+        denormals += [I.vcmp(op, DType.F, 0, 1),
+                      I.vadd(DType.F, 8, 0, 1, predicated=True),
+                      I.vsst(DType.F, 8, 2048 + 64 * k, 1)]
+    half_memory = arith(DType.HF) + [
+        I.vcvt(DType.F, 10, 0), I.vcvt(DType.F, 11, 1),
+        I.vadd(DType.F, 12, 10, 11), I.vsst(DType.F, 12, 3072, 1),
+        I.vcvt(DType.HF, 13, 12)]
+    nan_image = _pair_image(NAN_PAIRS)
+    traps.update({
+        "nan_arith_f": (arith(DType.F), nan_image),
+        "nan_arith_hf": (arith(DType.HF), nan_image),
+        "conversions": (conversions, nan_image),
+        "half_memory": (half_memory, _half_image()),
+        "denormals": (denormals, _pair_image(DENORMAL_PAIRS))})
+    return traps
+
+
+# x86's NaN and denormal cases as float32 bit patterns (a, b): quiet and
+# signalling NaNs with payloads and both signs in a, in b, in both;
+# infinities for inf - inf and 0 * inf; denormals against zeros, normals
+# and each other, and products either side of the least normal float32.
+_QA, _QB, _SA, _SB, _PA = (0x7FC12345, 0xFFC54321, 0x7F812345, 0xFF854321,
+                           0x7FE00000)
+_ONE, _TWO, _INF, _NINF = 0x3F800000, 0x40000000, 0x7F800000, 0xFF800000
+NAN_PAIRS = [(_QA, _ONE), (_ONE, _QB), (_QA, _QB), (_QB, _QA), (_SA, _TWO),
+             (_TWO, _SB), (_SA, _SB), (_SB, _QA), (_QA, _SB), (_INF, _INF),
+             (0, _INF), (_INF, 0), (_NINF, _NINF), (_INF, _NINF),
+             (_PA, _ONE), (_ONE, _PA), (_PA, _SB), (0x80000000, _INF),
+             (_NINF, 0x80000000)]
+DENORMAL_PAIRS = [(0x0054B477, 0), (0x80000001, 0), (0x00800000, 0x80000000),
+                  (0x00400000, 0x00000001), (_ONE, 0x00000001),
+                  (0x891FDE68, 0x0054B477), (0x00800001, 0x80800000),
+                  (0x20506A6A, 0x93BB0106), (0x00FFFFFF, 0x3F000000),
+                  (0x807FFFFF, 0x00000001), (0x00000001, 0x80000001),
+                  (0x3F3C9172, 0x00ADC5D1), (0xBF60A954, 0x0091DAE3)]
+
+
+def _pair_image(pairs) -> np.ndarray:
+    mem = np.zeros(4096, np.uint32)
+    a, b = zip(*pairs)
+    mem[:len(a)], mem[64:64 + len(b)] = a, b
+    return mem.view(np.float32)
+
+
+def _half_image() -> np.ndarray:
+    """A float16 image: signalling and quiet NaNs with payloads, both
+    signs, infinities, subnormals and the extremes."""
+    h = np.zeros(4096, np.uint16)
+    h[:16] = [0x7C01, 0xFC01, 0x7D55, 0xFE2A, 0x7E00, 0x7C00, 0xFC00,
+              0x0001, 0x8001, 0x03FF, 0x7BFF, 0xFBFF, 0x3C00, 0x0000,
+              0x8000, 0x7FFF]
+    h[64:80] = [0x3C00, 0x7C01, 0xFD00, 0x7C00, 0xFC00, 0x0001, 0x8000,
+                0x7E01, 0x0400, 0x7BFF, 0x7BFF, 0x3C00, 0xFC01, 0x7C00,
+                0x0000, 0x0001]
+    return h.view(np.float16)
+
+
+# traps the VM hosts (the others fall back to fused, as in the reference)
+VM_HOSTED_TRAPS = ("nonfinite_to_int", "shifts", "rotates", "half_rounding",
+                   "conversions", "denormals")
 
 
 def _no_plain_version_on_cuda():
-    """Wrap the plain versions of ``mdgather``/``mdscatter_`` so that a
-    CUDA tensor reaching one raises; returns the restore function."""
-    from repro_torch.kernels import mdgather as g, mdscatter as s
-    saved = (g.mdgather_ref, s.mdscatter_ref)
+    """Wrap the plain versions of ``mdgather``/``mdscatter_`` and of the
+    float ops where their wrappers call them, so that a CUDA tensor
+    reaching one raises; returns the restore function."""
+    from repro_torch.kernels import float_ops as f, mdgather as g, \
+        mdscatter as s
+    names = ((g, "mdgather_ref"), (s, "mdscatter_ref"),
+             (f, "float_binary_ref"), (f, "float_convert_ref"))
+    saved = [getattr(mod, name) for mod, name in names]
 
     def guard(fn):
-        def wrapped(x, *args, **kw):
-            if x.is_cuda:
+        def wrapped(*args, **kw):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in args):
                 raise AssertionError(f"{fn.__name__} reached with a CUDA "
-                                     "tensor on the VM path")
-            return fn(x, *args, **kw)
+                                     "tensor")
+            return fn(*args, **kw)
         return wrapped
 
-    g.mdgather_ref, s.mdscatter_ref = guard(saved[0]), guard(saved[1])
+    for (mod, name), fn in zip(names, saved):
+        setattr(mod, name, guard(fn))
 
     def restore():
-        g.mdgather_ref, s.mdscatter_ref = saved
+        for (mod, name), fn in zip(names, saved):
+            setattr(mod, name, fn)
     return restore
 
 
@@ -862,11 +1101,11 @@ def drive_vm():
             runs = [PATTERNS[name](seed=s) for s in range(VM_BATCH)]
             images = as_memory(np.stack([r.memory for r in runs]), "cuda")
             out["batch"][name] = (runs, images, cp.run_batch(images))
-        for name, prog in vm_trap_programs().items():
+        for name, (prog, image) in vm_trap_programs().items():
             cp = compile_program(prog, cfg, mode="vm")
-            if cp.mode != "vm":
+            if cp.mode != "vm" and name in VM_HOSTED_TRAPS:
                 raise AssertionError(f"trap {name}: fell back")
-            out["traps"][name] = (prog, cp.run(_special_image()))
+            out["traps"][name] = (prog, image, cp.run(image))
         torch.cuda.synchronize()
     finally:
         restore()
@@ -929,8 +1168,7 @@ def check_vm(out):
             row[f"{mode}_batch_device_ms"] = device_ms(
                 lambda: c.run_batch_async(images), 3)
     traps = {}
-    for name, (prog, (mem, state)) in out["traps"].items():
-        image = _special_image()
+    for name, (prog, image, (mem, state)) in out["traps"].items():
         for what, other in (
                 ("fused", compile_program(prog, cfg, mode="fused")),
                 ("stepwise", None)):
@@ -939,56 +1177,18 @@ def check_vm(out):
             if not states_equal(state, other):
                 raise AssertionError(f"trap {name}: vm != {what}")
         # the CPU run is the one the tests hold bit for bit against the
-        # reference: equal here too, but for the NaN lanes of ROADMAP C7
+        # reference: equal here too, NaN payloads and signs included
         cpu = compile_program(prog, cfg, mode="vm", device="cpu").run(image)
-        what = f"trap {name}: vm != vm on the cpu"
-        lanes = nan_bit_diffs(state, _to_cuda_state(cpu[1]), what)
-        if lanes != C7_NAN_LANES.get(name, set()):
-            raise AssertionError(f"{what}: NaN bits differ at "
-                                 f"{sorted(lanes)}")
-        traps[name] = {"instructions": len(prog),
-                       "nan_bits_unlike_the_cpu [where, i, card, cpu]":
-                       sorted(lanes)}
+        if not states_equal(state, _to_cuda_state(cpu[1])):
+            raise AssertionError(f"trap {name}: vm on the card != vm on "
+                                 "the cpu")
+        nans = sum(int(torch.isnan(v).sum()) for v in
+                   [state.memory] + list(state.regs.values())
+                   if v.is_floating_point())
+        traps[name] = {"instructions": len(prog), "nan_lanes_equal": nans}
     return {"patterns": rows, "batched": sorted(out["batch"]),
             "batch": VM_BATCH, "traps": traps,
             "signature": list(vm.default_signature(cfg))}
-
-
-# ROADMAP C7: the lanes of each trap program where the card's NaN bits
-# (CUDA's canonical NaN) differ from the CPU's, as (where, lane, card bits,
-# CPU bits).  Any other lane, or other bits, fails the phase.
-C7_NAN_LANES = {
-    "nonfinite_to_int": {("v3", 0, "0x7fff", "0x7e00")},
-    "half_rounding": {("memory", 3072, "0x7fffffff", "0x7fc00000"),
-                      ("v6", 0, "0x7fff", "0x7e00"),
-                      ("v7", 0, "0x7fff", "0x7e00")},
-}
-
-
-def nan_bit_diffs(a, b, what: str) -> set:
-    """Memory, registers and Tag of two states equal bit for bit except at
-    lanes where both hold a NaN; returns those lanes whose NaN bits
-    differ, as ``(where, lane, a bits, b bits)`` (raises on any other
-    difference)."""
-    pairs = [("memory", a.memory, b.memory), ("tag", a.tag, b.tag)]
-    if set(a.regs) != set(b.regs):
-        raise AssertionError(f"{what}: registers {set(a.regs)}")
-    pairs += [(f"v{k}", a.regs[k], b.regs[k]) for k in sorted(a.regs)]
-    out = set()
-    for where, x, y in pairs:
-        if x.dtype != y.dtype:
-            raise AssertionError(f"{what}: {x.dtype} != {y.dtype}")
-        differ = bits(x) != bits(y)
-        if x.is_floating_point():
-            nan_only = differ & torch.isnan(x) & torch.isnan(y)
-            width = (1 << 8 * x.element_size()) - 1
-            for i in nan_only.nonzero().flatten().tolist():
-                out.add((where, i, hex(int(bits(x)[i]) & width),
-                         hex(int(bits(y)[i]) & width)))
-            differ &= ~nan_only
-        if bool(differ.any()):
-            raise AssertionError(f"{what} ({where})")
-    return out
 
 
 def _to_cuda_state(state):
@@ -1009,6 +1209,270 @@ def wall_ms(fn, iters: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the optimizer (opt_level=) on the card
+# ---------------------------------------------------------------------------
+
+OPT_SEEDS = 16               # distinct images, tiled to the 1024-image batch
+OPT_ITERS = 5                # batches per profiled window (one window drops
+                             # or repeats a few events now and then)
+
+
+def drive_opt():
+    """The 14 patterns compiled at ``opt_level=None`` and at every level up
+    to ``MAX_OPT_LEVEL``, run on one image and (where the program does not
+    depend on the seed) on a batch of 1024 images on ``cuda``.  Returns
+    the results for :func:`check_opt`."""
+    from repro_torch import opt
+    from repro_torch.core import MVEConfig, compile_program
+    from repro_torch.core.machine import as_memory
+    from repro_torch.core.patterns import PATTERNS
+
+    cfg = MVEConfig()
+    levels = [None] + list(range(opt.MAX_OPT_LEVEL + 1))
+    out = {}
+    for name in sorted(PATTERNS):
+        run = PATTERNS[name]()
+        probe = [PATTERNS[name](seed=s) for s in (0, 1)]
+        images = None
+        if probe[0].program == probe[1].program:
+            seeds = [PATTERNS[name](seed=s).memory for s in range(OPT_SEEDS)]
+            images = as_memory(np.stack(seeds * (BATCH // OPT_SEEDS)),
+                               "cuda")
+        rows = {}
+        for level in levels:
+            cp = compile_program(run.program, cfg, mode="fused",
+                                 opt_level=level)
+            rows[level] = (cp, cp.run(run.memory)[1],
+                           None if images is None else cp.run_batch(images))
+        out[name] = (images, rows)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_opt(out):
+    """Every level bit-equal to ``opt_level=None`` (memory, registers,
+    Tag; one image and the batch); device ms and launches per 1024-image
+    batch at each level (``OPT_ITERS`` batches in one profiled window)."""
+    per_level, per_pattern = {}, {}
+    for name, (images, rows) in out.items():
+        _, base, base_batch = rows[None]
+        for level, (cp, state, batch) in rows.items():
+            if not states_equal(state, base):
+                raise AssertionError(f"{name}: opt_level={level} != None")
+            if batch is not None and not _batch_equal(batch, base_batch):
+                raise AssertionError(f"{name}: opt_level={level} batch "
+                                     "!= None")
+            row = {"instructions": len(cp.program)}
+            agg = per_level.setdefault(str(level), {
+                "instructions": 0, "batch_device_ms": 0.0,
+                "batch_launches": 0})
+            agg["instructions"] += row["instructions"]
+            if images is not None:
+                prof = device_profile(lambda: [cp.run_batch_async(images)
+                                               for _ in range(OPT_ITERS)])
+                row.update(batch_device_ms=prof["device_busy_ms"]
+                           / OPT_ITERS,
+                           batch_launches=prof["device_launches"]
+                           / OPT_ITERS)
+                agg["batch_device_ms"] += row["batch_device_ms"]
+                agg["batch_launches"] += row["batch_launches"]
+            per_pattern.setdefault(name, {})[str(level)] = row
+    return {"levels": per_level, "patterns": per_pattern,
+            "batched": sorted(n for n, (im, _) in out.items()
+                              if im is not None), "batch": BATCH}
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: MVE program serving (MVEProgramServer / MVEScheduler)
+# ---------------------------------------------------------------------------
+
+SERVE_REPLAYS = 3            # measured steady replays (the best is kept)
+
+
+def _host_state_equal(result, want) -> bool:
+    mem, regs, tag = want
+    return (np.array_equal(result.memory.view(np.uint8), mem.view(np.uint8))
+            and set(result.regs) == set(regs)
+            and all(np.array_equal(np.asarray(result.regs[r]).view(np.uint8),
+                                   regs[r].view(np.uint8)) for r in regs)
+            and np.array_equal(np.asarray(result.tag), tag))
+
+
+def serve_reference(stream) -> list:
+    """Each request's stepwise run on the CPU, as host arrays."""
+    from repro_torch.core.interp import MVEInterpreter
+    from repro_torch.core.machine import to_numpy
+    oracle = MVEInterpreter(compiled=False, device="cpu")
+    out = []
+    for _, r in stream:
+        mem, st = oracle.run_stepwise(r.program, r.memory)
+        out.append((to_numpy(mem), {k: to_numpy(v) for k, v in
+                                    st.regs.items()}, to_numpy(st.tag)))
+    return out
+
+
+def drive_serve(stream):
+    """The 64-request Table III stream through ``MVEProgramServer`` on
+    ``cuda``: per-request ``run`` in sequence, a cold scheduler (VM tier,
+    program cache cleared), a warmed server (``promote_after=2``), one
+    replay of it under the profiler.  A CUDA tensor reaching a plain
+    version fails."""
+    from benchmarks.torch_serving_bench import replay
+    from repro_torch.core import MVEConfig, compile_program
+    from repro_torch.core.engine import clear_cache
+    from repro_torch.core.machine import to_numpy
+    from repro_torch.launch.serve import MVEProgramServer
+    from repro_torch.runtime.scheduler import MVEScheduler
+
+    cfg, n = MVEConfig(), len(stream)
+    restore = _no_plain_version_on_cuda()
+    try:
+        cps = [compile_program(r.program, cfg) for _, r in stream]
+        for cp, (_, r) in zip(cps, stream):
+            to_numpy(cp.run(r.memory)[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for cp, (_, r) in zip(cps, stream):
+            to_numpy(cp.run(r.memory)[0])
+        seq_s = time.perf_counter() - t0
+        clear_cache()
+        cold = MVEScheduler(cfg, promote_after=None)
+        cold_s, cold_tickets = replay(cold, stream)
+        server = MVEProgramServer(cfg=cfg, promote_after=2, max_batch=16)
+        sched = server.scheduler
+
+        def serve():
+            reqs = [server.submit(r.program, r.memory) for _, r in stream]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server.run_until_drained()
+            return time.perf_counter() - t0, reqs
+
+        for _ in range(2):
+            serve()
+        best = None
+        for _ in range(SERVE_REPLAYS):
+            syncs, drains = sched.host_syncs, sched.stats.drains
+            wall, reqs = serve()
+            cycles = sched.stats.drains - drains
+            if best is None or wall < best[0]:
+                best = (wall, reqs, (sched.host_syncs - syncs) / cycles)
+        wall, reqs, syncs_per_cycle = best
+        lat = np.array([q.latency for q in reqs])
+        reqs2 = [server.submit(r.program, r.memory) for _, r in stream]
+        prof = device_profile(server.run_until_drained)
+        idle = device_profile(lambda: None)   # the profiler's own calls
+        sched.close()
+    finally:
+        restore()
+    return {"requests": n, "sequential_s": seq_s, "cold_s": cold_s,
+            "steady_s": wall, "cold_tickets": cold_tickets,
+            "steady": reqs, "profiled": reqs2, "latency": lat,
+            "syncs_per_cycle": syncs_per_cycle, "profile": prof,
+            "idle_profile": idle,
+            "stats": sched.stats, "health": server.health()}
+
+
+def chaos_replays(stream, device):
+    """The reference's chaos acceptance (``tests/test_resilience.py``) on
+    ``device``: the seeded 10 % plan with one sticky request, the cross
+    audit on every request; warm clean, warm chaos, then a measured clean
+    and a measured chaos replay.  Returns ``(clean s, chaos s, chaos
+    tickets, injector, stats)``."""
+    from benchmarks.torch_serving_bench import replay
+    from repro_torch.core import MVEConfig
+    from repro_torch.resilience import FaultInjector, FaultPlan
+    from repro_torch.runtime.scheduler import MVEScheduler
+
+    plan = FaultPlan.random(seed=2026, n_requests=len(stream), rate=0.10,
+                            sticky_rids=(11,))
+
+    def run(injector=None):
+        sched = MVEScheduler(MVEConfig(), promote_after=2,
+                             injector=injector, audit_rate=1.0,
+                             audit_method="cross", device=device)
+        wall, tickets = replay(sched, stream)
+        sched.close()
+        return wall, tickets, sched
+
+    if torch.device(device).type == "cpu":      # the firing log only
+        inj = FaultInjector(plan, sleep=lambda s: None)
+        _, tickets, sched = run(inj)
+        return None, None, tickets, inj, sched.stats
+    run()
+    run(FaultInjector(plan))
+    clean_s, clean_tickets, _ = run()
+    if not all(t.done() and t.error() is None for t in clean_tickets):
+        raise AssertionError("the clean replay did not serve every request")
+    inj = FaultInjector(plan)
+    chaos_s, tickets, sched = run(inj)
+    return clean_s, chaos_s, tickets, inj, sched.stats
+
+
+def check_serve(out, chaos, chaos_cpu, want):
+    """Every ticket resolved and bit-equal to the CPU stepwise run, no
+    demotion without faults; under the plan, the CPU run's firing log, the
+    sticky request quarantined, the rest bit-exact."""
+    from repro_torch.resilience import QuarantinedError
+    for what, tickets in (("cold", out["cold_tickets"]),
+                          ("steady", [q.ticket for q in out["steady"]]),
+                          ("profiled", [q.ticket for q in out["profiled"]])):
+        for t, w in zip(tickets, want):
+            if not t.done() or t.error() is not None:
+                raise AssertionError(f"{what}: request {t.rid} not served: "
+                                     f"{t.error()!r}")
+            if not _host_state_equal(t.result(), w):
+                raise AssertionError(f"{what}: request {t.rid} != the CPU "
+                                     "stepwise run")
+    st = out["stats"]
+    if st.demotions or out["health"]["counters"]["demotions"]:
+        raise AssertionError(f"{st.demotions} demotions without a fault")
+    clean_s, chaos_s, tickets, inj, cstats = chaos
+    fired = [(f["site"], f["kind"], f["rid"], f["tier"]) for f in inj.fired]
+    cpu_fired = [(f["site"], f["kind"], f["rid"], f["tier"])
+                 for f in chaos_cpu[3].fired]
+    if fired != cpu_fired:
+        raise AssertionError(f"chaos firing log {fired} != the CPU run's "
+                             f"{cpu_fired}")
+    for t, w in zip(tickets, want):
+        if not t.done():
+            raise AssertionError(f"chaos: request {t.rid} never resolved")
+        if t.rid == 11:
+            if not isinstance(t.error(), QuarantinedError):
+                raise AssertionError(f"the sticky request resolved "
+                                     f"{t.error()!r}")
+        elif t.error() is not None or not _host_state_equal(t.result(), w):
+            raise AssertionError(f"chaos: request {t.rid} not bit-exact "
+                                 f"({t.error()!r})")
+    n, prof = out["requests"], out["profile"]
+    lat = out["latency"]
+    idle = out["idle_profile"]["host_blocking_by_call"]
+    blocking = {k: v - idle.get(k, 0)
+                for k, v in prof["host_blocking_by_call"].items()
+                if v - idle.get(k, 0)}
+    return {
+        "requests": n,
+        "req_per_s": {"sequential_run": n / out["sequential_s"],
+                      "scheduler_cold": n / out["cold_s"],
+                      "scheduler_steady": n / out["steady_s"]},
+        "latency_ms": {"p50": float(np.percentile(lat, 50)) * 1e3,
+                       "p95": float(np.percentile(lat, 95)) * 1e3},
+        "device_busy_share": prof["device_busy_share"],
+        "profiled_drain": {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_launches",
+            "host_blocking_calls", "host_blocking_by_call")},
+        # less the calls a profiled window of nothing makes
+        "host_blocking_calls_per_drain_cycle": sum(blocking.values()),
+        "host_blocking_by_call_per_drain_cycle": blocking,
+        "host_syncs_per_drain_cycle": out["syncs_per_cycle"],
+        "stats": dataclasses.asdict(st),
+        "chaos": {"clean_s": clean_s, "chaos_s": chaos_s,
+                  "chaos_over_clean": chaos_s / clean_s,
+                  "fired": len(fired), "stats": dataclasses.asdict(cstats),
+                  "firing_log_equals_cpu": True}}
 
 
 # ---------------------------------------------------------------------------
@@ -1071,11 +1535,15 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy = flash = launches = blocking = 0.0
-    kernels = []
+    kernels, blocking_by_call = [], {}
     for ev in prof.key_averages():
         if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                      "cudaMemcpy"):
+                      "cudaMemcpy", "cudaHostAlloc", "cudaFreeHost"):
             blocking += ev.count
+            blocking_by_call[ev.key] = ev.count
+        if ev.key in ("aten::_local_scalar_dense", "aten::nonzero",
+                      "aten::is_nonzero", "aten::item"):
+            blocking_by_call[ev.key] = ev.count
         dev_us = getattr(ev, "self_device_time_total", 0.0)
         if not dev_us or ev.device_type.name == "CPU":
             continue
@@ -1087,6 +1555,7 @@ def device_profile(fn) -> dict:
             "device_busy_share": busy / wall, "flash_ms": flash,
             "device_launches": int(launches),
             "host_blocking_calls": int(blocking),
+            "host_blocking_by_call": blocking_by_call,
             "top_kernels_ms_count": sorted(kernels, reverse=True)[:5]}
 
 
@@ -1317,12 +1786,15 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.bitplane_gemm import bitplane_matmul, int8_matmul
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.float_ops import float_binary, float_convert
     from repro_torch.kernels.mdgather import mdgather
     from repro_torch.kernels.mdscatter import mdscatter_
     wrappers = {"mdgather": mdgather, "mdscatter": mdscatter_,
                 "flash_attention": flash_attention,
                 "int8_matmul": int8_matmul,
-                "bitplane_matmul": bitplane_matmul}
+                "bitplane_matmul": bitplane_matmul,
+                "float_binary": float_binary, "float_convert": float_convert}
+    mve = ("mdgather", "mdscatter", "float_binary")
 
     def drive(path, needs, fn, *args):
         """Run one main path with every launch counter at 0 just before it
@@ -1361,9 +1833,13 @@ def main() -> int:
     worst.update(lm_worst)
     timings.update(time_lm_kernels(ref, flash_attention, int8_matmul,
                                    bitplane_matmul))
+    float_cases = check_float_ops(ref, float_binary, float_convert)
+    worst.update(float_binary=0.0, float_convert=0.0)
+    timings.update(time_float_ops(ref, float_binary, float_convert))
     emit("kernels", seconds=time.perf_counter() - t0,
-         cases=cases + lm_cases,
-         tolerance={"mdgather, mdscatter, int8_matmul, bitplane_matmul":
+         cases=cases + lm_cases + float_cases,
+         tolerance={"mdgather, mdscatter, int8_matmul, bitplane_matmul, "
+                    "float_binary, float_convert":
                     "bit-equal (max_abs_err must be 0)",
                     "flash_attention": f"fp32 {FLASH_FP32_TOL} (test "
                                        f"shapes), {FLASH_FP32_PATH_TOL} "
@@ -1377,11 +1853,11 @@ def main() -> int:
 
     # ---- 4-6. the main paths, each with its launch counts ----------------
     (rows, batched, single_s, batch_s), counts = drive(
-        "MVE", ("mdgather", "mdscatter"), drive_main_path)
+        "MVE", mve, drive_main_path)
     emit("path", mode="fused", patterns=rows, batched=batched, batch=BATCH,
          single_seconds=single_s, batch_seconds=batch_s, launches=counts)
     t0 = time.perf_counter()
-    vm_out, vm_counts = drive("VM", ("mdgather", "mdscatter"), drive_vm)
+    vm_out, vm_counts = drive("VM", mve + ("float_convert",), drive_vm)
     vm_drive_s = time.perf_counter() - t0
     vm_checks = check_vm(vm_out)
     del vm_out
@@ -1391,6 +1867,23 @@ def main() -> int:
     tg = drive_targets()
     emit("targets", seconds=time.perf_counter() - t0, **tg)
     t0 = time.perf_counter()
+    opt_out, opt_counts = drive("opt", mve, drive_opt)
+    opt_checks = check_opt(opt_out)
+    del opt_out
+    emit("opt", seconds=time.perf_counter() - t0, launches=opt_counts,
+         **opt_checks)
+    t0 = time.perf_counter()
+    from benchmarks.torch_serving_bench import request_stream
+    stream = request_stream()
+    want = serve_reference(stream)
+    chaos_cpu = chaos_replays(stream, "cpu")
+    serve_out, serve_counts = drive("serve", mve, drive_serve, stream)
+    chaos = chaos_replays(stream, "cuda")
+    serve = check_serve(serve_out, chaos, chaos_cpu, want)
+    del serve_out, chaos, chaos_cpu
+    emit("serve", seconds=time.perf_counter() - t0, launches=serve_counts,
+         **serve)
+    t0 = time.perf_counter()
     lm, lm_counts = drive("LM", ("flash_attention",), drive_lm,
                           flash_attention)
     emit("lm", seconds=time.perf_counter() - t0, launches=lm_counts, **lm)
@@ -1398,11 +1891,11 @@ def main() -> int:
                                               "bitplane_matmul"),
                                 drive_quantized, ops, ref)
     emit("quantized", shape=MLP_SHAPE, launches=quant_counts, **quant)
-    launches = {"mdgather": counts["mdgather"] + vm_counts["mdgather"],
-                "mdscatter": counts["mdscatter"] + vm_counts["mdscatter"],
-                "flash_attention": lm_counts["flash_attention"],
+    launches = {name: counts[name] + vm_counts[name] + opt_counts[name]
+                + serve_counts[name] for name in mve + ("float_convert",)}
+    launches.update({"flash_attention": lm_counts["flash_attention"],
                 "int8_matmul": quant_counts["int8_matmul"],
-                "bitplane_matmul": quant_counts["bitplane_matmul"]}
+                "bitplane_matmul": quant_counts["bitplane_matmul"]})
 
     # ---- 7. result -------------------------------------------------------
     kernels = []

@@ -108,7 +108,7 @@ class FinalizeError(ExecutorError):
 
 # exception types that pass through untyped (user errors / control flow)
 _PASSTHROUGH = (isa.ProgramError, VMUnsupported, TypeError, ValueError,
-                NotImplementedError, ExecutorError)
+                ExecutorError)
 
 
 @dataclasses.dataclass
@@ -753,23 +753,24 @@ def compile_program(program: isa.Program,
     another target's entries for the same program text, and
     ``cache_info().per_target`` reports hits/misses per tag.
 
-    ``opt_level=`` raises ``NotImplementedError`` until the optimizer is
-    ported (ROADMAP.md queue A).
+    ``opt_level`` (default ``None`` = no optimization) runs the program
+    through the :mod:`repro_torch.opt` pass pipeline before compilation —
+    the optimized text is just another program, so caching, signatures and
+    executors compose unchanged.
     """
     global _HITS, _MISSES, _EVICTIONS
     cfg = cfg or MVEConfig()
     mode = mode or DEFAULT_MODE
     if mode not in ("vm", "fused"):
         raise ValueError(f"unknown engine mode {mode!r}")
-    if opt_level:
-        raise NotImplementedError(
-            "opt_level=: the optimizer pass pipeline is still to be ported "
-            "(ROADMAP.md queue A: opt/); compile the program as written")
     dev = resolve_device(device)
     kernel = None
     if hasattr(program, "plan") and hasattr(program, "program"):
         kernel = program            # a frontend Kernel (duck-typed:
         program = kernel.program    # no core -> frontend import cycle)
+    if opt_level:
+        from .. import opt          # late: opt sits above core
+        program = opt.optimize(program, level=opt_level)
     key = (tuple(program), cfg, mode, cache_tag, dev)
     with _CACHE_LOCK:
         cp = _CACHE.get(key)

@@ -25,8 +25,8 @@ indexing with collisions resolved on the host (highest lane wins).
 
 Arithmetic keeps the reference's element-type rules, which PyTorch does not
 share by default: see :func:`repro_torch.core.machine.convert` for
-conversions and :func:`alu` for shifts, rotates and the NaN and signed-zero
-bits of ``vmax``/``vmin``.
+conversions and :func:`alu` for shifts, rotates, float32 denormals, and the
+NaN and signed-zero bits of float arithmetic and ``vmax``/``vmin``.
 """
 from __future__ import annotations
 
@@ -36,8 +36,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.float_ops import float_binary
 from ..kernels.ops import mdv_gather, mdv_scatter_
-from ..kernels.ref import wrap_store_addresses
+from ..kernels.ref import flush_denormals, wrap_store_addresses
 from . import isa
 from .cost import TraceEvent  # noqa: F401  (re-exported; historical home)
 from .isa import DType, Instr, Op
@@ -95,6 +96,7 @@ _BINARY = {Op.ADD: torch.add, Op.SUB: torch.sub, Op.MUL: torch.mul,
            Op.MIN: _float_min, Op.MAX: _float_max,
            Op.XOR: torch.bitwise_xor, Op.AND: torch.bitwise_and,
            Op.OR: torch.bitwise_or}
+_FLOAT_BINARY = {Op.ADD: "add", Op.SUB: "sub", Op.MUL: "mul"}
 
 
 def alu(instr: Instr, a: torch.Tensor,
@@ -107,8 +109,18 @@ def alu(instr: Instr, a: torch.Tensor,
     for an arithmetic right shift) instead of PyTorch's undefined result;
     ``vroti`` rotates in an unsigned 32-bit window and ``vshr`` shifts in
     int32, as the reference does, both computed in int64 with masks.
+
+    Float ``vadd``/``vsub``/``vmul`` go through
+    :func:`~repro_torch.kernels.float_ops.float_binary` (x86's NaN bits,
+    one rounding point, a kernel launch on the card).  float32 operands of
+    ``vmin``/``vmax`` and compares are read with denormals as zeros of
+    their sign, as XLA's CPU runtime reads them.
     """
     op = instr.op
+    if a.is_floating_point():
+        if op in _FLOAT_BINARY:
+            return float_binary(_FLOAT_BINARY[op], a, b)
+        a, b = flush_denormals(a), flush_denormals(b)
     if op in _BINARY:
         return _BINARY[op](a, b)
     if op in _COMPARE:

@@ -26,6 +26,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..kernels.float_ops import float_convert
 from .isa import MAX_DIMS, MAX_TOP_DIM, DType, Instr, Op, ProgramError
 
 # Byte data in the mobile kernels (pixels, characters) is unsigned; wider
@@ -64,12 +65,17 @@ def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     float -> integer saturates at the target's bounds, truncates toward
     zero and maps NaN to 0 (``Tensor.to`` is undefined out of range and
     differs between CPU and CUDA); integer -> narrower integer wraps;
-    everything else is PyTorch's own rounding conversion.  Every
-    register read, load, ``vcvt`` and store in both executors goes
+    float32 <-> float16 goes through
+    :func:`~repro_torch.kernels.float_ops.float_convert` (round to nearest
+    even, NaN payloads kept as x86's F16C keeps them, a kernel launch on
+    the card); everything else is PyTorch's own rounding conversion.
+    Every register read, load, ``vcvt`` and store in every executor goes
     through here.
     """
     if x.dtype == dtype:
         return x
+    if {x.dtype, dtype} == {torch.float32, torch.float16}:
+        return float_convert(x, dtype)
     if x.dtype.is_floating_point and not dtype.is_floating_point:
         info = torch.iinfo(dtype)
         if x.dtype == torch.float32 and info.bits <= 16:

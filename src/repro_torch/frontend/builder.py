@@ -264,8 +264,10 @@ class Kernel:                         # the engine can track attachments
         under that target's cost models.  The kernel runs unchanged on
         every target.
 
-        ``opt_level=`` (the optimizer pass pipeline) is still to be ported
-        and raises ``NotImplementedError`` (ROADMAP.md queue A)."""
+        ``opt_level`` runs the traced program through the
+        :mod:`repro_torch.opt` pass pipeline first (``None`` = as traced);
+        results stay bit-exact — the optimizer's differentially-tested
+        contract."""
         if target is not None:
             from ..targets import compile as compile_for_target
             return compile_for_target(self, target=target, cfg=cfg,

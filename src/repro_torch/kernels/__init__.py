@@ -9,6 +9,9 @@
                ``csrc/bitplane_gemm.cu``)
   flash_attention — forward attention with an online softmax (CUDA C++,
                ``csrc/flash_attention.cu``)
+  float_ops  — MVE float add/sub/mul and float32 <-> float16 conversions
+               with the reference's (x86's) NaN and denormal bits (CUDA
+               C++, ``csrc/float_ops.cu``)
 
 Each kernel has its plain PyTorch version in ``ref.py``; ``ops.py`` holds
 the wrappers the executors call.  A wrapper takes the plain version only
@@ -19,7 +22,7 @@ Submodules import lazily (PEP 562) and nothing here compiles at import:
 ``_build`` runs ``nvcc`` at the first launch.
 """
 _LAZY = {"ops", "ref", "mdgather", "mdscatter", "bitplane_gemm",
-         "flash_attention", "_build"}
+         "flash_attention", "float_ops", "_build"}
 
 
 def __getattr__(name):

@@ -6,7 +6,8 @@ the integer products are exact) and to the reference's tolerance where it
 promises one (attention).  The kernel wrappers
 (:mod:`~repro_torch.kernels.mdgather`, :mod:`~repro_torch.kernels.mdscatter`,
 :mod:`~repro_torch.kernels.bitplane_gemm`,
-:mod:`~repro_torch.kernels.flash_attention`) take these versions for CPU
+:mod:`~repro_torch.kernels.flash_attention`,
+:mod:`~repro_torch.kernels.float_ops`) take these versions for CPU
 tensors, and the on-card smoke run holds each kernel against them on the
 same inputs.
 """
@@ -165,3 +166,98 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(mask, logits, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("...qk,...kd->...qd", probs, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Float arithmetic and conversions with x86's NaN bits (the MVE float path).
+# ---------------------------------------------------------------------------
+
+#: The float types of MVE registers, with their bit views and NaN constants:
+#: (bit view, quiet bit, exponent mask, mantissa mask, default NaN).
+_FLOAT_BITS = {
+    torch.float32: (torch.int32, 0x00400000, 0x7F800000, 0x007FFFFF,
+                    -0x00400000),                     # 0xFFC00000
+    torch.float16: (torch.int16, 0x0200, 0x7C00, 0x03FF, -0x0200),  # 0xFE00
+}
+FLOAT_BINARY_OPS = ("add", "sub", "mul")
+FLT_MIN = 1.1754943508222875e-38        # the least normal float32, 2**-126
+
+
+def flush_denormals(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` with every denormal replaced by a zero of its sign,
+    as XLA's CPU runtime treats float32 operands and results (the x86
+    DAZ and FTZ modes).  Other types pass through."""
+    if x.dtype != torch.float32:
+        return x
+    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+
+
+def _is_nan_bits(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    view, _, expo, mant, _ = _FLOAT_BITS[dtype]
+    b = x.view(view)
+    return ((b & expo) == expo) & ((b & mant) != 0)
+
+
+def float_binary_ref(op: str, a: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """``a + b``, ``a - b`` or ``a * b`` (``op`` = ``"add"``, ``"sub"``,
+    ``"mul"``) of two float32 or two float16 tensors, as the reference
+    computes it on an x86 host.
+
+    One rounding point: float16 operands are widened to float32 (exact),
+    combined there and rounded once to float16.  A NaN result carries
+    x86's bits, written out here on bit views rather than left to the
+    host's arithmetic: ``a`` quieted when ``a`` is a NaN, else ``b``
+    quieted when ``b`` is, else the default NaN ``0xFFC00000`` (float16:
+    ``0xFE00``).  A NaN operand keeps its sign (``1 - NaN`` is that NaN,
+    not its negation)."""
+    if op not in FLOAT_BINARY_OPS:
+        raise ValueError(f"op {op!r}: expected one of {FLOAT_BINARY_OPS}")
+    if a.dtype != b.dtype or a.dtype not in _FLOAT_BITS:
+        raise TypeError(f"operands {a.dtype}, {b.dtype}: need two float32 "
+                        "or two float16 tensors")
+    dtype = a.dtype
+    view, quiet, _, _, default = _FLOAT_BITS[dtype]
+    a32 = flush_denormals(a.to(torch.float32))
+    b32 = flush_denormals(b.to(torch.float32))
+    r = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}[op](a32, b32)
+    if op == "mul":
+        # x86 calls a result tiny after rounding it to 24 bits with an
+        # unbounded exponent: the float64 product is exact, and scaled by
+        # 2**64 it rounds to float32 far from the denormal range.
+        scaled = (a32.double() * b32.double() * 2.0**64).to(torch.float32)
+        tiny = scaled.abs() < FLT_MIN * 2.0**64
+    else:
+        tiny = r.abs() < FLT_MIN        # a tiny sum or difference is exact
+    r = torch.where(tiny, r * 0.0, r)
+    out = r.to(dtype).view(view)
+    nan_a, nan_b = _is_nan_bits(a, dtype), _is_nan_bits(b, dtype)
+    nan_bits = torch.where(nan_a, a.view(view) | quiet,
+                           torch.where(nan_b, b.view(view) | quiet,
+                                       torch.full_like(out, default)))
+    return torch.where(torch.isnan(r), nan_bits, out).view(dtype)
+
+
+def float_convert_ref(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 -> float16 or float16 -> float32 as x86's F16C converts:
+    finite values and infinities round to nearest even; a NaN keeps its
+    sign and the top of its payload and comes out quiet —
+    ``sign | 0x7E00 | mant >> 13`` narrowing, ``sign | 0x7FC00000 | mant
+    << 13`` widening — where CUDA would give its canonical NaN."""
+    pair = (x.dtype, dtype)
+    if pair not in ((torch.float32, torch.float16),
+                    (torch.float16, torch.float32)):
+        raise TypeError(f"{x.dtype} -> {dtype}: float_convert takes "
+                        "float32 <-> float16")
+    nan = _is_nan_bits(x, x.dtype)
+    wide = x.view(_FLOAT_BITS[x.dtype][0]).to(torch.int64) \
+        & ((1 << 8 * x.element_size()) - 1)            # unsigned bits
+    if dtype == torch.float16:
+        nan_bits = ((wide >> 16) & 0x8000) | 0x7E00 | ((wide & 0x7FFFFF) >> 13)
+    else:
+        nan_bits = ((wide & 0x8000) << 16) | 0x7FC00000 | ((wide & 0x3FF) << 13)
+    view = _FLOAT_BITS[dtype][0]
+    width = 16 if dtype == torch.float16 else 32
+    # unsigned pattern -> the signed view's value (two's complement)
+    nan_bits = (nan_bits - ((nan_bits >> (width - 1)) << width)).to(view)
+    return torch.where(nan, nan_bits, x.to(dtype).view(view)).view(dtype)

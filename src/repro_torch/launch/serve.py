@@ -17,9 +17,12 @@ continuous-batching decode:
 
 The cache lives on the engine's device (``cuda`` unless the caller names
 another) and is updated in place by every step; per step one ``(B,)``
-vector of token ids comes back to the host.  The reference's
-``MVEProgramServer`` comes with the port of ``runtime/scheduler.py``
-(ROADMAP.md, queue A).
+vector of token ids comes back to the host.
+
+:class:`MVEProgramServer` is the second front door: concurrent MVE
+*program* requests served by the signature-batched scheduler
+(:mod:`repro_torch.runtime.scheduler`), on the card unless the caller
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -152,3 +155,130 @@ class ContinuousBatchingEngine:
     @property
     def occupancy(self) -> float:
         return self.grid.occupancy()
+
+
+# ---------------------------------------------------------------------------
+# MVE program serving: the front door over the signature-batched scheduler.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ProgramRequest:
+    """One client's MVE program submission (compare :class:`Request`).
+
+    Timing and results delegate to the underlying scheduler
+    :class:`~repro_torch.runtime.scheduler.Ticket` — one source of truth."""
+
+    rid: int
+    program: tuple
+    memory: np.ndarray
+    ticket: object = None                # runtime.scheduler.Ticket
+    result: Optional[object] = None      # ServeResult once served
+    error: Optional[BaseException] = None  # typed SchedulerError on failure
+
+    @property
+    def submitted_at(self) -> float:
+        return self.ticket.submitted_at
+
+    @property
+    def done_at(self) -> Optional[float]:
+        return self.ticket.done_at
+
+    @property
+    def latency(self) -> float:
+        """Submit-to-completion seconds; raises until finished."""
+        return self.ticket.latency
+
+
+class MVEProgramServer:
+    """Serving facade for MVE programs: request bookkeeping + latency
+    accounting over :class:`repro_torch.runtime.scheduler.MVEScheduler`.
+
+    The LM path above packs concurrent *decode* requests onto the lane
+    grid; this path packs concurrent *program* requests onto batched
+    dispatches grouped by VM signature — the same dimension-level-batching
+    idea one level up the stack.  Used by
+    ``benchmarks/torch_serving_bench.py`` to replay the Table III workload
+    mix.  ``scheduler_kwargs`` go to :class:`MVEScheduler` (``device=``
+    among them: ``cuda`` unless the caller names another); results come
+    back as host NumPy arrays (``req.result`` is a
+    :class:`~repro_torch.runtime.scheduler.ServeResult`).
+
+    Thread-safe like the scheduler it wraps; ``keep_done`` bounds the
+    finished-request history a long-lived server retains.
+    """
+
+    def __init__(self, scheduler=None, keep_done: int = 4096,
+                 **scheduler_kwargs):
+        import threading
+        from collections import OrderedDict
+
+        from ..runtime.scheduler import MVEScheduler
+        self.scheduler = scheduler or MVEScheduler(**scheduler_kwargs)
+        self.keep_done = keep_done
+        self._lock = threading.Lock()
+        self._next_rid = 0
+        self._inflight: "OrderedDict[int, ProgramRequest]" = OrderedDict()
+        self._done: "OrderedDict[int, ProgramRequest]" = OrderedDict()
+
+    def submit(self, program, memory=None, target=None,
+               deadline_s=None) -> ProgramRequest:
+        """Accepts a raw ``(program, memory)`` pair or a frontend
+        :class:`~repro_torch.frontend.Kernel` plus named operand arrays — the
+        same overloads as :meth:`MVEScheduler.submit`; kernel requests
+        read results back by name (``req.result.operands``).  ``target``
+        selects a registered :mod:`repro_torch.targets` target (unknown names
+        raise a ``ProgramError`` listing what is registered);
+        ``deadline_s`` bounds the request's submit-to-resolution time."""
+        ticket = self.scheduler.submit(program, memory, target=target,
+                                       deadline_s=deadline_s)
+        with self._lock:
+            req = ProgramRequest(rid=self._next_rid,
+                                 program=ticket.program,
+                                 memory=ticket.memory, ticket=ticket)
+            self._next_rid += 1
+            self._inflight[req.rid] = req
+        return req
+
+    def run_until_drained(self) -> Dict[int, ProgramRequest]:
+        """Serve everything in flight; returns rid -> finished request.
+
+        A request the scheduler resolved with a typed error (quarantine,
+        deadline, shed, cancellation — docs/SERVING.md "Failure
+        semantics") finishes with ``req.error`` set and ``req.result``
+        ``None``; one failed request never aborts the drain of the
+        others."""
+        self.scheduler.drain()
+        with self._lock:
+            inflight = list(self._inflight.items())
+        for rid, req in inflight:            # blocks outside the lock
+            try:
+                req.result = req.ticket.result()
+            except Exception as e:
+                req.error = e
+        with self._lock:
+            for rid, req in inflight:
+                self._done[rid] = req
+                self._inflight.pop(rid, None)
+            while len(self._done) > self.keep_done:
+                self._done.popitem(last=False)
+            return dict(self._done)      # snapshot, not the internal dict
+
+    def health(self) -> Dict:
+        """The underlying scheduler's health snapshot (worker liveness,
+        breakers, quarantine, retry/shed/audit counters) — what a
+        mesh-level coordinator scrapes."""
+        return self.scheduler.health()
+
+    def latency_stats(self, last: Optional[int] = None) -> Dict[str, float]:
+        """Mean/p50/p95 request latency (seconds) over finished requests
+        (the ``last`` most recent ones when given — e.g. one replay)."""
+        with self._lock:
+            reqs = [self._done[rid] for rid in sorted(self._done)]
+        if not reqs:
+            return {"mean": 0.0, "p50": 0.0, "p95": 0.0}
+        if last is not None:
+            reqs = reqs[-last:]
+        lats = np.array([r.latency for r in reqs])
+        return {"mean": float(lats.mean()),
+                "p50": float(np.percentile(lats, 50)),
+                "p95": float(np.percentile(lats, 95))}

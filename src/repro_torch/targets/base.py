@@ -299,8 +299,11 @@ def compile(kernel_or_program, target="mve-bs",
 
     ``device`` is where the artifact executes (default ``cuda``; without a
     card that raises — pass ``"cpu"``); pricing is host arithmetic.
-    ``opt_level`` raises ``NotImplementedError`` until the optimizer is
-    ported (ROADMAP.md queue A).
+    ``opt_level`` routes the program through the :mod:`repro_torch.opt`
+    pass pipeline first (``None`` = as written); the artifact's
+    ``program``, ``trace`` and ``timeline`` then describe the optimized
+    text, priced under this target's models — which is what
+    ``repro_torch.opt.tune()`` sweeps schedules with.
     """
     tgt = get_target(target)
     tcfg = tgt.machine_config(cfg, **overrides)

@@ -182,8 +182,10 @@ def test_sweep_and_run_pattern():
 def test_what_is_not_ported_yet_raises():
     prog = PATTERNS["daxpy"]().program
     assert compile_program(prog, CFG, mode="vm", device="cpu").mode == "vm"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_program(prog, CFG, opt_level=2, device="cpu")
+    # the optimizer is ported: opt_level= compiles the optimized text
+    from repro_torch import opt
+    cp = compile_program(prog, CFG, opt_level=2, device="cpu")
+    assert cp.program == tuple(opt.optimize(prog, level=2))
     with pytest.raises(ValueError, match="unknown engine mode"):
         compile_program(prog, CFG, mode="jit", device="cpu")
 

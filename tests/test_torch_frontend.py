@@ -225,8 +225,8 @@ def test_regalloc_and_build_errors_carry_over():
 
 
 def test_other_targets_wait_for_their_port():
-    """Targets are ported (a kernel compiles and runs for any of them);
-    the optimizer is not yet."""
+    """Targets are ported (a kernel compiles and runs for any of them),
+    and so is the optimizer (``opt_level=``)."""
     from repro_torch.targets import CompiledArtifact
     k = _daxpy(mve, DType.F, 32)
     art = k.compile(target="rvv-1d", device="cpu")
@@ -235,5 +235,7 @@ def test_other_targets_wait_for_their_port():
     want, _ = k.run(device="cpu")
     for name in want:
         np.testing.assert_array_equal(out[name], want[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k.compile(opt_level=2, device="cpu")
+    cp = k.compile(opt_level=2, device="cpu")
+    out, _ = cp.run(k.pack(None))
+    want, _ = k.compile(device="cpu").run(k.pack(None))
+    assert torch.equal(out, want)

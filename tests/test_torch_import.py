@@ -1,10 +1,11 @@
 """The port stands alone: ``repro_torch`` imports and runs with ``jax`` and
 the reference package made unimportable — every module of it, the MVE path
-(fused and VM), the targets, timing and silicon models, and the LM slice
-(prefill, decode, the serving engine) — and importing it neither builds
-nor loads a CUDA kernel.  The VM's and the targets' entry points default
-to ``cuda``.  A new module of the port that
-imports ``jax`` or ``repro`` fails both tests here.
+(fused and VM), the targets, timing and silicon models, the optimizer, the
+program server, and the LM slice (prefill, decode, the serving engine) —
+and importing it neither builds nor loads a CUDA kernel.  The VM's, the
+targets' and the scheduler's entry points default to ``cuda``.  A new
+module of the port (or a port benchmark or example) that imports ``jax``
+or ``repro`` fails both tests here.
 """
 import os
 import pathlib
@@ -44,7 +45,12 @@ for needed in ("repro_torch.configs", "repro_torch.core.packing",
                "repro_torch.silicon.area", "repro_torch.silicon.sweep",
                "repro_torch.silicon.autotune", "repro_torch.targets.base",
                "repro_torch.targets.builtin", "repro_torch.targets.timed",
-               "repro_torch.targets.bicameral"):
+               "repro_torch.targets.bicameral", "repro_torch.kernels.float_ops",
+               "repro_torch.opt.passes", "repro_torch.opt.pipeline",
+               "repro_torch.opt.verify", "repro_torch.opt.tune",
+               "repro_torch.resilience.errors", "repro_torch.resilience.faults",
+               "repro_torch.resilience.breaker", "repro_torch.resilience.audit",
+               "repro_torch.runtime.health", "repro_torch.runtime.scheduler"):
     assert needed in mods, needed
 # the VM, the targets and the silicon model run too
 from repro_torch import targets
@@ -57,10 +63,22 @@ assert len(targets.list_targets()) == 13
 art = targets.compile(run.program, target="rvv-1d-timed", device="cpu")
 assert art.timeline(art.run(run.memory)[1]).total_cycles > 0
 assert cost.EnergyParams.derive(MVEConfig()) == cost.DEFAULT_ENERGY
+# the optimizer and the program server run too
+from repro_torch import opt
+from repro_torch.launch.serve import MVEProgramServer
+art = engine.compile_program(run.program, opt_level=opt.MAX_OPT_LEVEL,
+                             device="cpu")
+run.check(to_numpy(art.run(run.memory)[0]), None)
+srv = MVEProgramServer(device="cpu")
+req = srv.submit(run.program, run.memory)
+srv.run_until_drained()
+run.check(req.result.memory, req.result)
 # their entry points default to the card: cuda, never the CPU instead
 import torch
+from repro_torch.runtime import MVEScheduler
 for make in (lambda: engine.compile_program(run.program, mode="vm"),
-             lambda: targets.compile(run.program, target="neon").cp):
+             lambda: targets.compile(run.program, target="neon").cp,
+             lambda: MVEScheduler()):
     if torch.cuda.is_available():
         assert make().device.type == "cuda"
     else:
@@ -117,6 +135,8 @@ def test_port_sources_name_neither_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     files = list((SRC / "repro_torch").rglob("*.py"))
     files.append(SRC.parent / "chip_smoke.py")
+    files += list((SRC.parent / "benchmarks").glob("torch_*.py"))
+    files += list((SRC.parent / "examples").glob("*_torch.py"))
     assert len(files) > 30
     for path in files:
         assert not pat.search(path.read_text()), path
