@@ -67,10 +67,11 @@ non-zero:
    151936), random bf16 weights from a seeded ``torch.Generator`` on the
    card: ``make_prefill_step`` on 4 x 1024 tokens (24 flash launches),
    2 ``decode_step``s held against prefill one token longer (1e-3, on
-   float32 copies of the weights; the bf16 difference is recorded), 16
-   greedy decode steps, and a
-   ``ContinuousBatchingEngine`` of 4 slots answering 8 requests, two of
-   them checked against a one-slot engine.
+   the weights cast to float32 in place; the bf16 difference is
+   recorded), a ``(B,)`` cache index bit-equal to the scalar one, 16
+   greedy decode steps, and a ``ContinuousBatchingEngine`` of 4 slots
+   answering 8 requests, each checked against a one-slot engine
+   (``drive_family``, shared with 5b).
 6. ``quantized`` — ``quantized_matmul`` at the MLP shape, both
    ``bitserial`` values, equal to the plain product and close to the float
    one.
@@ -111,17 +112,42 @@ non-zero:
    requests/s (sequential, cold, steady), p50/p95 latency, the device's
    busy share, host-blocking calls per drain cycle, chaos wall time over
    clean.
+4f. ``nn``     — the ``repro_torch.nn`` model-block zoo on the MVE path:
+   ``model_blocks("qwen2-0.5b", seq_len=128)`` at full size (qwen2's KV,
+   attention and GEMM tiles, mamba2's SSM state, llama4-scout's routing)
+   and the six ``BLOCK_KERNELS`` at their defaults, each under
+   ``mode="fused"`` and ``mode="vm"`` on ``cuda``, one image and 1024:
+   held against the block's oracle on the card (bit for bit; ``attn_tile``
+   within ``ATTN_RTOL``) and bit-equal to the CPU run; priced on
+   ``mve-bs`` and ``rvv-1d`` equal to the CPU; device ms, launches and
+   busy share per batch and per image.  Then the ``serving_lm`` block
+   stream (``benchmarks/torch_serving_bench.lm_block_stream``, 26
+   requests) through ``MVEScheduler`` on ``cuda``, every ticket bit-equal
+   to the CPU stepwise run and passing its block's check.
+5b. ``lm_families`` — LM serving for the ``ssm``, ``hybrid`` and ``moe``
+   families at their published widths, random bf16 weights drawn on the
+   card: mamba2-2.7b (all 64 layers), zamba2-2.7b (all 54; its head_dim of
+   80 takes the plain attention route, no flash) and llama4-scout-17b-a16e
+   (4 of 48 layers: the whole model is 215 GB in bf16).  Each as 5: a
+   4 x 1024 prefill (llama4: 4 flash launches), decode against prefill
+   one token longer in float32 within 1e-3 (llama4 with capacity for every
+   token: capacity_factor = num_experts, so neither drops one), 16 greedy
+   decode steps at B = 4, and the 4-slot engine, its 8 requests each held
+   against a one-slot engine; right after each admission the slot's
+   recurrent state (``ssm``, ``conv``) must be all zero, and a reused slot
+   must have held its last request's state just before (ROADMAP C9).
 7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
-Phases 4, 4b, 4d, 4e, 5 and 6 are the main paths: the launch counters of
-the kernels each runs are set to 0 just before it and read just after (4b:
-around the VM's runs alone, before they are compared; 4e: around the
-fault-free serving, not the chaos replays); a kernel never launched there
-fails the run.  The kernels line's ``launches`` adds 4, 4b, 4d and 4e for
-the MVE kernels.  Without a CUDA device, or without the rest
-of the checkout beside it, the script exits non-zero and prints no result
-line.
+Phases 4, 4b, 4d, 4e, 4f, 5, 5b and 6 are the main paths: the launch
+counters of the kernels each runs are set to 0 just before it and read
+just after (4b: around the VM's runs alone, before they are compared; 4e:
+around the fault-free serving, not the chaos replays; 4f: around the card
+runs, after the CPU references); a kernel never launched there fails the
+run.  The kernels line's ``launches`` adds 4, 4b, 4d, 4e and 4f for the
+MVE kernels, 5 and 5b for flash attention.  Without a CUDA device, or
+without the rest of the checkout beside it, the script exits non-zero and
+prints no result line.
 """
 from __future__ import annotations
 
@@ -1320,24 +1346,16 @@ def drive_serve(stream):
     program cache cleared), a warmed server (``promote_after=2``), one
     replay of it under the profiler.  A CUDA tensor reaching a plain
     version fails."""
-    from benchmarks.torch_serving_bench import replay
-    from repro_torch.core import MVEConfig, compile_program
+    from benchmarks.torch_serving_bench import replay, sequential_run
+    from repro_torch.core import MVEConfig
     from repro_torch.core.engine import clear_cache
-    from repro_torch.core.machine import to_numpy
     from repro_torch.launch.serve import MVEProgramServer
     from repro_torch.runtime.scheduler import MVEScheduler
 
     cfg, n = MVEConfig(), len(stream)
     restore = _no_plain_version_on_cuda()
     try:
-        cps = [compile_program(r.program, cfg) for _, r in stream]
-        for cp, (_, r) in zip(cps, stream):
-            to_numpy(cp.run(r.memory)[0])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for cp, (_, r) in zip(cps, stream):
-            to_numpy(cp.run(r.memory)[0])
-        seq_s = time.perf_counter() - t0
+        seq_s = sequential_run(cfg, stream, "cuda", 1)
         clear_cache()
         cold = MVEScheduler(cfg, promote_after=None)
         cold_s, cold_tickets = replay(cold, stream)
@@ -1508,7 +1526,207 @@ def drive_targets():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the LM serving path (qwen2-0.5b at full width)
+# phase 4f: the nn model-block zoo on the MVE path
+# ---------------------------------------------------------------------------
+
+NN_BATCH = 1024
+NN_SEEDS = 16                # distinct images of each block, tiled to a batch
+NN_ITERS = 5                 # batches per profiled window
+NN_PRICED = ("mve-bs", "rvv-1d")
+
+
+def nn_blocks() -> list:
+    """``model_blocks("qwen2-0.5b", seq_len=128)`` at full size (qwen2's
+    KV, attention and GEMM tiles, mamba2's SSM state, llama4-scout's
+    routing) and the six ``BLOCK_KERNELS`` at their defaults, as
+    ``[(label, runs)]``: ``NN_SEEDS`` instances of each block from
+    distinct seeds, the first the reference's, all one program."""
+    import inspect
+
+    from repro_torch.nn import BLOCK_KERNELS, model_blocks
+
+    specs = [model_blocks("qwen2-0.5b", seq_len=128, seed=s)
+             for s in range(NN_SEEDS)]
+    if len(specs[0]) != 7:
+        raise AssertionError(f"model_blocks gave {len(specs[0])} specs")
+    blocks = [(f"qwen2-0.5b/{spec.name}", [row[i].run for row in specs])
+              for i, spec in enumerate(specs[0])]
+    for name, make in sorted(BLOCK_KERNELS.items()):
+        seed = inspect.signature(make).parameters["seed"].default
+        blocks.append((f"default/{name}",
+                       [make(seed=seed + s) for s in range(NN_SEEDS)]))
+    for label, runs in blocks:
+        if any(r.program != runs[0].program for r in runs):
+            raise AssertionError(f"{label}: the seed changed the program")
+    return blocks
+
+
+def nn_reference(blocks) -> dict:
+    """Each block's ``NN_SEEDS`` images run as one batch on the CPU
+    (fused), each held against its own oracle, and the first instance's
+    modeled cycles and energy on ``NN_PRICED``."""
+    from repro_torch import targets
+    from repro_torch.core import compile_program
+
+    out = {}
+    for label, runs in blocks:
+        images = torch.from_numpy(np.stack([r.memory for r in runs]))
+        mem = compile_program(runs[0].program, mode="fused",
+                              device="cpu").run_batch(images)[0]
+        for r, image in zip(runs, mem):
+            r.check(image)
+        prices = {}
+        for t in NN_PRICED:
+            art = targets.compile(runs[0].kernel, target=t, device="cpu")
+            _, st = art.run(runs[0].memory)
+            prices[t] = (art.timeline(st).total_cycles,
+                         art.energy(st).total_pj)
+        out[label] = (mem, prices)
+    return out
+
+
+def drive_nn(blocks) -> dict:
+    """Every block on ``cuda`` under ``mode="fused"`` and ``mode="vm"``:
+    its first instance as one image, and a batch of ``NN_BATCH`` images in
+    which image i is instance ``i % NN_SEEDS``; then priced on
+    ``NN_PRICED`` (each target's artifact runs it on the card).  A CUDA
+    tensor reaching a plain version fails."""
+    from repro_torch import targets
+    from repro_torch.core import MVEConfig, compile_program
+    from repro_torch.core.machine import as_memory
+
+    cfg = MVEConfig()
+    out = {}
+    restore = _no_plain_version_on_cuda()
+    try:
+        for label, runs in blocks:
+            run = runs[0]
+            seeds = np.stack([r.memory for r in runs])
+            images = as_memory(seeds[np.arange(NN_BATCH) % NN_SEEDS], "cuda")
+            modes = {}
+            for mode in ("fused", "vm"):
+                cp = compile_program(run.program, cfg, mode=mode)
+                mem, state = cp.run(run.memory)
+                modes[mode] = (cp, mem, state, cp.run_batch(images)[0])
+            priced = {}
+            for t in NN_PRICED:
+                art = targets.compile(run.kernel, target=t)
+                mem, st = art.run(run.memory)
+                priced[t] = (mem, art.timeline(st).total_cycles,
+                             art.energy(st).total_pj)
+            out[label] = (images, modes, priced)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return out
+
+
+def check_nn(blocks, out, want) -> dict:
+    """Each result against its own instance's oracle on the card (bit for
+    bit; ``attn_tile`` within ``ATTN_RTOL``) and bit-equal to that
+    instance's CPU run, the one image and every image of the batch; the
+    pricing equal to the CPU's; then device ms, launches and the device's
+    busy share per 1024-image batch and per image (``NN_ITERS`` calls in
+    one profiled window)."""
+    rows = {}
+    for label, runs in blocks:
+        run = runs[0]
+        cpu_mem, cpu_prices = want[label]
+        cpu_bits = bits(cpu_mem.cuda())                  # (NN_SEEDS, N)
+        images, modes, priced = out[label]
+        row = {"instructions": len(run.program), "exactness": run.exactness,
+               "distinct_images": NN_SEEDS,
+               "max_rel_err": run.error_of(modes["fused"][1])}
+        for mode, (cp, mem, state, batch) in modes.items():
+            if mem.device.type != "cuda" or batch.device.type != "cuda":
+                raise AssertionError(f"{label} {mode}: ran off the card")
+            run.check(mem, state)
+            for s, r in enumerate(runs):
+                r.check(batch[s::NN_SEEDS])
+            tiled = bits(batch).view(NN_BATCH // NN_SEEDS, NN_SEEDS, -1)
+            if not torch.equal(bits(mem), cpu_bits[0]) or not torch.equal(
+                    tiled, cpu_bits.expand_as(tiled)):
+                raise AssertionError(f"{label} {mode}: card != CPU")
+            batch_prof = device_profile(lambda: [
+                cp.run_batch_async(images) for _ in range(NN_ITERS)])
+            one_prof = device_profile(lambda: [
+                cp.run(run.memory) for _ in range(NN_ITERS)])
+            row[mode] = {
+                "executor": cp.mode,
+                "batch_device_ms": batch_prof["device_busy_ms"] / NN_ITERS,
+                "batch_launches": batch_prof["device_launches"] / NN_ITERS,
+                "batch_busy_share": batch_prof["device_busy_share"],
+                "run_device_ms": one_prof["device_busy_ms"] / NN_ITERS,
+                "run_launches": one_prof["device_launches"] / NN_ITERS,
+                "run_busy_share": one_prof["device_busy_share"]}
+        for t, (mem, cycles, energy) in priced.items():
+            if not torch.equal(bits(mem), cpu_bits[0]):
+                raise AssertionError(f"{label} on {t}: card != CPU")
+            if (cycles, energy) != cpu_prices[t]:
+                raise AssertionError(f"{label} on {t}: priced {cycles, energy}"
+                                     f" on the card, {cpu_prices[t]} on the "
+                                     "CPU")
+            row[t] = {"cycles": cycles, "energy_pj": energy}
+        rows[label] = row
+    return {"blocks": rows, "batch": NN_BATCH}
+
+
+def drive_serving_lm(stream) -> dict:
+    """The ``serving_lm`` block stream (``benchmarks/torch_serving_bench``)
+    through ``MVEScheduler`` on ``cuda``: per-request ``run`` in sequence,
+    a warmed scheduler (``promote_after=2``, best of ``SERVE_REPLAYS``
+    replays) and one profiled replay."""
+    from benchmarks.torch_serving_bench import (replay_kernels,
+                                                sequential_run)
+    from repro_torch.core import MVEConfig
+    from repro_torch.runtime.scheduler import MVEScheduler
+
+    cfg = MVEConfig()
+    restore = _no_plain_version_on_cuda()
+    try:
+        seq_s = sequential_run(cfg, stream, "cuda", 1)
+        sched = MVEScheduler(cfg, promote_after=2, max_batch=16)
+        for _ in range(2):
+            replay_kernels(sched, stream)
+        best = None
+        for _ in range(SERVE_REPLAYS):
+            wall, tickets = replay_kernels(sched, stream)
+            if best is None or wall < best[0]:
+                best = (wall, tickets)
+        profiled = [sched.submit(r.kernel) for _, r in stream]
+        prof = device_profile(sched.drain)
+        sched.close()
+    finally:
+        restore()
+    return {"sequential_s": seq_s, "steady_s": best[0], "tickets": best[1],
+            "profiled": profiled, "profile": prof, "stats": sched.stats}
+
+
+def check_serving_lm(stream, out, want) -> dict:
+    """Every served block bit-equal to its stepwise run on the CPU
+    (memory, registers, Tag) and passing its own oracle check."""
+    for tickets in (out["tickets"], out["profiled"]):
+        for (name, r), t, w in zip(stream, tickets, want):
+            res = t.result()
+            if not _host_state_equal(res, w):
+                raise AssertionError(f"serving_lm {name}: != CPU stepwise")
+            r.check(res.memory, res)
+    st, n, prof = out["stats"], len(stream), out["profile"]
+    if st.demotions:
+        raise AssertionError(f"serving_lm: {st.demotions} demotions")
+    return {"requests": n, "blocks": sorted({nm for nm, _ in stream}),
+            "sequential_req_per_s": n / out["sequential_s"],
+            "steady_req_per_s": n / out["steady_s"],
+            "batch_efficiency": st.batch_efficiency,
+            "promotions": st.promotions, "dispatches": st.dispatches,
+            "profiled_drain": {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "device_busy_share",
+                "device_launches", "host_blocking_calls")}}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: LM serving at full width: qwen2-0.5b (`lm`), then the moe, ssm
+# and hybrid families (`lm_families`)
 # ---------------------------------------------------------------------------
 
 LM_TOL = 4e-2                 # tests/test_models.py, bf16 prefill vs decode
@@ -1517,7 +1735,6 @@ LM_TOL = 4e-2                 # tests/test_models.py, bf16 prefill vs decode
 LM_FP32_TOL = 1e-3
 DECODE_STEPS = 16
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_SEQ = 4, 8, 256
-ALONE = (0, 5)                # requests held against a one-slot engine
 
 
 def device_profile(fn) -> dict:
@@ -1559,10 +1776,55 @@ def device_profile(fn) -> dict:
             "top_kernels_ms_count": sorted(kernels, reverse=True)[:5]}
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def _cast_(tree, dtype) -> dict:
+    """Cast the leaves of a nested dict in place, one at a time (so one
+    leaf, not the whole tree, is held twice), to ``dtype``: a torch dtype
+    or a tree of them.  Returns the tree of the leaves' dtypes before."""
+    before = {}
+    for k, v in tree.items():
+        want = dtype[k] if isinstance(dtype, dict) else dtype
+        if isinstance(v, dict):
+            before[k] = _cast_(v, want)
+        else:
+            before[k], tree[k] = v.dtype, v.to(want)
+    return before
+
+
+def watch_admissions(engine) -> dict:
+    """Wrap ``engine``'s admission so that right after each one the
+    admitted slot's recurrent rows (``ssm``, ``conv``: C9) must be all
+    zero.  Keeps the count of admissions, of those to a reused slot, and
+    the largest |value| a reused slot's rows held just before its
+    admission (the last request's state: what the zeroing removed)."""
+    admit, grid = engine._try_admit, engine.grid
+    names = [n for n in ("ssm", "conv") if n in engine.cache]
+    seen = {"admitted": 0, "reused": 0, "stale_max_abs": 0.0}
+    used = set()
+
+    def checked():
+        if not engine._queue:
+            return admit()
+        before = {s: grid.payload(s) for s in range(grid.top)}
+        stale = {s: max((float(engine.cache[n][:, s].abs().max())
+                         for n in names), default=0.0)
+                 for s in range(grid.top) if before[s] is None}
+        admit()
+        for s in range(grid.top):
+            if grid.payload(s) is None or grid.payload(s) is before[s]:
+                continue
+            seen["admitted"] += 1
+            if s in used:
+                seen["reused"] += 1
+                seen["stale_max_abs"] = max(seen["stale_max_abs"], stale[s])
+            used.add(s)
+            for n in names:
+                left = int(torch.count_nonzero(engine.cache[n][:, s]))
+                if left:
+                    raise AssertionError(f"slot {s} admitted with {left} "
+                                         f"nonzero {n} values (C9)")
+
+    engine._try_admit = checked
+    return seen
 
 
 def check_alone(cfg, params, request, output, noise):
@@ -1599,17 +1861,38 @@ def check_alone(cfg, params, request, output, noise):
     return f"parted at token {j} on a near-tie ({gap})"
 
 
-def drive_lm(flash_attention):
+# (arch, layers run): every family at its published widths; llama4-scout's
+# 48 layers (107.8 B parameters, 215 GB in bf16) cut to 4 to fit one card.
+# The first row is phase `lm`, the others phase `lm_families`.
+FAMILIES = (("qwen2-0.5b", None), ("mamba2-2.7b", None),
+            ("zamba2-2.7b", None), ("llama4-scout-17b-a16e", 4))
+
+
+def drive_family(arch, layers, flash_attention) -> dict:
+    """One LM at full width with seeded random bf16 weights drawn on the
+    card: a ``LM_BATCH`` x ``LM_SEQ`` prefill (one flash launch per
+    attention layer whose head dim is the kernel's), decode after a
+    prefill against prefill one token longer (bf16 recorded; float32 held
+    at ``LM_FP32_TOL``; an MoE with capacity for every token), a ``(B,)``
+    cache index bit-equal to the scalar one, ``DECODE_STEPS`` greedy
+    decode steps, and a ``ContinuousBatchingEngine`` of ``ENGINE_SLOTS``
+    answering ``ENGINE_REQUESTS`` requests (slots reused; each admitted
+    slot's recurrent state must be zero), every request held against a
+    one-slot engine."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     from repro_torch.launch.serve import ContinuousBatchingEngine, Request
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import LM
     from repro_torch.models.common import tree_leaves
 
-    cfg = get_config("qwen2-0.5b")
-    if (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) != (
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if arch == FAMILIES[0][0] and (
+            cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) != (
             Q_HEADS, KV_HEADS, HEAD_DIM):
-        raise AssertionError(f"qwen2-0.5b is not the shape timed: {cfg}")
+        raise AssertionError(f"{arch} is not the shape timed: {cfg}")
     model = LM(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1618,8 +1901,9 @@ def drive_lm(flash_attention):
     init_s = time.perf_counter() - t0
     leaves = tree_leaves(params)
     if any(p.device.type != "cuda" for _, p in leaves):
-        raise AssertionError("parameters off the card")
+        raise AssertionError(f"{arch}: parameters off the card")
     n_params = sum(p.numel() for _, p in leaves)
+    del leaves
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     b, s, vocab = LM_BATCH, LM_SEQ, cfg.vocab_size
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1630,59 +1914,79 @@ def drive_lm(flash_attention):
         pos = torch.arange(n, dtype=torch.int32, device="cuda")
         return {"tokens": tokens[:, :n], "positions": pos.expand(b, n)}
 
-    # prefill: one flash launch per layer
     before = flash_attention.launches
     logits, cache = prefill(params, batch(s))
     torch.cuda.synchronize()
     per_prefill = flash_attention.launches - before
-    if per_prefill != cfg.num_layers:
-        raise AssertionError(f"prefill launched flash {per_prefill} times, "
-                             f"not once per layer ({cfg.num_layers})")
-    kv_shape = (cfg.num_layers, b, s, KV_HEADS, HEAD_DIM)
+    # zamba2's head dim 80 takes the plain route, as in the reference
+    attn_layers = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
+                   "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}
+    if per_prefill != (attn_layers[cfg.family] if cfg.resolved_head_dim
+                       in HEAD_DIMS else 0):
+        raise AssertionError(f"{arch}: prefill launched flash "
+                             f"{per_prefill} times")
+    want = {n: d.shape for n, d in model.cache_defs(b, s).items()}
+    got = {n: tuple(c.shape) for n, c in cache.items()}
     if (logits.shape != (b, cfg.padded_vocab) or not torch.isfinite(
-            logits.float()).all() or tuple(cache["k"].shape) != kv_shape):
-        raise AssertionError(f"prefill: logits {tuple(logits.shape)}, "
-                             f"cache {tuple(cache['k'].shape)}")
+            logits.float()).all() or got != want):
+        raise AssertionError(f"{arch} prefill: logits {tuple(logits.shape)},"
+                             f" cache {got} (declared {want})")
     t0 = time.perf_counter()
     prefill(params, batch(s))
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
 
-    def pad(c):
-        return {n: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, DECODE_STEPS))
-                for n, x in c.items()}
+    def pad(c, extra):
+        """A copy of the cache with ``extra`` more positions in its KV
+        rows (the recurrent state has no sequence axis)."""
+        return {n: (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, extra))
+                    if extra and n in ("k", "v", "shared_k", "shared_v")
+                    else x.clone()) for n, x in c.items()}
 
-    def decode_vs_prefill(p, c):
-        """Max |logit difference| of 2 decode steps after the prefill vs
-        prefill one token longer."""
-        err = 0.0
+    # decode after the prefill == prefill one token longer.  An MoE prefill
+    # groups 2048 tokens and drops those past an expert's capacity, and one
+    # token more regroups them; with capacity for every token
+    # (capacity_factor = num_experts at top-1) none is dropped and the two
+    # compute the same function.  Held at LM_FP32_TOL on float32 weights,
+    # where only the semantics can differ; the bf16 difference is recorded
+    # (an MoE's includes router near-ties that send a token elsewhere).
+    cmp = (LM(dataclasses.replace(cfg, capacity_factor=cfg.num_experts))
+           if cfg.family == "moe" else model)
+    cmp_prefill, cmp_decode = make_prefill_step(cmp), make_decode_step(cmp)
+
+    def decode_vs_prefill(p):
+        _, c = cmp_prefill(p, batch(s))
+        c, err = pad(c, 2), 0.0
         for t in (s, s + 1):
-            got, c = decode(p, c, tokens[:, t:t + 1], t)
-            want, _ = prefill(p, batch(t + 1))
+            got, c = cmp_decode(p, c, tokens[:, t:t + 1], t)
+            want, _ = cmp_prefill(p, batch(t + 1))
             if not torch.isfinite(got.float()).all():
-                raise AssertionError(f"decode at {t}: non-finite logits")
+                raise AssertionError(f"{arch} decode at {t}: non-finite")
             err = max(err, max_abs_err(got, want))
         return err
 
-    # decode after the prefill == prefill one token longer.  Held at
-    # LM_FP32_TOL on float32 copies of the weights, where only the semantics
-    # can differ; in bf16 the two orders of rounding differ by a few 1e-2 at
-    # the worst of 4 x 151936 logits at this width (recorded, and used
-    # below as the bf16 noise between two evaluations of the same logits).
-    padded = pad(cache)
-    bf16_err = decode_vs_prefill(params, {n: c.clone()
-                                          for n, c in padded.items()})
-    params32 = _tree_map(lambda x: x.float(), params)
-    _, cache32 = prefill(params32, batch(s))
-    fp32_err = decode_vs_prefill(params32, pad(cache32))
-    del params32, cache32
+    bf16_err = decode_vs_prefill(params)
+    peak = torch.cuda.max_memory_allocated()
+    dtypes = _cast_(params, torch.float32)
+    fp32_err = decode_vs_prefill(params)
+    _cast_(params, dtypes)          # exact: the float32 values are bf16's
+    fp32_peak = torch.cuda.max_memory_allocated()
     if fp32_err > LM_FP32_TOL:
-        raise AssertionError(f"float32 decode != prefill one token longer: "
-                             f"max_abs_err {fp32_err} > {LM_FP32_TOL}")
-    torch.cuda.reset_peak_memory_stats()      # the float32 copies are gone
+        raise AssertionError(f"{arch}: float32 decode != prefill one token "
+                             f"longer: {fp32_err} > {LM_FP32_TOL}")
+    del cmp, cmp_prefill, cmp_decode
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()      # the float32 pass is over
 
-    # greedy decode, timed
+    # a (B,) cache index with every row at one position is the scalar call
+    padded = pad(cache, DECODE_STEPS + 2)
+    a, _ = decode(params, pad(padded, 0), tokens[:, s:s + 1], s)
+    r, _ = decode(params, pad(padded, 0), tokens[:, s:s + 1],
+                  torch.full((b,), s, device="cuda"))
+    if not torch.equal(bits(a), bits(r)):
+        raise AssertionError(f"{arch}: (B,) cache index != scalar")
+    del a, r
+
     tok = logits[:, :vocab].argmax(dim=-1, keepdim=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1692,19 +1996,20 @@ def drive_lm(flash_attention):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     if not torch.isfinite(step_logits.float()).all():
-        raise AssertionError("greedy decode: non-finite logits")
+        raise AssertionError(f"{arch} greedy decode: non-finite logits")
     profiles = {
         "prefill": device_profile(lambda: prefill(params, batch(s))),
         "decode_step": device_profile(lambda: decode(
-            params, padded, tok, s + DECODE_STEPS - 1))}
+            params, padded, tok, s + DECODE_STEPS))}
+    del padded, cache
 
-    # continuous batching
     rng = np.random.default_rng(5)
     requests = [Request(rid=i, prompt=rng.integers(
         1, vocab, int(rng.integers(16, 65))).astype(np.int32),
         max_new_tokens=DECODE_STEPS) for i in range(ENGINE_REQUESTS)]
     engine = ContinuousBatchingEngine(cfg, params, ENGINE_SLOTS,
                                       ENGINE_MAX_SEQ)
+    admissions = watch_admissions(engine)
     t0 = time.perf_counter()
     for req in requests:
         engine.submit(req)
@@ -1712,28 +2017,45 @@ def drive_lm(flash_attention):
     torch.cuda.synchronize()
     engine_s = time.perf_counter() - t0
     if sorted(done) != list(range(ENGINE_REQUESTS)) or any(
-            len(r.output) != DECODE_STEPS for r in done.values()):
-        raise AssertionError("the engine did not answer every request")
-    alone = {rid: check_alone(cfg, params, requests[rid], done[rid].output,
-                              bf16_err) for rid in ALONE}
+            len(q.output) != DECODE_STEPS for q in done.values()):
+        raise AssertionError(f"{arch}: the engine did not answer every "
+                             "request")
+    reused = ENGINE_REQUESTS - ENGINE_SLOTS
+    if (admissions["admitted"], admissions["reused"]) != (
+            ENGINE_REQUESTS, reused) or (cfg.family in ("ssm", "hybrid")
+                                         and not admissions["stale_max_abs"]):
+        raise AssertionError(f"{arch}: admissions {admissions}: expected "
+                             f"{reused} reused slots holding a previous "
+                             "request's state")
+    # the near-tie allowance is the bf16 noise between two evaluations of
+    # the same logits (decode vs prefill); an MoE's also holds tokens
+    # routed to another expert on a bf16 near-tie of the router, a
+    # different function, so there the fixed LM_TOL alone
+    noise = 0.0 if cfg.family == "moe" else bf16_err
+    alone = {q.rid: check_alone(cfg, params, q, done[q.rid].output, noise)
+             for q in requests}
+    peak, steps = max(peak, torch.cuda.max_memory_allocated()), engine.steps
+    del params, engine
+    torch.cuda.empty_cache()
     return {
-        "config": cfg.name, "params": n_params, "layers": cfg.num_layers,
-        "init_seconds": init_s, "batch": b, "seq": s,
+        "config": cfg.name, "family": cfg.family, "params": n_params,
+        "layers": cfg.num_layers, "published_layers": get_config(
+            arch).num_layers, "init_seconds": init_s, "batch": b, "seq": s,
         "flash_launches_per_prefill": per_prefill,
         "prefill_ms": prefill_s * 1e3,
         "prefill_tokens_per_s": b * s / prefill_s,
+        "decode_vs_prefill_max_abs_err_bf16": bf16_err,
         "decode_vs_prefill_max_abs_err_fp32": fp32_err,
-        "tolerance_fp32": LM_FP32_TOL, "decode_vs_prefill_max_abs_err_bf16":
-        bf16_err,
+        "tolerance_fp32": LM_FP32_TOL,
         "decode_ms_per_step": decode_s / DECODE_STEPS * 1e3,
         "decode_tokens_per_s": b * DECODE_STEPS / decode_s,
         "engine_slots": ENGINE_SLOTS, "engine_requests": len(done),
-        "engine_prompt_tokens": sum(len(r.prompt) for r in requests),
-        "engine_new_tokens": sum(len(r.output) for r in done.values()),
-        "engine_steps": engine.steps, "engine_seconds": engine_s,
-        "alone_vs_batched": alone, "profiles": profiles,
-        "max_memory_allocated_bytes": max(
-            peak, torch.cuda.max_memory_allocated())}
+        "engine_prompt_tokens": sum(len(q.prompt) for q in requests),
+        "engine_new_tokens": sum(len(q.output) for q in done.values()),
+        "engine_steps": steps, "engine_seconds": engine_s,
+        "admissions": admissions, "alone_vs_batched": alone,
+        "profiles": profiles, "max_memory_allocated_bytes": peak,
+        "max_memory_allocated_bytes_fp32_pass": fp32_peak}
 
 
 # ---------------------------------------------------------------------------
@@ -1884,18 +2206,39 @@ def main() -> int:
     emit("serve", seconds=time.perf_counter() - t0, launches=serve_counts,
          **serve)
     t0 = time.perf_counter()
-    lm, lm_counts = drive("LM", ("flash_attention",), drive_lm,
-                          flash_attention)
+    from benchmarks.torch_serving_bench import lm_block_stream
+    blocks, lm_stream = nn_blocks(), lm_block_stream()
+    nn_want, lm_want = nn_reference(blocks), serve_reference(lm_stream)
+    (nn_out, slm_out), nn_counts = drive("nn", mve, lambda: (
+        drive_nn(blocks), drive_serving_lm(lm_stream)))
+    nn_checks = check_nn(blocks, nn_out, nn_want)
+    slm = check_serving_lm(lm_stream, slm_out, lm_want)
+    del nn_out, slm_out
+    emit("nn", seconds=time.perf_counter() - t0, launches=nn_counts,
+         serving_lm=slm, **nn_checks)
+    t0 = time.perf_counter()
+    lm, lm_counts = drive("LM", ("flash_attention",), drive_family,
+                          *FAMILIES[0], flash_attention)
     emit("lm", seconds=time.perf_counter() - t0, launches=lm_counts, **lm)
+    t0 = time.perf_counter()
+    families, fam_counts = drive(
+        "lm_families", ("flash_attention",), lambda: {
+            arch: drive_family(arch, layers, flash_attention)
+            for arch, layers in FAMILIES[1:]})
+    emit("lm_families", seconds=time.perf_counter() - t0,
+         launches=fam_counts, families=families)
     quant, quant_counts = drive("quantized", ("int8_matmul",
                                               "bitplane_matmul"),
                                 drive_quantized, ops, ref)
     emit("quantized", shape=MLP_SHAPE, launches=quant_counts, **quant)
     launches = {name: counts[name] + vm_counts[name] + opt_counts[name]
-                + serve_counts[name] for name in mve + ("float_convert",)}
-    launches.update({"flash_attention": lm_counts["flash_attention"],
-                "int8_matmul": quant_counts["int8_matmul"],
-                "bitplane_matmul": quant_counts["bitplane_matmul"]})
+                + serve_counts[name] + nn_counts[name]
+                for name in mve + ("float_convert",)}
+    launches.update({
+        "flash_attention": (lm_counts["flash_attention"]
+                            + fam_counts["flash_attention"]),
+        "int8_matmul": quant_counts["int8_matmul"],
+        "bitplane_matmul": quant_counts["bitplane_matmul"]})
 
     # ---- 7. result -------------------------------------------------------
     kernels = []

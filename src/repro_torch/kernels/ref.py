@@ -261,3 +261,58 @@ def float_convert_ref(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     # unsigned pattern -> the signed view's value (two's complement)
     nan_bits = (nan_bits - ((nan_bits >> (width - 1)) << width)).to(view)
     return torch.where(nan, nan_bits, x.to(dtype).view(view)).view(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Model-block oracles for the repro_torch.nn kernel zoo.
+# ---------------------------------------------------------------------------
+
+def tree_sum_ref(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Pairwise (log-tree) summation along one power-of-two axis.
+
+    The MVE reduction idiom halves the dimension per step, so
+    cross-dimension sums on the lane grid happen in *this* order — the low
+    half plus the high half, until one element is left — not left to
+    right.  Oracles that promise bit-exactness against a lane reduction
+    must mirror it: fp32 addition is not associative."""
+    x = torch.movedim(x, axis, -1)
+    n = x.shape[-1]
+    assert n & (n - 1) == 0, f"tree_sum_ref needs a power of two, got {n}"
+    while n > 1:
+        half = n // 2
+        x = x[..., :half] + x[..., half:n]
+        n = half
+    return x[..., 0]
+
+
+def ssm_scan_ref(h: torch.Tensor, a: torch.Tensor, bvec: torch.Tensor,
+                 x: torch.Tensor, c: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One diagonal-SSM decode step.
+
+    ``h, a: (P, N)``; ``bvec, c: (N,)``; ``x: (P,)``.  Returns ``(h_new,
+    y)`` with ``h_new = a * h + bvec * x`` and ``y[p] = sum_n c[n] *
+    h_new[p, n]``: the sum in pairwise-tree order, and every multiply and
+    add in the sequence the MVE block kernel emits, so float32 results
+    match bit for bit."""
+    h = h.float()
+    t = bvec.float()[None, :] * x.float()[:, None]
+    h_new = a.float() * h
+    h_new = h_new + t
+    y = tree_sum_ref(c.float()[None, :] * h_new, axis=-1)
+    return h_new, y
+
+
+def moe_gather_ref(w: torch.Tensor, experts: torch.Tensor,
+                   gates: torch.Tensor) -> torch.Tensor:
+    """Top-k expert gather: ``y[t] = sum_j gates[t, j] * w[experts[t, j]]``.
+
+    ``w: (E, D)`` expert rows, ``experts: (T, topk)`` indices, ``gates:
+    (T, topk)``.  Accumulated over ``j = 0 .. topk - 1`` in order, as the
+    MVE random-base gather kernel does, so float32 is bit-exact."""
+    t, topk = experts.shape
+    y = torch.zeros(t, w.shape[1], dtype=torch.float32, device=w.device)
+    for j in range(topk):
+        rows = w.float()[experts[:, j].long()]
+        y = y + gates.float()[:, j][:, None] * rows
+    return y

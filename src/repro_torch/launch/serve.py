@@ -17,7 +17,10 @@ continuous-batching decode:
 
 The cache lives on the engine's device (``cuda`` unless the caller names
 another) and is updated in place by every step; per step one ``(B,)``
-vector of token ids comes back to the host.
+vector of token ids comes back to the host.  A slot's recurrent state
+(the ``ssm`` and ``hybrid`` families) is zeroed when a request is admitted
+to it; the reference keeps the previous request's state there
+(ROADMAP.md, C9).
 
 :class:`MVEProgramServer` is the second front door: concurrent MVE
 *program* requests served by the signature-batched scheduler
@@ -91,6 +94,9 @@ class ContinuousBatchingEngine:
             if slot is None:
                 return
             req = self._queue.pop(0)
+            # the slot's recurrent state (ssm, hybrid) is its last
+            # request's: zero it, or the new request starts from there
+            self.model.clear_slot(self.cache, slot)
             self.grid._payload[slot] = SlotState(req)
 
     # -- main loop -------------------------------------------------------------

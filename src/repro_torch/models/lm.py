@@ -1,5 +1,5 @@
 """Model assembly: the :class:`LM` object of the reference, for the dense
-(GQA transformer) family.
+(GQA transformer), MoE, SSM (Mamba2) and hybrid (zamba2) families.
 
 One :class:`LM` per config exposes
 
@@ -9,13 +9,15 @@ One :class:`LM` per config exposes
   * ``decode_step(params, cache, tokens, cache_index)``,
   * ``cache_defs(batch, seq)``.
 
-Only the ``dense`` family is ported, whose prefill runs the hand-written
-flash kernel.  A model of another family (``moe``, ``ssm``, ``hybrid``,
-``vlm``, ``encdec``) and the training ``loss`` raise
+Prefill attention runs the hand-written flash kernel where the head dim
+allows it (64 or 128: qwen2, llama4-scout; zamba2's 80 takes the plain
+chunked route, as in the reference).  A model of the ``vlm`` or
+``encdec`` family and the training ``loss`` raise
 ``NotImplementedError``: they are later slices of the port (ROADMAP.md,
 queue A), each bringing its parameter declarations with it.  The
-reference's scanned layer stack is a Python loop over the stacked
-``(L, ...)`` parameters.
+reference's scanned layer stacks are Python loops over the stacked
+``(L, ...)`` parameters.  ``decode_step`` updates the cache in place: the
+KV rows and the recurrent (``ssm``, ``conv``) state alike.
 """
 from __future__ import annotations
 
@@ -29,8 +31,10 @@ from ..core.machine import resolve_device
 from .attention import chunked_attention, decode_attention, update_cache
 from .common import (DTYPES, ParamDef, abstract_tree, activation_fn,
                      axes_tree, materialize_tree, rmsnorm, rope)
+from .moe import moe_ffn
+from .ssm import mamba_block
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -40,7 +44,7 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 # ---------------------------------------------------------------------------
-# Parameter declarations (the dense family, as in the reference)
+# Parameter declarations (as in the reference)
 # ---------------------------------------------------------------------------
 
 def _attn_defs(cfg: ModelConfig, L: int) -> Dict:
@@ -74,21 +78,84 @@ def _mlp_defs(cfg: ModelConfig, L: int) -> Dict:
     return p
 
 
+def _dense_mlp_defs(cfg: ModelConfig, L: int) -> Dict:
+    """Un-stacked-expert dense MLP used as shared expert / dense residual."""
+    d, ff = cfg.d_model, cfg.d_ff
+    return {
+        "wi": ParamDef((L, d, ff), ("layers", "embed", "mlp")),
+        "wg": ParamDef((L, d, ff), ("layers", "embed", "mlp")),
+        "wo": ParamDef((L, ff, d), ("layers", "mlp", "embed")),
+    }
+
+
+def _moe_defs(cfg: ModelConfig, L: int) -> Dict:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {
+        "norm": ParamDef((L, d), ("layers", None), init="ones"),
+        "router": ParamDef((L, d, e), ("layers", "embed", None)),
+        "wi": ParamDef((L, e, d, ff), ("layers", "expert", "embed", None)),
+        "wg": ParamDef((L, e, d, ff), ("layers", "expert", "embed", None)),
+        "wo": ParamDef((L, e, ff, d), ("layers", "expert", None, "embed")),
+    }
+    if cfg.moe_shared_expert:
+        p["shared"] = _dense_mlp_defs(cfg, L)
+    if cfg.moe_dense_residual:
+        p["dense"] = _dense_mlp_defs(cfg, L)
+    return p
+
+
+def _ssm_defs(cfg: ModelConfig, L: int) -> Dict:
+    d = cfg.d_model
+    din = cfg.d_inner
+    gn = cfg.ssm_ngroups * cfg.ssm_state
+    h = cfg.ssm_heads
+    return {
+        "in_norm": ParamDef((L, d), ("layers", None), init="ones"),
+        "w_zx": ParamDef((L, d, 2 * din), ("layers", "embed", "ssm_inner")),
+        "w_bc": ParamDef((L, d, 2 * gn), ("layers", "embed", None)),
+        "w_dt": ParamDef((L, d, h), ("layers", "embed", None)),
+        "dt_bias": ParamDef((L, h), ("layers", None), init="zeros"),
+        "conv_w": ParamDef((L, cfg.ssm_conv, cfg.conv_dim),
+                           ("layers", None, "conv_dim")),
+        "conv_b": ParamDef((L, cfg.conv_dim), ("layers", "conv_dim"),
+                           init="zeros"),
+        "a_log": ParamDef((L, h), ("layers", None), init="ones"),
+        "d_skip": ParamDef((L, h), ("layers", None), init="ones"),
+        "gate_norm": ParamDef((L, din), ("layers", "ssm_inner"),
+                              init="ones"),
+        "w_out": ParamDef((L, din, d), ("layers", "ssm_inner", "embed")),
+    }
+
+
 def build_param_defs(cfg: ModelConfig) -> Dict:
     if cfg.family not in PORTED_FAMILIES:
         raise _not_ported(f"the {cfg.family!r} family")
     d, v = cfg.d_model, cfg.padded_vocab
     L = cfg.num_layers
-    return {
+    defs = {
         "embed": ParamDef((v, d), ("vocab", "embed")),
         "final_norm": ParamDef((d,), (None,), init="ones"),
         "lm_head": ParamDef((d, v), ("embed", "vocab")),
-        "blocks": {"attn": _attn_defs(cfg, L), "mlp": _mlp_defs(cfg, L)},
     }
+    fam = cfg.family
+    if fam == "dense":
+        defs["blocks"] = {"attn": _attn_defs(cfg, L),
+                          "mlp": _mlp_defs(cfg, L)}
+    elif fam == "moe":
+        defs["blocks"] = {"attn": _attn_defs(cfg, L),
+                          "moe": _moe_defs(cfg, L)}
+    elif fam == "ssm":
+        defs["blocks"] = _ssm_defs(cfg, L)
+    else:                                               # hybrid
+        defs["blocks"] = _ssm_defs(cfg, L)
+        nb = cfg.num_shared_blocks
+        defs["shared"] = {"attn": _attn_defs(cfg, nb),
+                          "mlp": _mlp_defs(cfg, nb)}
+    return defs
 
 
 # ---------------------------------------------------------------------------
-# Layer applications (dense family)
+# Layer applications
 # ---------------------------------------------------------------------------
 
 def _proj_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor):
@@ -172,7 +239,7 @@ class LM:
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens]
 
-    # ---- backbone ----
+    # ---- backbones ----
     def _transformer_stack(self, params, h, positions, segment_ids, mode,
                            cache=None, cache_index=None):
         cfg = self.cfg
@@ -184,19 +251,83 @@ class LM:
             h, (k, v) = _self_attention(cfg, p["attn"], h, positions,
                                         segment_ids, mode, cache_kv=cache_kv,
                                         cache_index=cache_index)
-            h = _mlp(cfg, p["mlp"], h)
+            if "moe" in p:
+                x = rmsnorm(h, p["moe"]["norm"], cfg.norm_eps)
+                out, _aux = moe_ffn(p["moe"], x, cfg)
+                h = h + out
+            else:
+                h = _mlp(cfg, p["mlp"], h)
             ks.append(k)
             vs.append(v)
         if mode == "decode":
             return h, cache                       # updated in place
         return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
+    def _mamba_layer(self, params, i: int, h, mode, cache, states):
+        """Layer ``i`` of the Mamba2 stack.  Decode reads the layer's
+        recurrent state from ``cache`` and writes the new one back in
+        place; prefill appends its final state to ``states``."""
+        p = _layer(params["blocks"], i)
+        if mode == "decode":
+            h, ns = mamba_block(p, h, self.cfg, state={
+                "ssm": cache["ssm"][i], "conv": cache["conv"][i]})
+            cache["ssm"][i].copy_(ns["ssm"])
+            cache["conv"][i].copy_(ns["conv"])
+        else:
+            h, ns = mamba_block(p, h, self.cfg)
+            states.append(ns)
+        return h
+
+    @staticmethod
+    def _stacked_states(states) -> Dict:
+        return {"ssm": torch.stack([ns["ssm"] for ns in states]),
+                "conv": torch.stack([ns["conv"] for ns in states])}
+
+    def _ssm_stack(self, params, h, mode, cache=None):
+        states = []
+        for i in range(self.cfg.num_layers):
+            h = self._mamba_layer(params, i, h, mode, cache, states)
+        return h, (cache if mode == "decode" else
+                   self._stacked_states(states))
+
+    def _hybrid_stack(self, params, h, positions, segment_ids, mode,
+                      cache=None, cache_index=None):
+        """``num_layers // attn_every`` groups; each applies a shared
+        attention + MLP block (weight set ``group % num_shared_blocks``)
+        with its own KV cache, then ``attn_every`` Mamba2 layers."""
+        cfg = self.cfg
+        every = cfg.attn_every
+        states, ks, vs = [], [], []
+        for gi in range(cfg.num_layers // every):
+            sp = _layer(params["shared"], gi % cfg.num_shared_blocks)
+            cache_kv = ((cache["shared_k"][gi], cache["shared_v"][gi])
+                        if mode == "decode" else None)
+            h, (k, v) = _self_attention(cfg, sp["attn"], h, positions,
+                                        segment_ids, mode, cache_kv=cache_kv,
+                                        cache_index=cache_index)
+            h = _mlp(cfg, sp["mlp"], h)
+            ks.append(k)
+            vs.append(v)
+            for i in range(gi * every, (gi + 1) * every):
+                h = self._mamba_layer(params, i, h, mode, cache, states)
+        if mode == "decode":
+            return h, cache                       # updated in place
+        return h, {**self._stacked_states(states),
+                   "shared_k": torch.stack(ks), "shared_v": torch.stack(vs)}
+
     def _backbone(self, params, tokens, positions, segment_ids, mode,
                   cache=None, cache_index=None):
         h = self._embed(params, tokens)
-        h, new_cache = self._transformer_stack(
-            params, h, positions, segment_ids, mode, cache=cache,
-            cache_index=cache_index)
+        fam = self.cfg.family
+        if fam in ("dense", "moe"):
+            h, new_cache = self._transformer_stack(
+                params, h, positions, segment_ids, mode, cache=cache,
+                cache_index=cache_index)
+        elif fam == "ssm":
+            h, new_cache = self._ssm_stack(params, h, mode, cache)
+        else:
+            h, new_cache = self._hybrid_stack(
+                params, h, positions, segment_ids, mode, cache, cache_index)
         return rmsnorm(h, params["final_norm"], self.cfg.norm_eps), new_cache
 
     def loss(self, params, batch):
@@ -205,7 +336,9 @@ class LM:
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """``batch``: ``tokens`` and ``positions`` (B, S), optional
         ``segment_ids``.  Returns the last position's logits (B, V) and the
-        cache ``{"k", "v"}`` of shape (L, B, S, K, D)."""
+        cache: ``{"k", "v"}`` of shape (L, B, S, K, D) (dense, moe), the
+        final recurrent state ``{"ssm", "conv"}`` per layer (ssm), or both
+        with the shared blocks' ``{"shared_k", "shared_v"}`` (hybrid)."""
         h, cache = self._backbone(params, batch["tokens"],
                                   batch["positions"],
                                   batch.get("segment_ids"), "prefill")
@@ -234,11 +367,46 @@ class LM:
     # ---- cache declaration ----
     def cache_defs(self, batch: int, seq: int) -> Dict:
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        axes = ("layers", "batch", "kv_seq", None, None)
-        return {"k": ParamDef(shape, axes, dtype=cfg.kv_cache_dtype),
-                "v": ParamDef(shape, axes, dtype=cfg.kv_cache_dtype)}
+        hd = cfg.resolved_head_dim if cfg.num_heads else 0
+
+        def kv(n_layers):
+            shape = (n_layers, batch, seq, cfg.num_kv_heads, hd)
+            axes = ("layers", "batch", "kv_seq", None, None)
+            return {"k": ParamDef(shape, axes, dtype=cfg.kv_cache_dtype),
+                    "v": ParamDef(shape, axes, dtype=cfg.kv_cache_dtype)}
+
+        def ssm_states(n_layers):
+            return {
+                "ssm": ParamDef(
+                    (n_layers, batch, cfg.ssm_ngroups,
+                     cfg.ssm_heads // cfg.ssm_ngroups,
+                     cfg.ssm_headdim, cfg.ssm_state),
+                    ("layers", "batch", None, "act_heads", None, None),
+                    dtype="float32"),
+                "conv": ParamDef(
+                    (n_layers, batch, cfg.ssm_conv - 1, cfg.conv_dim),
+                    ("layers", "batch", None, "conv_dim")),
+            }
+
+        fam = cfg.family
+        if fam in ("dense", "moe"):
+            return kv(cfg.num_layers)
+        c = ssm_states(cfg.num_layers)
+        if fam == "hybrid":
+            shared = kv(cfg.num_layers // cfg.attn_every)
+            c["shared_k"], c["shared_v"] = shared["k"], shared["v"]
+        return c
+
+    @staticmethod
+    def clear_slot(cache: Dict, slot: int) -> None:
+        """Zero batch row ``slot`` of the cache's recurrent state
+        (``ssm``, ``conv``), in place, so a request admitted to the slot
+        starts from the zero state a prefill starts from.  KV rows need
+        nothing: decode attention masks every position past the row's
+        cache index."""
+        for name in ("ssm", "conv"):
+            if name in cache:
+                cache[name][:, slot].zero_()
 
     def init_cache(self, batch: int, seq: int, device=None) -> Dict:
         """A zero cache of :meth:`cache_defs` on ``device`` (default

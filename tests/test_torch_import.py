@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` imports and runs with ``jax`` and
 the reference package made unimportable — every module of it, the MVE path
 (fused and VM), the targets, timing and silicon models, the optimizer, the
-program server, and the LM slice (prefill, decode, the serving engine) —
+program server, the LM slice (prefill, decode, the serving engine) for
+the dense, moe, ssm and hybrid families, and the ``nn`` block zoo —
 and importing it neither builds nor loads a CUDA kernel.  The VM's, the
 targets' and the scheduler's entry points default to ``cuda``.  A new
 module of the port (or a port benchmark or example) that imports ``jax``
@@ -50,11 +51,15 @@ for needed in ("repro_torch.configs", "repro_torch.core.packing",
                "repro_torch.opt.verify", "repro_torch.opt.tune",
                "repro_torch.resilience.errors", "repro_torch.resilience.faults",
                "repro_torch.resilience.breaker", "repro_torch.resilience.audit",
-               "repro_torch.runtime.health", "repro_torch.runtime.scheduler"):
+               "repro_torch.runtime.health", "repro_torch.runtime.scheduler",
+               "repro_torch.nn", "repro_torch.nn.ops",
+               "repro_torch.nn.kernels", "repro_torch.nn.blocks", "repro_torch.models.moe",
+               "repro_torch.models.ssm"):
     assert needed in mods, needed
 # the VM, the targets and the silicon model run too
 from repro_torch import targets
 from repro_torch.core import cost, engine
+engine_mod = engine
 from repro_torch.core.machine import MVEConfig
 vm_mem, vm_state = engine.compile_program(run.program, mode="vm",
                                           device="cpu").run(run.memory)
@@ -105,6 +110,20 @@ assert torch.isfinite(logits.float()).all()
 engine = ContinuousBatchingEngine(cfg, params, 2, 16, device="cpu")
 engine.submit(Request(rid=0, prompt=np.arange(1, 4), max_new_tokens=2))
 assert len(engine.run_until_drained()[0].output) == 2
+# the nn zoo and the moe / ssm / hybrid families too
+from repro_torch.nn import BLOCK_KERNELS, model_blocks
+blk = BLOCK_KERNELS["ssm_scan"](n_state=8, d_inner=16)
+blk.check(engine_mod.compile_program(blk.program, device="cpu").run(
+    blk.memory)[0])
+assert len(model_blocks(quick=True)) == 7
+for arch in ("llama4-scout-17b-a16e", "mamba2-2.7b", "zamba2-2.7b"):
+    cfg = dataclasses.replace(get_config(arch, reduced=True), num_layers=2)
+    model = LM(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device="cpu")
+    eng = ContinuousBatchingEngine(cfg, params, 2, 16, device="cpu")
+    eng.submit(Request(rid=0, prompt=np.arange(1, 4), max_new_tokens=2))
+    assert len(eng.run_until_drained()[0].output) == 2
 assert not _build._LIBS
 assert not any(m == "jax" or m.startswith("jax.") or m == "repro"
                or m.startswith("repro.") for m in sys.modules

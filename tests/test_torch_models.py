@@ -148,10 +148,11 @@ def test_per_row_cache_index_equals_scalar(slice_models):
     assert torch.equal(a, b) and torch.equal(cache["k"], other["k"])
 
 
-DENSE_ARCHS = [a for a in ARCH_IDS if get_config(a).family in PORTED_FAMILIES]
+PORTED_ARCHS = [a for a in ARCH_IDS
+                if get_config(a).family in PORTED_FAMILIES]
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_param_tree_names_and_shapes_match_the_reference(arch):
     ref_tree = RefLM(ref_get_config(arch, reduced=True)).abstract_params()
     tree = LM(get_config(arch, reduced=True)).abstract_params()
@@ -182,7 +183,7 @@ def test_configs_equal_the_reference():
 
 
 @pytest.mark.parametrize(
-    "arch", [a for a in ARCH_IDS if a not in DENSE_ARCHS])
+    "arch", [a for a in ARCH_IDS if a not in PORTED_ARCHS])
 def test_other_families_say_they_are_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LM(get_config(arch, reduced=True))
