@@ -33,9 +33,15 @@ non-zero:
    on the reference's test shapes
    (fp32 and bf16), a bf16 view that is not 16-byte aligned, and at
    qwen2-0.5b's prefill shapes (4 x 14 q heads over 2 kv heads, S = 1024
-   and 1025, D = 64, and D = 128 in bf16), fp32 within 3e-5 on the test
-   shapes and 1e-4 on the prefill shapes, bf16 within one bf16 rounding
-   step of the output (rtol 1e-2, atol 8e-3);
+   and 1025, D = 64, and D = 128 in bf16), and at the vlm and encdec
+   families' shapes (``FAMILY_SHAPES``: llama-3.2-vision's causal self
+   attention and its non-causal cross layers, 4 x 32 q heads over 8 kv
+   heads, D = 128, S = 1024 over 1024 image tokens; whisper-base's
+   non-causal encoder over 1500 frames, its causal decoder self attention
+   over 384 tokens and its cross attention from them; both decode-cross
+   shapes at one query row), fp32 within 3e-5 on the test shapes and 1e-4
+   on the prefill and family shapes, bf16 within one bf16 rounding step of the output (rtol 1e-2,
+   atol 8e-3);
    the int8 and bit-plane products bit for bit on the reference's test
    shapes, qwen2-0.5b's MLP shape (x 4096x896 @ w 896x4864) and a
    16 x 131104 @ 131104 x 16 product whose int32 sums wrap (x = w = -128,
@@ -46,7 +52,10 @@ non-zero:
    work; the gather at the ``transpose`` pattern's load walk and at a
    contiguous and a replicating walk, the scatter at the pattern's store
    walk and at one walk of each other route, the float32 flash kernel
-   beside the bf16 one.  ``float_ops`` (the MVE float arithmetic and
+   beside the bf16 one (its bound at the fp32 CUDA-core peak), and each
+   of ``FAMILY_SHAPES`` in bf16 and fp32 beside
+   ``scaled_dot_product_attention`` and its bound.  ``float_ops`` (the MVE
+   float arithmetic and
    float32 <-> float16 conversions with x86's NaN and denormal bits, ROADMAP
    C7): add/sub/mul of float32 and float16 and both conversions on random
    bit patterns (NaNs with payloads, signalling, infinities, denormals)
@@ -124,18 +133,29 @@ non-zero:
    stream (``benchmarks/torch_serving_bench.lm_block_stream``, 26
    requests) through ``MVEScheduler`` on ``cuda``, every ticket bit-equal
    to the CPU stepwise run and passing its block's check.
-5b. ``lm_families`` — LM serving for the ``ssm``, ``hybrid`` and ``moe``
-   families at their published widths, random bf16 weights drawn on the
-   card: mamba2-2.7b (all 64 layers), zamba2-2.7b (all 54; its head_dim of
-   80 takes the plain attention route, no flash) and llama4-scout-17b-a16e
-   (4 of 48 layers: the whole model is 215 GB in bf16).  Each as 5: a
-   4 x 1024 prefill (llama4: 4 flash launches), decode against prefill
-   one token longer in float32 within 1e-3 (llama4 with capacity for every
-   token: capacity_factor = num_experts, so neither drops one), 16 greedy
-   decode steps at B = 4, and the 4-slot engine, its 8 requests each held
-   against a one-slot engine; right after each admission the slot's
-   recurrent state (``ssm``, ``conv``) must be all zero, and a reused slot
-   must have held its last request's state just before (ROADMAP C9).
+5b. ``lm_families`` — LM serving for the ``ssm``, ``hybrid``, ``moe``,
+   ``vlm`` and ``encdec`` families at their published widths, random bf16
+   weights drawn on the card: mamba2-2.7b (all 64 layers), zamba2-2.7b
+   (all 54; its head_dim of 80 takes the plain attention route, no
+   flash), llama4-scout-17b-a16e (4 of 48 layers: the whole model is 215
+   GB in bf16), llama-3.2-vision-11b (all 40 layers and 8 gated cross
+   layers, the gates set to ``VLM_GATE``: declared zero, they would add
+   nothing) and whisper-base (6 + 6 layers).  Each as 5: a 4 x 1024
+   prefill (whisper: 384 tokens; the vision model's 4 x 1024 image
+   embeddings and whisper's 4 x 1500 frames drawn at the shapes
+   ``models/specs.py`` declares), the flash launches per prefill and per
+   decode step exact (llama4 4 and 0, vision 48 and 8, whisper 18 and 6:
+   every cross attention, in decode at one query row, takes the kernel),
+   the declared cache shapes (``cross_k``/``cross_v`` too), decode
+   against prefill one token longer in float32 within 1e-3 (llama4 with
+   capacity for every token: capacity_factor = num_experts, so neither
+   drops one), 16 greedy decode steps at B = 4, and the 4-slot engine,
+   its 8 requests each held against a one-slot engine; right after each
+   admission the slot's recurrent state (``ssm``, ``conv``) must be all
+   zero, and a reused slot must have held its last request's state just
+   before (ROADMAP C9); the engine's cross caches stay zero, as the
+   reference's (ROADMAP C10).  In 5 and 5b a CUDA tensor reaching the
+   plain flash version fails the run.
 7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -152,6 +172,7 @@ prints no result line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -167,6 +188,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device-memory rate (data sheet)
 BF16_FLOPS = 989e12            # dense tensor-core peaks (data sheet)
 INT8_OPS = 1979e12
+FP32_FLOPS = 67e12             # float32 outside the tensor cores (data sheet)
 KERNELS = {                    # name: (CUDA source, the TPU kernel replaced)
     "mdgather": ("mdgather", "src/repro/kernels/mdgather.py:33"),
     "mdscatter": ("mdscatter", "src/repro/kernels/mdscatter.py:24"),
@@ -664,21 +686,36 @@ FLASH_FP32_PATH_TOL = dict(rtol=1e-4, atol=1e-4)  # 1024-long fp32 sums
 FLASH_BF16_TOL = dict(rtol=1e-2, atol=8e-3)
 # qwen2-0.5b prefill: 4 requests x 1024 tokens, 14 q heads over 2 kv heads
 LM_BATCH, LM_SEQ, Q_HEADS, KV_HEADS, HEAD_DIM = 4, 1024, 14, 2, 64
+# the shapes of the vlm and encdec families' serving, (B, H, Hkv, Sq, Sk, D,
+# causal): llama-3.2-vision-11b's self attention and its cross layers over
+# 1024 image tokens (prefill, and decode at one query row), whisper-base's
+# encoder over 1500 frames, its decoder's self attention over a 384-token
+# prompt and its cross attention (prefill, and decode)
+FAMILY_SHAPES = {
+    "vision_self": (LM_BATCH, 32, 8, 1024, 1024, 128, True),
+    "vision_cross": (LM_BATCH, 32, 8, 1024, 1024, 128, False),
+    "whisper_encoder": (LM_BATCH, 8, 8, 1500, 1500, 64, False),
+    "whisper_self": (LM_BATCH, 8, 8, 384, 384, 64, True),
+    "whisper_cross": (LM_BATCH, 8, 8, 384, 1500, 64, False),
+    "vision_decode_cross": (LM_BATCH, 32, 8, 1, 1024, 128, False),
+    "whisper_decode_cross": (LM_BATCH, 8, 8, 1, 1500, 64, False),
+}
 GEMM_SHAPES = [(8, 16, 8), (128, 128, 128), (100, 60, 200), (130, 96, 257)]
 MLP_SHAPE = (LM_BATCH * LM_SEQ, 896, 4864)       # x (M, K) @ w (K, N)
 WRAP_SHAPE = (16, 131104, 16)       # 16384 * K > 2**31: int32 sums wrap
 
 
-def flash_bound(b, h, hk, sq, sk, d, elem, causal=True):
+def flash_bound(b, h, hk, sq, sk, d, elem, causal=True, peak=BF16_FLOPS):
     """Least time for one attention call: the larger of its operations (two
-    products over the visible (q, k) pairs, at the bf16 tensor-core peak)
-    and its bytes (q, k, v read once, o written once; k/v have ``hk``
-    heads) over the memory rate."""
+    products over the visible (q, k) pairs, at ``peak``: the bf16
+    tensor-core peak, or ``FP32_FLOPS`` for the float32 kernel, which runs
+    on the CUDA cores by design) and its bytes (q, k, v read once, o
+    written once; k/v have ``hk`` heads) over the memory rate."""
     rows = np.arange(sq) + (sk - sq)
     pairs = int(np.clip(rows + 1, 0, sk).sum()) if causal else sq * sk
     flops = 4.0 * d * b * h * pairs
     nbytes = elem * d * (2 * b * h * sq + 2 * b * hk * sk)
-    by_ops, by_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops, by_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"
 
 
@@ -746,6 +783,13 @@ def check_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
                    for n in (Q_HEADS, KV_HEADS, KV_HEADS))
         flash_case(q, k, v, True, FLASH_BF16_TOL,
                    f"qwen2-0.5b heads, D=128, bf16 S={s}")
+    for name, (b, h, hk, sq, sk, d, causal) in FAMILY_SHAPES.items():
+        q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
+        k, v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda")
+                for _ in range(2))
+        flash_case(q, k, v, causal, FLASH_FP32_PATH_TOL, f"{name} fp32")
+        flash_case(*(x.to(torch.bfloat16) for x in (q, k, v)), causal,
+                   FLASH_BF16_TOL, f"{name} bf16")
 
     def gemm_case(name, got, want, what):
         nonlocal cases
@@ -791,6 +835,42 @@ def check_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
     return cases, worst, wrapped
 
 
+def time_family_shapes(ref, flash_attention, gen) -> dict:
+    """The flash kernel at each of ``FAMILY_SHAPES``: bf16 (``ms``, and
+    ``device_ms`` queued behind a sleep, so the device's own time shows
+    under a one-row call's host overhead) and float32, each beside
+    ``scaled_dot_product_attention`` with ``enable_gqa`` (timed only) and
+    its bound; the plain version in bf16."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, (b, h, hk, sq, sk, d, causal) in FAMILY_SHAPES.items():
+        q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
+        k, v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda")
+                for _ in range(2))
+        q16, k16, v16 = (x.bfloat16() for x in (q, k, v))
+        bound, by = flash_bound(b, h, hk, sq, sk, d, 2, causal=causal)
+        bound32, by32 = flash_bound(b, h, hk, sq, sk, d, 4, causal=causal,
+                                    peak=FP32_FLOPS)
+        out[name] = dict(
+            shape=f"q ({b}, {h}, {sq}, {d}), k/v ({b}, {hk}, {sk}, {d})",
+            causal=causal,
+            ms=time_ms(lambda: flash_attention(q16, k16, v16, causal=causal),
+                       50),
+            device_ms=device_ms(lambda: flash_attention(
+                q16, k16, v16, causal=causal), 50),
+            library_ms=time_ms(lambda: sdpa(q16, k16, v16, is_causal=causal,
+                                            enable_gqa=True), 50),
+            bound_ms=bound, bound_by=by,
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                q16, k16, v16, causal=causal), 5),
+            ms_fp32=time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                            10),
+            library_ms_fp32=time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                                 enable_gqa=True), 10),
+            bound_ms_fp32=bound32, bound_by_fp32=by32)
+    return out
+
+
 def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
     """Each LM kernel at its main-path shape: the kernel, its plain
     version, one PyTorch library call for the same function (timed only;
@@ -809,18 +889,26 @@ def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
     rows = {"flash_attention": dict(
         ms=time_ms(lambda: flash_attention(q, k, v), 50),
         ms_fp32=time_ms(lambda: flash_attention(q32, k32, v32), 10),
+        bound_ms_fp32=flash_bound(b, h, hk, s, s, d, 4, peak=FP32_FLOPS)[0],
+        library_ms_fp32=time_ms(lambda: sdpa(q32, k32, v32, is_causal=True,
+                                             enable_gqa=True), 10),
         ms_d128=time_ms(lambda: flash_attention(q128, k128, v128), 50),
         bound_ms_d128=flash_bound(b, h, hk, s, s, 128, 2)[0],
+        library_ms_d128=time_ms(lambda: sdpa(q128, k128, v128,
+                                             is_causal=True,
+                                             enable_gqa=True), 50),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), 5),
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                         enable_gqa=True), 50),
         library="torch.nn.functional.scaled_dot_product_attention "
                 "(is_causal, enable_gqa)",
         bound_ms=bound, bound_by=by,
+        cases=time_family_shapes(ref, flash_attention, gen),
         timed_at=f"bf16 q ({b}, {h}, {s}, {d}), k/v ({b}, {hk}, {s}, {d}), "
                  "causal (ms, the tensor-core kernel); the same in float32 "
-                 "(ms_fp32, the CUDA-core kernel) and in bf16 at D = 128 "
-                 "(ms_d128, bound_ms_d128)")}
+                 "(ms_fp32, the CUDA-core kernel; its bound at the fp32 "
+                 "CUDA-core peak) and in bf16 at D = 128 (ms_d128); cases: "
+                 "the vlm and encdec FAMILY_SHAPES")}
     m, kk, n = MLP_SHAPE
     x, w = randint8((m, kk), gen), randint8((kk, n), gen)
     try:                      # the library call only where it takes the shape
@@ -1075,13 +1163,15 @@ VM_HOSTED_TRAPS = ("nonfinite_to_int", "shifts", "rotates", "half_rounding",
 
 
 def _no_plain_version_on_cuda():
-    """Wrap the plain versions of ``mdgather``/``mdscatter_`` and of the
-    float ops where their wrappers call them, so that a CUDA tensor
-    reaching one raises; returns the restore function."""
-    from repro_torch.kernels import float_ops as f, mdgather as g, \
-        mdscatter as s
+    """Wrap the plain versions of ``mdgather``/``mdscatter_``, of the
+    float ops and of flash attention where their wrappers call them, so
+    that a CUDA tensor reaching one raises; returns the restore
+    function."""
+    from repro_torch.kernels import flash_attention as a, float_ops as f, \
+        mdgather as g, mdscatter as s
     names = ((g, "mdgather_ref"), (s, "mdscatter_ref"),
-             (f, "float_binary_ref"), (f, "float_convert_ref"))
+             (f, "float_binary_ref"), (f, "float_convert_ref"),
+             (a, "flash_attention_ref"))
     saved = [getattr(mod, name) for mod, name in names]
 
     def guard(fn):
@@ -1861,30 +1951,56 @@ def check_alone(cfg, params, request, output, noise):
     return f"parted at token {j} on a near-tie ({gap})"
 
 
-# (arch, layers run): every family at its published widths; llama4-scout's
-# 48 layers (107.8 B parameters, 215 GB in bf16) cut to 4 to fit one card.
-# The first row is phase `lm`, the others phase `lm_families`.
-FAMILIES = (("qwen2-0.5b", None), ("mamba2-2.7b", None),
-            ("zamba2-2.7b", None), ("llama4-scout-17b-a16e", 4))
+# (arch, layers run, prompt tokens): every family at its published widths;
+# llama4-scout's 48 layers (107.8 B parameters, 215 GB in bf16) cut to 4 to
+# fit one card; whisper's prompt inside its 448-token text context.  The
+# first row is phase `lm`, the others phase `lm_families`.
+FAMILIES = (("qwen2-0.5b", None, LM_SEQ), ("mamba2-2.7b", None, LM_SEQ),
+            ("zamba2-2.7b", None, LM_SEQ),
+            ("llama4-scout-17b-a16e", 4, LM_SEQ),
+            ("llama-3.2-vision-11b", None, LM_SEQ),
+            ("whisper-base", None, 384))
+# a vlm's cross layers add tanh(gate) times their output, and the gate is
+# declared zero: set it to this after init, or they add nothing
+VLM_GATE = 0.5
 
 
-def drive_family(arch, layers, flash_attention) -> dict:
+def flash_launches(cfg) -> tuple:
+    """Flash launches per prefill and per decode step: one per attention
+    layer whose head dim the kernel takes (zamba2's 80 takes the plain
+    route, as in the reference); decode self attention is plain, decode
+    cross attention (one query row) the kernel."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    if cfg.resolved_head_dim not in HEAD_DIMS:
+        return 0, 0
+    L = cfg.num_layers
+    cross = {"vlm": L // max(cfg.cross_attn_every, 1),
+             "encdec": L}.get(cfg.family, 0)
+    self_attn = {"ssm": 0, "hybrid": L // max(cfg.attn_every, 1),
+                 "encdec": cfg.encoder_layers + L}.get(cfg.family, L)
+    return self_attn + cross, cross
+
+
+def drive_family(arch, layers, seq, flash_attention) -> dict:
     """One LM at full width with seeded random bf16 weights drawn on the
-    card: a ``LM_BATCH`` x ``LM_SEQ`` prefill (one flash launch per
-    attention layer whose head dim is the kernel's), decode after a
-    prefill against prefill one token longer (bf16 recorded; float32 held
-    at ``LM_FP32_TOL``; an MoE with capacity for every token), a ``(B,)``
+    card: a ``LM_BATCH`` x ``seq`` prefill (a vlm's image embeddings, an
+    encdec's frames drawn at the shapes ``models/specs.py`` declares; the
+    flash launches of :func:`flash_launches`), decode after a prefill
+    against prefill one token longer (bf16 recorded; float32 held at
+    ``LM_FP32_TOL``; an MoE with capacity for every token), a ``(B,)``
     cache index bit-equal to the scalar one, ``DECODE_STEPS`` greedy
     decode steps, and a ``ContinuousBatchingEngine`` of ``ENGINE_SLOTS``
     answering ``ENGINE_REQUESTS`` requests (slots reused; each admitted
-    slot's recurrent state must be zero), every request held against a
-    one-slot engine."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    slot's recurrent state must be zero; the cross caches stay zero, as in
+    the reference's engine), every request held against a one-slot
+    engine."""
+    from repro_torch.configs import ShapeCell, get_config
     from repro_torch.launch.serve import ContinuousBatchingEngine, Request
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import LM
     from repro_torch.models.common import tree_leaves
+    from repro_torch.models.specs import prefill_batch_specs
 
     cfg = get_config(arch)
     if layers is not None:
@@ -1895,50 +2011,62 @@ def drive_family(arch, layers, flash_attention) -> dict:
         raise AssertionError(f"{arch} is not the shape timed: {cfg}")
     model = LM(cfg)
     torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()    # what earlier runs left
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    if "cross" in params:
+        params["cross"]["gate"].fill_(VLM_GATE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # each leaf is drawn in float32 before its cast: not the serving peak
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     leaves = tree_leaves(params)
     if any(p.device.type != "cuda" for _, p in leaves):
         raise AssertionError(f"{arch}: parameters off the card")
     n_params = sum(p.numel() for _, p in leaves)
     del leaves
     prefill, decode = make_prefill_step(model), make_decode_step(model)
-    b, s, vocab = LM_BATCH, LM_SEQ, cfg.vocab_size
+    b, vocab = LM_BATCH, cfg.vocab_size
     gen = torch.Generator(device="cuda").manual_seed(4)
-    tokens = torch.randint(1, vocab, (b, s + 2), generator=gen,
+    tokens = torch.randint(1, vocab, (b, seq + 2), generator=gen,
                            device="cuda")
+    # the vlm's image embeddings, the encdec's frames: bf16, as declared
+    specs, _ = prefill_batch_specs(cfg, ShapeCell("smoke", seq, b,
+                                                  "prefill"))
+    extras = {n: torch.randn(d.shape, generator=gen, device="cuda").to(
+        d.dtype) for n, d in specs.items() if d.dtype.is_floating_point}
 
-    def batch(n):
+    def batch(n, dtype=torch.bfloat16):
+        """The first ``n`` tokens, with the extra inputs in ``dtype`` (the
+        weights' type)."""
         pos = torch.arange(n, dtype=torch.int32, device="cuda")
-        return {"tokens": tokens[:, :n], "positions": pos.expand(b, n)}
+        return {"tokens": tokens[:, :n], "positions": pos.expand(b, n),
+                **{k: x.to(dtype) for k, x in extras.items()}}
 
+    want_prefill, want_step = flash_launches(cfg)
     before = flash_attention.launches
-    logits, cache = prefill(params, batch(s))
+    logits, cache = prefill(params, batch(seq))
     torch.cuda.synchronize()
     per_prefill = flash_attention.launches - before
-    # zamba2's head dim 80 takes the plain route, as in the reference
-    attn_layers = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
-                   "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}
-    if per_prefill != (attn_layers[cfg.family] if cfg.resolved_head_dim
-                       in HEAD_DIMS else 0):
+    if per_prefill != want_prefill:
         raise AssertionError(f"{arch}: prefill launched flash "
-                             f"{per_prefill} times")
-    want = {n: d.shape for n, d in model.cache_defs(b, s).items()}
+                             f"{per_prefill} times, not {want_prefill}")
+    want = {n: d.shape for n, d in model.cache_defs(b, seq).items()}
     got = {n: tuple(c.shape) for n, c in cache.items()}
     if (logits.shape != (b, cfg.padded_vocab) or not torch.isfinite(
             logits.float()).all() or got != want):
         raise AssertionError(f"{arch} prefill: logits {tuple(logits.shape)},"
                              f" cache {got} (declared {want})")
     t0 = time.perf_counter()
-    prefill(params, batch(s))
+    prefill(params, batch(seq))
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
 
     def pad(c, extra):
         """A copy of the cache with ``extra`` more positions in its KV
-        rows (the recurrent state has no sequence axis)."""
+        rows (the recurrent state and the cross caches have no sequence
+        axis to grow)."""
         return {n: (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, extra))
                     if extra and n in ("k", "v", "shared_k", "shared_v")
                     else x.clone()) for n, x in c.items()}
@@ -1955,11 +2083,12 @@ def drive_family(arch, layers, flash_attention) -> dict:
     cmp_prefill, cmp_decode = make_prefill_step(cmp), make_decode_step(cmp)
 
     def decode_vs_prefill(p):
-        _, c = cmp_prefill(p, batch(s))
+        dtype = p["embed"].dtype
+        _, c = cmp_prefill(p, batch(seq, dtype))
         c, err = pad(c, 2), 0.0
-        for t in (s, s + 1):
+        for t in (seq, seq + 1):
             got, c = cmp_decode(p, c, tokens[:, t:t + 1], t)
-            want, _ = cmp_prefill(p, batch(t + 1))
+            want, _ = cmp_prefill(p, batch(t + 1, dtype))
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"{arch} decode at {t}: non-finite")
             err = max(err, max_abs_err(got, want))
@@ -1980,27 +2109,33 @@ def drive_family(arch, layers, flash_attention) -> dict:
 
     # a (B,) cache index with every row at one position is the scalar call
     padded = pad(cache, DECODE_STEPS + 2)
-    a, _ = decode(params, pad(padded, 0), tokens[:, s:s + 1], s)
-    r, _ = decode(params, pad(padded, 0), tokens[:, s:s + 1],
-                  torch.full((b,), s, device="cuda"))
+    before = flash_attention.launches
+    a, _ = decode(params, pad(padded, 0), tokens[:, seq:seq + 1], seq)
+    torch.cuda.synchronize()
+    per_step = flash_attention.launches - before
+    r, _ = decode(params, pad(padded, 0), tokens[:, seq:seq + 1],
+                  torch.full((b,), seq, device="cuda"))
     if not torch.equal(bits(a), bits(r)):
         raise AssertionError(f"{arch}: (B,) cache index != scalar")
+    if per_step != want_step:
+        raise AssertionError(f"{arch}: a decode step launched flash "
+                             f"{per_step} times, not {want_step}")
     del a, r
 
     tok = logits[:, :vocab].argmax(dim=-1, keepdim=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(DECODE_STEPS):
-        step_logits, padded = decode(params, padded, tok, s + i)
+        step_logits, padded = decode(params, padded, tok, seq + i)
         tok = step_logits[:, :vocab].argmax(dim=-1, keepdim=True)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     if not torch.isfinite(step_logits.float()).all():
         raise AssertionError(f"{arch} greedy decode: non-finite logits")
     profiles = {
-        "prefill": device_profile(lambda: prefill(params, batch(s))),
+        "prefill": device_profile(lambda: prefill(params, batch(seq))),
         "decode_step": device_profile(lambda: decode(
-            params, padded, tok, s + DECODE_STEPS))}
+            params, padded, tok, seq + DECODE_STEPS))}
     del padded, cache
 
     rng = np.random.default_rng(5)
@@ -2020,6 +2155,10 @@ def drive_family(arch, layers, flash_attention) -> dict:
             len(q.output) != DECODE_STEPS for q in done.values()):
         raise AssertionError(f"{arch}: the engine did not answer every "
                              "request")
+    for name in ("cross_k", "cross_v"):
+        if name in engine.cache and engine.cache[name].any():
+            raise AssertionError(f"{arch}: the engine wrote its {name} "
+                                 "cache (the reference's never does)")
     reused = ENGINE_REQUESTS - ENGINE_SLOTS
     if (admissions["admitted"], admissions["reused"]) != (
             ENGINE_REQUESTS, reused) or (cfg.family in ("ssm", "hybrid")
@@ -2036,14 +2175,21 @@ def drive_family(arch, layers, flash_attention) -> dict:
              for q in requests}
     peak, steps = max(peak, torch.cuda.max_memory_allocated()), engine.steps
     del params, engine
+    # the engine and the admission check it holds refer to each other:
+    # collect the cycle, or this model's weights stay on the card into the
+    # next family's run
+    gc.collect()
     torch.cuda.empty_cache()
     return {
         "config": cfg.name, "family": cfg.family, "params": n_params,
         "layers": cfg.num_layers, "published_layers": get_config(
-            arch).num_layers, "init_seconds": init_s, "batch": b, "seq": s,
+            arch).num_layers, "init_seconds": init_s, "batch": b,
+        "seq": seq, "extra_inputs": {n: list(x.shape)
+                                     for n, x in extras.items()},
         "flash_launches_per_prefill": per_prefill,
+        "flash_launches_per_decode_step": per_step,
         "prefill_ms": prefill_s * 1e3,
-        "prefill_tokens_per_s": b * s / prefill_s,
+        "prefill_tokens_per_s": b * seq / prefill_s,
         "decode_vs_prefill_max_abs_err_bf16": bf16_err,
         "decode_vs_prefill_max_abs_err_fp32": fp32_err,
         "tolerance_fp32": LM_FP32_TOL,
@@ -2054,7 +2200,9 @@ def drive_family(arch, layers, flash_attention) -> dict:
         "engine_new_tokens": sum(len(q.output) for q in done.values()),
         "engine_steps": steps, "engine_seconds": engine_s,
         "admissions": admissions, "alone_vs_batched": alone,
-        "profiles": profiles, "max_memory_allocated_bytes": peak,
+        "profiles": profiles, "memory_allocated_at_start_bytes": at_start,
+        "max_memory_allocated_bytes_init": init_peak,
+        "max_memory_allocated_bytes": peak,
         "max_memory_allocated_bytes_fp32_pass": fp32_peak}
 
 
@@ -2217,14 +2365,19 @@ def main() -> int:
     emit("nn", seconds=time.perf_counter() - t0, launches=nn_counts,
          serving_lm=slm, **nn_checks)
     t0 = time.perf_counter()
-    lm, lm_counts = drive("LM", ("flash_attention",), drive_family,
-                          *FAMILIES[0], flash_attention)
-    emit("lm", seconds=time.perf_counter() - t0, launches=lm_counts, **lm)
-    t0 = time.perf_counter()
-    families, fam_counts = drive(
-        "lm_families", ("flash_attention",), lambda: {
-            arch: drive_family(arch, layers, flash_attention)
-            for arch, layers in FAMILIES[1:]})
+    restore = _no_plain_version_on_cuda()       # no flash on the plain path
+    try:
+        lm, lm_counts = drive("LM", ("flash_attention",), drive_family,
+                              *FAMILIES[0], flash_attention)
+        emit("lm", seconds=time.perf_counter() - t0, launches=lm_counts,
+             **lm)
+        t0 = time.perf_counter()
+        families, fam_counts = drive(
+            "lm_families", ("flash_attention",), lambda: {
+                arch: drive_family(arch, layers, seq, flash_attention)
+                for arch, layers, seq in FAMILIES[1:]})
+    finally:
+        restore()
     emit("lm_families", seconds=time.perf_counter() - t0,
          launches=fam_counts, families=families)
     quant, quant_counts = drive("quantized", ("int8_matmul",

@@ -20,7 +20,9 @@ another) and is updated in place by every step; per step one ``(B,)``
 vector of token ids comes back to the host.  A slot's recurrent state
 (the ``ssm`` and ``hybrid`` families) is zeroed when a request is admitted
 to it; the reference keeps the previous request's state there
-(ROADMAP.md, C9).
+(ROADMAP.md, C9).  The cross caches of the ``vlm`` and ``encdec`` families
+stay zero, as in the reference, whose ``Request`` carries no image or
+audio: the engine serves their decoders text-only (ROADMAP.md, C10).
 
 :class:`MVEProgramServer` is the second front door: concurrent MVE
 *program* requests served by the signature-batched scheduler

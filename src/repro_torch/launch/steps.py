@@ -10,6 +10,8 @@ from ..models.lm import LM
 
 
 def make_prefill_step(model: LM):
+    """``batch`` goes through whole: a vlm's ``image_embeds`` and an
+    encdec's ``frames`` beside the tokens (:mod:`..models.specs`)."""
     def prefill_step(params, batch):
         return model.prefill(params, batch)
     return prefill_step

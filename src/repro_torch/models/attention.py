@@ -35,13 +35,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk, kh = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(d)
 
+    # K/V of another type than q (a bfloat16 cache under float32 weights)
+    # meet q in the promoted type, as in the reference
+    dt = torch.promote_types(q.dtype, k.dtype)
     if segment_ids is None and d in HEAD_DIMS:
         # the flash route: (B,H,S,D) views, no copies; the kernel serves
         # q head h from kv head h // (Hq/K), which is the reference's
         # jnp.repeat of the kv heads
-        out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), causal=causal)
-        return out.transpose(1, 2)
+        out = kops.flash_attention(*(x.transpose(1, 2).to(dt)
+                                     for x in (q, k, v)), causal=causal)
+        return out.transpose(1, 2).to(q.dtype)
 
     g = hq // kh
     kr = k.repeat_interleave(g, dim=2) if g > 1 else k     # (B,Sk,Hq,D)
@@ -57,7 +60,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         c = qc.shape[1]
         # operands in the model type, products accumulated in f32 and then
         # rounded to it, as the reference's einsum does
-        logits = torch.einsum("bchd,bshd->bhcs", qc, kr)
+        logits = torch.einsum("bchd,bshd->bhcs", qc.to(dt), kr.to(dt))
         logits = logits.float() * scale
         valid = torch.ones(b, 1, c, sk, dtype=torch.bool, device=q.device)
         if causal:

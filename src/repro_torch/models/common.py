@@ -1,5 +1,5 @@
 """Shared model components: parameter declaration trees, norms, RoPE,
-activations.
+sinusoidal positions, activations.
 
 Parameters are declared as :class:`ParamDef` leaves of plain nested dicts
 carrying *logical* sharding axes (kept so the trees match the reference's;
@@ -89,17 +89,23 @@ def materialize_tree(tree, generator: torch.Generator, device=None):
             return torch.ones(d.shape, dtype=dt, device=dev)
         x = torch.randn(d.shape, generator=generator, device=gen_dev,
                         dtype=torch.float32)
-        x = x * (d.scale * 0.1 if d.init == "small" else d.scale)
+        x.mul_(d.scale * 0.1 if d.init == "small" else d.scale)
         return x.to(device=dev, dtype=dt)
 
-    flat = {path: make(d) for path, d in tree_leaves(tree)}
+    return _unflatten(tree, {path: make(d) for path, d in tree_leaves(tree)})
 
-    def rebuild(node, prefix=""):
-        if is_def(node):
-            return flat[prefix]
-        return {k: rebuild(v, f"{prefix}/{k}" if prefix else k)
-                for k, v in node.items()}
-    return rebuild(tree)
+
+def _unflatten(node, flat, prefix=""):
+    """``node``'s structure with its leaves taken from ``flat`` by path.
+    A module-level function, not a closure: a nested function that calls
+    itself is a reference cycle, which would keep every tensor of ``flat``
+    alive until the garbage collector ran, even after a caller replaced
+    them (a full-width model cast to float32 leaf by leaf would hold both
+    copies)."""
+    if is_def(node):
+        return flat[prefix]
+    return {k: _unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
+            for k, v in node.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +117,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Statistics in float32 (biased variance), the affine step in the
+    input's type, as the reference's.  No model of either package calls
+    it; it is carried over with the module."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
 
 
 def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -1,5 +1,8 @@
-"""Model assembly: the :class:`LM` object of the reference, for the dense
-(GQA transformer), MoE, SSM (Mamba2) and hybrid (zamba2) families.
+"""Model assembly: the :class:`LM` object of the reference, for all six
+families: dense (GQA transformer), MoE, SSM (Mamba2), hybrid (zamba2
+shared blocks), vlm (gated cross attention to image embeddings every
+``cross_attn_every`` layers) and encdec (whisper: an encoder over audio
+frames, a decoder with cross attention to it).
 
 One :class:`LM` per config exposes
 
@@ -9,20 +12,26 @@ One :class:`LM` per config exposes
   * ``decode_step(params, cache, tokens, cache_index)``,
   * ``cache_defs(batch, seq)``.
 
-Prefill attention runs the hand-written flash kernel where the head dim
-allows it (64 or 128: qwen2, llama4-scout; zamba2's 80 takes the plain
-chunked route, as in the reference).  A model of the ``vlm`` or
-``encdec`` family and the training ``loss`` raise
-``NotImplementedError``: they are later slices of the port (ROADMAP.md,
-queue A), each bringing its parameter declarations with it.  The
-reference's scanned layer stacks are Python loops over the stacked
-``(L, ...)`` parameters.  ``decode_step`` updates the cache in place: the
-KV rows and the recurrent (``ssm``, ``conv``) state alike.
+Prefill attention, the whisper encoder's and every cross attention (in
+decode too, at one query row) run the hand-written flash kernel where the
+head dim allows it (64 or 128: qwen2, llama4-scout, the vision model,
+whisper; zamba2's 80 takes the plain chunked route, as in the reference).
+The training ``loss`` raises ``NotImplementedError``: it is the next slice
+of the port (ROADMAP.md, queue A).  The reference's scanned layer stacks
+are Python loops over the stacked ``(L, ...)`` parameters.
+``decode_step`` updates the cache in place: the KV rows and the recurrent
+(``ssm``, ``conv``) state alike; the cross caches are only read.
+
+Prefill projects the image embeddings or the encoder output to the cross
+K/V once, into the stacked caches it returns, and the cross layers read
+them there; the reference projects them twice, in the layer and again for
+the cache (ROADMAP.md, "Deliberate divergences").
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,11 +39,13 @@ from ..configs.base import ModelConfig
 from ..core.machine import resolve_device
 from .attention import chunked_attention, decode_attention, update_cache
 from .common import (DTYPES, ParamDef, abstract_tree, activation_fn,
-                     axes_tree, materialize_tree, rmsnorm, rope)
+                     axes_tree, materialize_tree, rmsnorm, rope,
+                     sinusoidal_positions)
 from .moe import moe_ffn
 from .ssm import mamba_block
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+POSITION_TABLE = 8192          # encdec token positions are clipped into it
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -47,22 +58,27 @@ def _not_ported(what: str) -> NotImplementedError:
 # Parameter declarations (as in the reference)
 # ---------------------------------------------------------------------------
 
-def _attn_defs(cfg: ModelConfig, L: int) -> Dict:
+def _attn_defs(cfg: ModelConfig, L: int, gated: bool = False,
+               kv_in: Optional[int] = None) -> Dict:
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     nq = cfg.num_heads * hd
     nkv = cfg.num_kv_heads * hd
+    kv_in = kv_in or d
     p = {
         "norm": ParamDef((L, d), ("layers", None), init="ones"),
         "wq": ParamDef((L, d, nq), ("layers", "embed", "heads")),
-        "wk": ParamDef((L, d, nkv), ("layers", "embed", "kv")),
-        "wv": ParamDef((L, d, nkv), ("layers", "embed", "kv")),
+        "wk": ParamDef((L, kv_in, nkv), ("layers", "embed", "kv")),
+        "wv": ParamDef((L, kv_in, nkv), ("layers", "embed", "kv")),
         "wo": ParamDef((L, nq, d), ("layers", "heads", "embed")),
     }
     if cfg.qkv_bias:
         p["bq"] = ParamDef((L, nq), ("layers", "heads"), init="zeros")
         p["bk"] = ParamDef((L, nkv), ("layers", "kv"), init="zeros")
         p["bv"] = ParamDef((L, nkv), ("layers", "kv"), init="zeros")
+    if gated:
+        # tanh(0) = 0: a gated layer adds nothing until its gate is trained
+        p["gate"] = ParamDef((L,), ("layers",), init="zeros")
     return p
 
 
@@ -129,7 +145,7 @@ def _ssm_defs(cfg: ModelConfig, L: int) -> Dict:
 
 def build_param_defs(cfg: ModelConfig) -> Dict:
     if cfg.family not in PORTED_FAMILIES:
-        raise _not_ported(f"the {cfg.family!r} family")
+        raise ValueError(f"unknown family {cfg.family}")
     d, v = cfg.d_model, cfg.padded_vocab
     L = cfg.num_layers
     defs = {
@@ -138,19 +154,30 @@ def build_param_defs(cfg: ModelConfig) -> Dict:
         "lm_head": ParamDef((d, v), ("embed", "vocab")),
     }
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         defs["blocks"] = {"attn": _attn_defs(cfg, L),
                           "mlp": _mlp_defs(cfg, L)}
+        if fam == "vlm":
+            defs["cross"] = _attn_defs(cfg, L // cfg.cross_attn_every,
+                                       gated=True)
     elif fam == "moe":
         defs["blocks"] = {"attn": _attn_defs(cfg, L),
                           "moe": _moe_defs(cfg, L)}
     elif fam == "ssm":
         defs["blocks"] = _ssm_defs(cfg, L)
-    else:                                               # hybrid
+    elif fam == "hybrid":
         defs["blocks"] = _ssm_defs(cfg, L)
         nb = cfg.num_shared_blocks
         defs["shared"] = {"attn": _attn_defs(cfg, nb),
                           "mlp": _mlp_defs(cfg, nb)}
+    else:                                               # encdec
+        le = cfg.encoder_layers
+        defs["enc_blocks"] = {"attn": _attn_defs(cfg, le),
+                              "mlp": _mlp_defs(cfg, le)}
+        defs["enc_norm"] = ParamDef((d,), (None,), init="ones")
+        defs["blocks"] = {"attn": _attn_defs(cfg, L),
+                          "cross": _attn_defs(cfg, L),
+                          "mlp": _mlp_defs(cfg, L)}
     return defs
 
 
@@ -158,18 +185,23 @@ def build_param_defs(cfg: ModelConfig) -> Dict:
 # Layer applications
 # ---------------------------------------------------------------------------
 
+def _proj_q(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    return q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+
+
 def _proj_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
-    if "bq" in p:
-        q = q + p["bq"]
+    if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
-    return (q.reshape(b, s, cfg.num_heads, hd),
-            k.reshape(b, s, cfg.num_kv_heads, hd),
+    return (_proj_q(cfg, p, x), k.reshape(b, s, cfg.num_kv_heads, hd),
             v.reshape(b, s, cfg.num_kv_heads, hd))
 
 
@@ -179,7 +211,8 @@ def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
     """Returns (h_out, (k_cache, v_cache) | prefill kv)."""
     x = rmsnorm(h, p["norm"], cfg.norm_eps)
     q, k, v = _proj_qkv(cfg, p, x)
-    if positions is not None:
+    if cfg.family != "encdec" and positions is not None:
+        # whisper's positions are the sinusoidal table added at the embedding
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     if mode == "decode":
@@ -194,6 +227,44 @@ def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
     b, s = h.shape[:2]
     h = h + out.reshape(b, s, -1) @ p["wo"]
     return h, side
+
+
+def _cross_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
+                     cached_kv: Tuple[torch.Tensor, torch.Tensor],
+                     gated: bool = False) -> torch.Tensor:
+    """Non-causal attention of ``h`` over another sequence (image
+    embeddings, the encoder output) whose K/V ``cached_kv`` (each ``(B, T,
+    K, D)``) ``_cross_kv_from`` projected.  A gated layer scales its output
+    by ``tanh(gate)``."""
+    x = rmsnorm(h, p["norm"], cfg.norm_eps)
+    q, (k, v) = _proj_q(cfg, p, x), cached_kv
+    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    b, s = h.shape[:2]
+    delta = out.reshape(b, s, -1) @ p["wo"]
+    if gated:
+        delta = delta * torch.tanh(p["gate"]).to(delta.dtype)
+    return h + delta
+
+
+def _cross_kv_from(cfg: ModelConfig, p_stack: Dict, src: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stacked cross K/V caches of every layer of ``p_stack`` over
+    ``src`` (B, T, d): each (L, B, T, K, D)."""
+    hd = cfg.resolved_head_dim
+    k = torch.einsum("btd,ldh->lbth", src, p_stack["wk"])
+    v = torch.einsum("btd,ldh->lbth", src, p_stack["wv"])
+    if "bk" in p_stack:
+        k = k + p_stack["bk"][:, None, None, :]
+        v = v + p_stack["bv"][:, None, None, :]
+    lc, b, t, _ = k.shape
+    return (k.reshape(lc, b, t, cfg.num_kv_heads, hd),
+            v.reshape(lc, b, t, cfg.num_kv_heads, hd))
+
+
+@functools.lru_cache(maxsize=8)
+def _position_table(length: int, d: int, device: torch.device
+                    ) -> torch.Tensor:
+    return sinusoidal_positions(length, d, device=device)
 
 
 def _mlp(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
@@ -236,16 +307,36 @@ class LM:
         return materialize_tree(self.defs, generator, resolve_device(device))
 
     # ---- embedding ----
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens]
+    def _embed(self, params, tokens: torch.Tensor,
+               positions=None) -> torch.Tensor:
+        h = params["embed"][tokens]
+        if self.cfg.family == "encdec" and positions is not None:
+            table = _position_table(POSITION_TABLE, self.cfg.d_model,
+                                    h.device)
+            h = h + table[positions.clamp(0, POSITION_TABLE - 1).long()
+                          ].to(h.dtype)
+        return h
 
     # ---- backbones ----
     def _transformer_stack(self, params, h, positions, segment_ids, mode,
-                           cache=None, cache_index=None):
+                           cache=None, cache_index=None, cross_kv=None):
+        """dense, moe and vlm.  A vlm applies its gated cross layer
+        ``i // every`` before self attention in every layer ``i`` with
+        ``i % every == 0``, over ``cross_kv`` (the stacked caches prefill
+        made) or, in decode, the cache's ``cross_k`` / ``cross_v``."""
         cfg = self.cfg
+        every = cfg.cross_attn_every
+        if mode == "decode" and every:
+            cross_kv = (cache["cross_k"], cache["cross_v"])
         ks, vs = [], []
         for i in range(cfg.num_layers):
             p = _layer(params["blocks"], i)
+            if every and i % every == 0:
+                ci = i // every
+                h = _cross_attention(cfg, _layer(params["cross"], ci), h,
+                                     cached_kv=(cross_kv[0][ci],
+                                                cross_kv[1][ci]),
+                                     gated=True)
             cache_kv = ((cache["k"][i], cache["v"][i]) if mode == "decode"
                         else None)
             h, (k, v) = _self_attention(cfg, p["attn"], h, positions,
@@ -315,33 +406,92 @@ class LM:
         return h, {**self._stacked_states(states),
                    "shared_k": torch.stack(ks), "shared_v": torch.stack(vs)}
 
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder: the frames plus the sinusoidal table, then
+        ``encoder_layers`` blocks of non-causal self attention (no RoPE)
+        and MLP, then ``enc_norm``."""
+        cfg = self.cfg
+        table = _position_table(cfg.num_frames, cfg.d_model, frames.device)
+        h = frames + table[None, :frames.shape[1]].to(frames.dtype)
+        for i in range(cfg.encoder_layers):
+            p = _layer(params["enc_blocks"], i)
+            h, _ = _self_attention(cfg, p["attn"], h, None, None, "encode",
+                                   causal=False)
+            h = _mlp(cfg, p["mlp"], h)
+        return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+    def _encdec_stack(self, params, h, positions, mode, cross_kv=None,
+                      cache=None, cache_index=None):
+        """Whisper's decoder: per layer, causal self attention, cross
+        attention over the encoder output's K/V (``cross_kv`` from prefill,
+        or the cache's ``cross_k`` / ``cross_v`` in decode), MLP."""
+        cfg = self.cfg
+        if mode == "decode":
+            cross_kv = (cache["cross_k"], cache["cross_v"])
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            p = _layer(params["blocks"], i)
+            cache_kv = ((cache["k"][i], cache["v"][i]) if mode == "decode"
+                        else None)
+            h, (k, v) = _self_attention(cfg, p["attn"], h, positions, None,
+                                        mode, cache_kv=cache_kv,
+                                        cache_index=cache_index)
+            h = _cross_attention(cfg, p["cross"], h,
+                                 cached_kv=(cross_kv[0][i], cross_kv[1][i]))
+            h = _mlp(cfg, p["mlp"], h)
+            ks.append(k)
+            vs.append(v)
+        if mode == "decode":
+            return h, cache                       # updated in place
+        return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
     def _backbone(self, params, tokens, positions, segment_ids, mode,
-                  cache=None, cache_index=None):
-        h = self._embed(params, tokens)
-        fam = self.cfg.family
-        if fam in ("dense", "moe"):
+                  cache=None, cache_index=None, image_embeds=None,
+                  frames=None):
+        cfg = self.cfg
+        h = self._embed(params, tokens, positions)
+        fam = cfg.family
+        cross_kv = None
+        if mode != "decode" and fam == "vlm":
+            cross_kv = _cross_kv_from(cfg, params["cross"], image_embeds)
+        elif mode != "decode" and fam == "encdec":
+            cross_kv = _cross_kv_from(cfg, params["blocks"]["cross"],
+                                      self._encode(params, frames))
+        if fam in ("dense", "moe", "vlm"):
             h, new_cache = self._transformer_stack(
                 params, h, positions, segment_ids, mode, cache=cache,
-                cache_index=cache_index)
+                cache_index=cache_index, cross_kv=cross_kv)
         elif fam == "ssm":
             h, new_cache = self._ssm_stack(params, h, mode, cache)
-        else:
+        elif fam == "hybrid":
             h, new_cache = self._hybrid_stack(
                 params, h, positions, segment_ids, mode, cache, cache_index)
-        return rmsnorm(h, params["final_norm"], self.cfg.norm_eps), new_cache
+        else:
+            h, new_cache = self._encdec_stack(
+                params, h, positions, mode, cross_kv=cross_kv, cache=cache,
+                cache_index=cache_index)
+        if cross_kv is not None and mode != "decode":
+            new_cache["cross_k"], new_cache["cross_v"] = cross_kv
+        return rmsnorm(h, params["final_norm"], cfg.norm_eps), new_cache
 
     def loss(self, params, batch):
         raise _not_ported("LM.loss (training)")
 
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """``batch``: ``tokens`` and ``positions`` (B, S), optional
-        ``segment_ids``.  Returns the last position's logits (B, V) and the
-        cache: ``{"k", "v"}`` of shape (L, B, S, K, D) (dense, moe), the
-        final recurrent state ``{"ssm", "conv"}`` per layer (ssm), or both
-        with the shared blocks' ``{"shared_k", "shared_v"}`` (hybrid)."""
+        ``segment_ids``; a vlm's ``image_embeds`` (B, T, d), an encdec's
+        ``frames`` (B, num_frames, d), in the parameters' type
+        (:mod:`~repro_torch.models.specs`).  Returns the last position's
+        logits (B, V) and the cache: ``{"k", "v"}`` of shape (L, B, S, K,
+        D) (dense, moe), with the stacked cross K/V ``{"cross_k",
+        "cross_v"}`` (vlm, encdec), the final recurrent state ``{"ssm",
+        "conv"}`` per layer (ssm), or both with the shared blocks'
+        ``{"shared_k", "shared_v"}`` (hybrid)."""
         h, cache = self._backbone(params, batch["tokens"],
                                   batch["positions"],
-                                  batch.get("segment_ids"), "prefill")
+                                  batch.get("segment_ids"), "prefill",
+                                  image_embeds=batch.get("image_embeds"),
+                                  frames=batch.get("frames"))
         return h[:, -1] @ params["lm_head"], cache
 
     def decode_step(self, params, cache, tokens, cache_index
@@ -369,8 +519,8 @@ class LM:
         cfg = self.cfg
         hd = cfg.resolved_head_dim if cfg.num_heads else 0
 
-        def kv(n_layers):
-            shape = (n_layers, batch, seq, cfg.num_kv_heads, hd)
+        def kv(n_layers, t=seq):
+            shape = (n_layers, batch, t, cfg.num_kv_heads, hd)
             axes = ("layers", "batch", "kv_seq", None, None)
             return {"k": ParamDef(shape, axes, dtype=cfg.kv_cache_dtype),
                     "v": ParamDef(shape, axes, dtype=cfg.kv_cache_dtype)}
@@ -391,6 +541,13 @@ class LM:
         fam = cfg.family
         if fam in ("dense", "moe"):
             return kv(cfg.num_layers)
+        if fam in ("vlm", "encdec"):
+            c = kv(cfg.num_layers)
+            cross = (kv(cfg.num_layers // cfg.cross_attn_every,
+                        cfg.num_image_tokens) if fam == "vlm"
+                     else kv(cfg.num_layers, cfg.num_frames))
+            c["cross_k"], c["cross_v"] = cross["k"], cross["v"]
+            return c
         c = ssm_states(cfg.num_layers)
         if fam == "hybrid":
             shared = kv(cfg.num_layers // cfg.attn_every)
@@ -403,7 +560,9 @@ class LM:
         (``ssm``, ``conv``), in place, so a request admitted to the slot
         starts from the zero state a prefill starts from.  KV rows need
         nothing: decode attention masks every position past the row's
-        cache index."""
+        cache index.  The cross rows (``cross_k``, ``cross_v``) are left as
+        they are: the engine never fills them, as the reference's does
+        not (ROADMAP.md, C10)."""
         for name in ("ssm", "conv"):
             if name in cache:
                 cache[name][:, slot].zero_()

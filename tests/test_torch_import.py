@@ -2,7 +2,8 @@
 the reference package made unimportable — every module of it, the MVE path
 (fused and VM), the targets, timing and silicon models, the optimizer, the
 program server, the LM slice (prefill, decode, the serving engine) for
-the dense, moe, ssm and hybrid families, and the ``nn`` block zoo —
+all six families (dense, moe, ssm, hybrid, vlm, encdec) with their input
+specs, and the ``nn`` block zoo —
 and importing it neither builds nor loads a CUDA kernel.  The VM's, the
 targets' and the scheduler's entry points default to ``cuda``.  A new
 module of the port (or a port benchmark or example) that imports ``jax``
@@ -54,7 +55,7 @@ for needed in ("repro_torch.configs", "repro_torch.core.packing",
                "repro_torch.runtime.health", "repro_torch.runtime.scheduler",
                "repro_torch.nn", "repro_torch.nn.ops",
                "repro_torch.nn.kernels", "repro_torch.nn.blocks", "repro_torch.models.moe",
-               "repro_torch.models.ssm"):
+               "repro_torch.models.ssm", "repro_torch.models.specs"):
     assert needed in mods, needed
 # the VM, the targets and the silicon model run too
 from repro_torch import targets
@@ -110,13 +111,15 @@ assert torch.isfinite(logits.float()).all()
 engine = ContinuousBatchingEngine(cfg, params, 2, 16, device="cpu")
 engine.submit(Request(rid=0, prompt=np.arange(1, 4), max_new_tokens=2))
 assert len(engine.run_until_drained()[0].output) == 2
-# the nn zoo and the moe / ssm / hybrid families too
+# the nn zoo and the moe / ssm / hybrid / vlm / encdec families too, and
+# a vlm / encdec prefill from the specs' inputs
 from repro_torch.nn import BLOCK_KERNELS, model_blocks
 blk = BLOCK_KERNELS["ssm_scan"](n_state=8, d_inner=16)
 blk.check(engine_mod.compile_program(blk.program, device="cpu").run(
     blk.memory)[0])
 assert len(model_blocks(quick=True)) == 7
-for arch in ("llama4-scout-17b-a16e", "mamba2-2.7b", "zamba2-2.7b"):
+for arch in ("llama4-scout-17b-a16e", "mamba2-2.7b", "zamba2-2.7b",
+             "llama-3.2-vision-11b", "whisper-base"):
     cfg = dataclasses.replace(get_config(arch, reduced=True), num_layers=2)
     model = LM(cfg)
     params = model.init_params(torch.Generator().manual_seed(0),
@@ -124,6 +127,15 @@ for arch in ("llama4-scout-17b-a16e", "mamba2-2.7b", "zamba2-2.7b"):
     eng = ContinuousBatchingEngine(cfg, params, 2, 16, device="cpu")
     eng.submit(Request(rid=0, prompt=np.arange(1, 4), max_new_tokens=2))
     assert len(eng.run_until_drained()[0].output) == 2
+    if cfg.family in ("vlm", "encdec"):
+        from repro_torch.configs import ShapeCell
+        from repro_torch.models.specs import prefill_batch_specs
+        specs, _ = prefill_batch_specs(cfg, ShapeCell("p", 4, 1, "prefill"))
+        batch = {n: torch.randn(d.shape).to(d.dtype)
+                 for n, d in specs.items() if d.dtype == torch.bfloat16}
+        batch.update(tokens=tokens[:, :4], positions=tokens[:, :4] - 1)
+        logits, cache = model.prefill(params, batch)
+        assert torch.isfinite(logits.float()).all() and "cross_k" in cache
 assert not _build._LIBS
 assert not any(m == "jax" or m.startswith("jax.") or m == "repro"
                or m.startswith("repro.") for m in sys.modules
