@@ -13,7 +13,8 @@ non-zero:
 1. ``device``  — ``torch.cuda`` must be available; the card's name and
    power limit as ``nvidia-smi`` gives them.
 2. ``build``   — every CUDA kernel (``mdgather``, ``mdscatter``,
-   ``flash_attention``, ``bitplane_gemm``, ``float_ops``) is built from
+   ``flash_attention``, ``flash_attention_bwd``, ``bitplane_gemm``,
+   ``float_ops``) is built from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
    compiler process per source, started together; ``cuobjdump`` counts the
    HMMA/IMMA instructions of each kernel, and the bf16 flash kernel and
@@ -62,7 +63,16 @@ non-zero:
    and every NaN case of the trap programs, at one image and at 1024 x
    8192 lanes, bit-equal to the plain version on the card and on the CPU;
    every float16 value widened; timed beside ``torch.add`` /
-   ``Tensor.to`` and the bytes bound.
+   ``Tensor.to`` and the bytes bound.  The flash backward
+   (``flash_attention_bwd``: ``D = rowsum(dO O)``, dK/dV, dQ) and the
+   forward kernel's ``lse`` against ``flash_attention_bwd_ref`` /
+   ``flash_attention_lse_ref`` on the same q, k, v, o, lse, dO, fp32 and
+   bf16, at ``FLASH_BWD_SWEEP`` (GQA, ragged Sq != Sk both ways, rows that
+   see no key) and the training shapes ``TRAIN_SHAPES`` (whisper-base's
+   encoder over 1500 frames and its cross attention from 384 tokens,
+   llama-3.2-vision's cross attention, GQA 4, qwen2-0.5b's causal self
+   attention, GQA 7); timed there beside its bound, the plain version and
+   the backward of ``scaled_dot_product_attention`` (timed only).
 4. ``path``    — the MVE main path at the Table IV geometry
    (``MVEConfig()``, 8192 lanes): every one of the 14 Section-IV patterns
    at its default size through ``compile_program(..., mode="fused").run``
@@ -135,8 +145,8 @@ non-zero:
    to the CPU stepwise run and passing its block's check.
 5b. ``lm_families`` — LM serving for the ``ssm``, ``hybrid``, ``moe``,
    ``vlm`` and ``encdec`` families at their published widths, random bf16
-   weights drawn on the card: mamba2-2.7b (all 64 layers), zamba2-2.7b
-   (all 54; its head_dim of 80 takes the plain attention route, no
+   weights drawn on the card: mamba2-2.7b (32 of 64 layers), zamba2-2.7b
+   (24 of 54; its head_dim of 80 takes the plain attention route, no
    flash), llama4-scout-17b-a16e (4 of 48 layers: the whole model is 215
    GB in bf16), llama-3.2-vision-11b (all 40 layers and 8 gated cross
    layers, the gates set to ``VLM_GATE``: declared zero, they would add
@@ -156,16 +166,32 @@ non-zero:
    before (ROADMAP C9); the engine's cross caches stay zero, as the
    reference's (ROADMAP C10).  In 5 and 5b a CUDA tensor reaching the
    plain flash version fails the run.
+5c. ``train`` — training at full width, random bf16 weights from a
+   seeded ``torch.Generator`` on the card.  qwen2-0.5b as published
+   through ``train_loop`` (8 x 1024 tokens from ``make_train_batches``,
+   fp32 moments, 6 steps, a checkpoint every 3), then 3 steps in a fresh
+   directory and a new ``train_loop`` call restarting from its checkpoint
+   to step 6: the final loss equal to the straight run's (bit for bit, or
+   within 5e-3: which is printed); finite loss, grad norm > 0, no flash
+   launch (packed batches carry segment ids); one more step profiled
+   (busy share, launches), peak memory, the checkpoint's save and restore
+   timed.  whisper-base (6 + 6 layers) through ``make_train_step``: 4
+   steps of 4 x 384 text tokens over 4 x 1500 frames, flash launches per
+   step exact (30 forward: 18 + the 12 of remat's recompute; 18
+   backward); one step profiled; a float32 copy of the first step at
+   batch 1 on the card against the same step on the CPU (loss within
+   1e-4, grad norm within 1e-3 relative; the worst gradient leaf
+   printed).  A CUDA tensor reaching a plain flash version fails the run.
 7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
-Phases 4, 4b, 4d, 4e, 4f, 5, 5b and 6 are the main paths: the launch
+Phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5c and 6 are the main paths: the launch
 counters of the kernels each runs are set to 0 just before it and read
 just after (4b: around the VM's runs alone, before they are compared; 4e:
 around the fault-free serving, not the chaos replays; 4f: around the card
 runs, after the CPU references); a kernel never launched there fails the
 run.  The kernels line's ``launches`` adds 4, 4b, 4d, 4e and 4f for the
-MVE kernels, 5 and 5b for flash attention.  Without a CUDA device, or
+MVE kernels, 5, 5b and 5c for flash attention, 5c for its backward.  Without a CUDA device, or
 without the rest of the checkout beside it, the script exits non-zero and
 prints no result line.
 """
@@ -174,6 +200,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -194,6 +221,10 @@ KERNELS = {                    # name: (CUDA source, the TPU kernel replaced)
     "mdscatter": ("mdscatter", "src/repro/kernels/mdscatter.py:24"),
     "flash_attention": ("flash_attention",
                         "src/repro/kernels/flash_attention.py:25"),
+    # no Pallas kernel stands behind the backward either: the line is the
+    # reference's checkpointed attention chunk, whose gradient JAX derives
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "src/repro/models/attention.py:105"),
     "int8_matmul": ("bitplane_gemm", "src/repro/kernels/bitplane_gemm.py:35"),
     "bitplane_matmul": ("bitplane_gemm",
                         "src/repro/kernels/bitplane_gemm.py:43"),
@@ -203,6 +234,7 @@ KERNELS = {                    # name: (CUDA source, the TPU kernel replaced)
     "float_convert": ("float_ops", "src/repro/core/interp.py:156"),
 }
 LANES = 8192
+CAPTURE_TRIES = 3      # profiler captures of one call, see device_ops
 BATCH = 1024
 SAMPLE = (0, BATCH // 2, BATCH - 1)
 
@@ -410,19 +442,27 @@ def check_kernels(ref, mdgather, mdscatter_):
     return cases, worst, gather_routes, routes
 
 
-def device_ops(fn) -> dict:
+def device_ops(fn) -> tuple[dict, int]:
     """``{name: count}`` of the device operations (kernels, memsets,
-    copies) one call of ``fn`` issues, under ``torch.profiler``."""
+    copies) one call of ``fn`` issues, under ``torch.profiler``, and the
+    number of calls made.  A capture that holds no device operation at all
+    is taken again, up to ``CAPTURE_TRIES`` calls: the profiler's CUDA
+    activity records can come back empty for a call of a few microseconds
+    that did launch (its route counter moved)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for calls in range(1, CAPTURE_TRIES + 1):
         torch.cuda.synchronize()
-    return {ev.key[:60]: ev.count for ev in prof.key_averages()
-            if getattr(ev, "self_device_time_total", 0.0)
-            and ev.device_type.name != "CPU"}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {ev.key[:60]: ev.count for ev in prof.key_averages()
+               if getattr(ev, "self_device_time_total", 0.0)
+               and ev.device_type.name != "CPU"}
+        if ops:
+            break
+    return ops, calls
 
 
 def check_scatter_launches(mdscatter_):
@@ -441,9 +481,9 @@ def check_scatter_launches(mdscatter_):
             mask = torch.rand(LANES, generator=gen, device="cuda") < 0.7
             mdscatter_(dst, vals, dims, strides, base, mask)
             before = mdscatter_.routes[route]
-            ops = device_ops(lambda: mdscatter_(dst, vals, dims, strides,
-                                                base, mask))
-            if mdscatter_.routes[route] != before + 1:
+            ops, calls = device_ops(lambda: mdscatter_(dst, vals, dims,
+                                                       strides, base, mask))
+            if mdscatter_.routes[route] != before + calls:
                 raise AssertionError(f"{dims} {strides} did not take the "
                                      f"{route} route")
             if route != "colliding" and (
@@ -451,7 +491,8 @@ def check_scatter_launches(mdscatter_):
                         "emset" in k or "mdscatter" not in k for k in ops)):
                 raise AssertionError(f"mdscatter {route} route, B={batch}: "
                                      f"device operations {ops}")
-            out[f"{route}, B={batch}"] = ops
+            out[f"{route}, B={batch}"] = (ops if calls == 1 else
+                                          {**ops, "captures": calls})
     return out
 
 
@@ -466,16 +507,17 @@ def check_gather_launches(mdgather):
             src = random_tensor(shape, torch.float32, gen)
             mdgather(src, dims, strides, base, lanes=LANES)
             before = mdgather.routes[route]
-            ops = device_ops(lambda: mdgather(src, dims, strides, base,
-                                              lanes=LANES))
-            if mdgather.routes[route] != before + 1:
+            ops, calls = device_ops(lambda: mdgather(src, dims, strides,
+                                                     base, lanes=LANES))
+            if mdgather.routes[route] != before + calls:
                 raise AssertionError(f"{dims} {strides} did not take the "
                                      f"{route} route")
             if sum(ops.values()) != 1 or any(
                     "emset" in k or "mdgather" not in k for k in ops):
                 raise AssertionError(f"mdgather {route} route, B={batch}: "
                                      f"device operations {ops}")
-            out[f"{tag} ({route}), B={batch}"] = ops
+            out[f"{tag} ({route}), B={batch}"] = (
+                ops if calls == 1 else {**ops, "captures": calls})
     return out
 
 
@@ -934,6 +976,153 @@ def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
     return rows
 
 
+# the training slice's flash backward: the test shapes, then the shapes its
+# main path and the slice's other models give it, (B, H, Hkv, Sq, Sk, D,
+# causal): whisper-base's encoder self attention over 1500 frames and its
+# cross attention from 384 text tokens, llama-3.2-vision's cross attention
+# over 1024 image tokens (GQA 4), qwen2-0.5b's causal self attention (GQA 7)
+FLASH_BWD_SWEEP = [(2, 4, 2, 40, 40, 64, True), (1, 6, 2, 17, 70, 64, True),
+                   (1, 6, 3, 33, 95, 128, False), (2, 2, 1, 70, 33, 64, True),
+                   (1, 4, 1, 65, 129, 128, True),
+                   (2, 3, 1, 200, 130, 128, True)]
+TRAIN_SHAPES = {
+    "whisper_encoder": (LM_BATCH, 8, 8, 1500, 1500, 64, False),
+    "whisper_cross": (LM_BATCH, 8, 8, 384, 1500, 64, False),
+    "vision_cross": (LM_BATCH, 32, 8, 1024, 1024, 128, False),
+    "qwen2_causal": (LM_BATCH, Q_HEADS, KV_HEADS, LM_SEQ, LM_SEQ, HEAD_DIM,
+                     True),
+}
+# dq, dk, dv against the plain backward on the same q, k, v, o, lse, dO:
+# both sum in fp32 and differ in the order of their sums (a few 1e-6 of the
+# largest entry measured in fp32), and in bf16 each side rounds its result
+# once, so within rtol and a share of the gradient's largest entry: fp32
+# 1e-4 of it; bf16 one bf16 step of each entry (rtol 1e-2) and 8e-3 of the
+# largest (the forward's bf16 limits, scaled to the gradient)
+FLASH_BWD_FP32_TOL = (1e-4, 1e-4)
+FLASH_BWD_BF16_TOL = (1e-2, 8e-3)
+LSE_TOL = 1e-4                  # |lse - plain lse| on rows that see a key
+
+
+def flash_bwd_bound(b, h, hk, sq, sk, d, elem, causal, peak=BF16_FLOPS):
+    """Least time for one backward: the five ``2 * D`` products of each
+    visible (q, k) pair (S and dP, dV, dK, dQ; the kernels recompute S and
+    dP in both passes, which is their cost, not the function's) at
+    ``peak``, or the bytes of q, k, v, o, dO and lse read once and dq, dk,
+    dv written once at the memory rate."""
+    rows = np.arange(sq) + (sk - sq)
+    pairs = int(np.clip(rows + 1, 0, sk).sum()) if causal else sq * sk
+    flops = 10.0 * d * b * h * pairs
+    nbytes = elem * d * (4 * b * h * sq + 4 * b * hk * sk) + 4 * b * h * sq
+    by_ops, by_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"
+
+
+def _bwd_inputs(shape, dtype, gen):
+    """q, k, v, dO drawn on the card, and the forward kernel's o and lse."""
+    from repro_torch.kernels.flash_attention import _forward
+
+    b, h, hk, sq, sk, d, causal = shape
+    q, do = (torch.randn(b, h, sq, d, generator=gen, device="cuda")
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    o, lse = _forward(q, k, v, causal, 1.0 / d ** 0.5, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+def check_flash_bwd(ref, flash_attention_bwd):
+    """The forward kernel's ``lse`` and the backward kernels' dq, dk, dv
+    against the plain versions on the card, in fp32 and bf16, at
+    ``FLASH_BWD_SWEEP`` and ``TRAIN_SHAPES``.  Returns (cases, the largest
+    |difference|, the largest |lse difference|)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = lse_worst = 0.0
+    cases = 0
+    shapes = [(f"test {s}", s) for s in FLASH_BWD_SWEEP] + list(
+        TRAIN_SHAPES.items())
+    for name, shape in shapes:
+        causal = shape[-1]
+        for dtype, (rtol, step) in ((torch.float32, FLASH_BWD_FP32_TOL),
+                                    (torch.bfloat16, FLASH_BWD_BF16_TOL)):
+            q, k, v, o, lse, do = _bwd_inputs(shape, dtype, gen)
+            _, want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal)
+            seen = torch.isfinite(want_lse)
+            if not torch.equal(torch.isneginf(lse), ~seen):
+                raise AssertionError(f"lse: rows without a key differ at "
+                                     f"{name} {dtype}")
+            lse_err = float((lse - want_lse)[seen].abs().max())
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                               causal=causal)
+            torch.cuda.synchronize()
+            for what, g, w in zip(("dq", "dk", "dv"), got, want):
+                scale = float(w.float().abs().max())
+                if g.dtype != dtype or g.shape != w.shape or not \
+                        torch.allclose(g.float(), w.float(), rtol=rtol,
+                                       atol=step * scale):
+                    raise AssertionError(
+                        f"flash_attention_bwd != plain: {what} at {name} "
+                        f"{dtype}: max_abs_err {max_abs_err(g, w)} "
+                        f"(largest entry {scale})")
+                worst = max(worst, max_abs_err(g, w))
+            if lse_err > LSE_TOL:
+                raise AssertionError(f"lse != plain at {name} {dtype}: "
+                                     f"{lse_err}")
+            lse_worst = max(lse_worst, lse_err)
+            cases += 1
+    return cases, worst, lse_worst
+
+
+def time_flash_bwd(ref, flash_attention_bwd) -> dict:
+    """The backward kernels at each of ``TRAIN_SHAPES``: bf16 (``ms``,
+    ``device_ms``) and fp32, each beside its bound, the plain version (bf16)
+    and the backward of ``scaled_dot_product_attention`` with
+    ``enable_gqa`` on the same inputs (timed only; the port never calls
+    it).  The row's own numbers are whisper-base's encoder, the largest
+    call of the training path that runs the kernels."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = {}
+    for name, shape in TRAIN_SHAPES.items():
+        b, h, hk, sq, sk, d, causal = shape
+        q, k, v, o, lse, do = _bwd_inputs(shape, torch.bfloat16, gen)
+        q32, k32, v32, o32, lse32, do32 = _bwd_inputs(shape, torch.float32,
+                                                      gen)
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        so = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
+        bound, by = flash_bwd_bound(*shape[:6], 2, causal)
+        bound32, by32 = flash_bwd_bound(*shape[:6], 4, causal,
+                                        peak=FP32_FLOPS)
+        cases[name] = dict(
+            shape=f"q ({b}, {h}, {sq}, {d}), k/v ({b}, {hk}, {sk}, {d})",
+            causal=causal,
+            ms=time_ms(lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, causal=causal), 10),
+            device_ms=device_ms(lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, causal=causal), 10),
+            bound_ms=bound, bound_by=by,
+            plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal=causal), 3),
+            # the device's time: back to back, the host's autograd call
+            # (about 0.5 ms) is longer than the device's work
+            library_ms=device_ms(lambda: torch.autograd.grad(
+                so, (qs, ks, vs), do, retain_graph=True), 10),
+            library_ms_back_to_back=time_ms(lambda: torch.autograd.grad(
+                so, (qs, ks, vs), do, retain_graph=True), 10),
+            ms_fp32=time_ms(lambda: flash_attention_bwd(
+                q32, k32, v32, o32, lse32, do32, causal=causal), 3),
+            bound_ms_fp32=bound32, bound_by_fp32=by32)
+        del qs, ks, vs, so
+    row = {key: cases["whisper_encoder"][key] for key in (
+        "ms", "device_ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
+    row.update(library="the backward of torch.nn.functional.scaled_dot_"
+                       "product_attention (enable_gqa)", cases=cases,
+               timed_at="bf16 whisper_encoder (ms); cases: TRAIN_SHAPES in "
+                        "bf16 and fp32 (ms_fp32, its bound at the fp32 "
+                        "CUDA-core peak)")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1164,14 +1353,16 @@ VM_HOSTED_TRAPS = ("nonfinite_to_int", "shifts", "rotates", "half_rounding",
 
 def _no_plain_version_on_cuda():
     """Wrap the plain versions of ``mdgather``/``mdscatter_``, of the
-    float ops and of flash attention where their wrappers call them, so
+    float ops and of flash attention (forward, with ``lse``, backward)
+    where their wrappers call them, so
     that a CUDA tensor reaching one raises; returns the restore
     function."""
     from repro_torch.kernels import flash_attention as a, float_ops as f, \
         mdgather as g, mdscatter as s
     names = ((g, "mdgather_ref"), (s, "mdscatter_ref"),
              (f, "float_binary_ref"), (f, "float_convert_ref"),
-             (a, "flash_attention_ref"))
+             (a, "flash_attention_ref"), (a, "flash_attention_lse_ref"),
+             (a, "flash_attention_bwd_ref"))
     saved = [getattr(mod, name) for mod, name in names]
 
     def guard(fn):
@@ -1953,10 +2144,13 @@ def check_alone(cfg, params, request, output, noise):
 
 # (arch, layers run, prompt tokens): every family at its published widths;
 # llama4-scout's 48 layers (107.8 B parameters, 215 GB in bf16) cut to 4 to
-# fit one card; whisper's prompt inside its 448-token text context.  The
-# first row is phase `lm`, the others phase `lm_families`.
-FAMILIES = (("qwen2-0.5b", None, LM_SEQ), ("mamba2-2.7b", None, LM_SEQ),
-            ("zamba2-2.7b", None, LM_SEQ),
+# fit one card; mamba2's 64 layers cut to 32 and zamba2's 54 to 24 (four
+# groups of 6: four shared-attention blocks) so that the script, with the
+# training phase, keeps to half its time limit; whisper's prompt inside its
+# 448-token text context.  The first row is phase `lm`, the others phase
+# `lm_families`.
+FAMILIES = (("qwen2-0.5b", None, LM_SEQ), ("mamba2-2.7b", 32, LM_SEQ),
+            ("zamba2-2.7b", 24, LM_SEQ),
             ("llama4-scout-17b-a16e", 4, LM_SEQ),
             ("llama-3.2-vision-11b", None, LM_SEQ),
             ("whisper-base", None, 384))
@@ -2207,6 +2401,256 @@ def drive_family(arch, layers, seq, flash_attention) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024      # qwen2-0.5b: 8 x 1024 tokens a step
+TRAIN_STEPS, CKPT_EVERY = 6, 3
+WHISPER_TEXT, WHISPER_STEPS = 384, 4  # whisper-base: 4 x 384 text tokens
+RESUME_TOL = 5e-3                     # tests/test_train_loop.py
+# float32 whisper step on the card vs on the CPU: the same function summed
+# in other orders (the card's fp32 flash kernels, cuBLAS in full fp32)
+TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_NORM_RTOL = 1e-4, 1e-3
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def _save_restore_s(model, state, meta, fmt="fp32") -> tuple:
+    """Seconds to write ``state`` as a checkpoint and to read it back onto
+    the card; the bytes written."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.launch.train import state_template
+
+    where = str(CKPT_ROOT / "timed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(where, int(meta["step"]), state, meta)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    t0 = time.perf_counter()
+    back, _ = load_checkpoint(where, state_template(model, fmt))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for (k, a), (_, b) in zip(_tree_leaves(back), _tree_leaves(state)):
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"checkpoint round trip changed {k}")
+    shutil.rmtree(where)
+    return save_s, restore_s, nbytes
+
+
+def _tree_leaves(tree):
+    from repro_torch.models.common import tree_leaves
+    return tree_leaves(tree)
+
+
+def drive_train_qwen2(flash_attention, flash_attention_bwd) -> dict:
+    """qwen2-0.5b as published (bf16 parameters, fp32 moments) through
+    ``train_loop`` on the card: 6 steps straight with a checkpoint every 3;
+    then 3 steps in a fresh directory and a new ``train_loop`` call that
+    restarts from its checkpoint to step 6, whose loss must equal the
+    straight run's (bit for bit or within ``RESUME_TOL``: which is
+    recorded).  Packed batches carry segment ids, so no flash kernel runs.
+    Then one more step profiled, and the checkpoint's save and restore
+    timed."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import DataConfig, make_train_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainLoopConfig, train_loop
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config("qwen2-0.5b")
+    cell = ShapeCell("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+
+    def run(steps, where):
+        t0 = time.perf_counter()
+        m = train_loop(cfg, cell, TrainLoopConfig(
+            steps=steps, ckpt_dir=str(CKPT_ROOT / where),
+            ckpt_every=CKPT_EVERY, log_every=1), opt_cfg=opt, seed=0)
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    straight, straight_s = run(TRAIN_STEPS, "straight")
+    loop_peak = torch.cuda.max_memory_allocated()
+    first, _ = run(CKPT_EVERY, "resumed")
+    resumed, resumed_s = run(TRAIN_STEPS, "resumed")
+    shutil.rmtree(CKPT_ROOT / "resumed")
+    diff = abs(straight["loss"] - resumed["loss"])
+    for what, m in (("straight", straight), ("resumed", resumed)):
+        if not (np.isfinite(m["loss"]) and m["grad_norm"] > 0
+                and m["final_step"] == TRAIN_STEPS):
+            raise AssertionError(f"qwen2-0.5b {what} run: {m}")
+    if diff > RESUME_TOL:
+        raise AssertionError(f"qwen2-0.5b resumed loss {resumed['loss']} "
+                             f"!= straight {straight['loss']}")
+    launched = (flash_attention.launches - before[0],
+                flash_attention_bwd.launches - before[1])
+    if launched != (0, 0):
+        raise AssertionError(f"qwen2-0.5b training launched flash {launched}"
+                             " times: its packed batches carry segment ids")
+
+    # the state after 6 steps, restored; one more step under the profiler
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch.train import state_template
+    model = LM(cfg)
+    state, meta = load_checkpoint(str(CKPT_ROOT / "straight"),
+                                  state_template(model, "fp32"))
+    shutil.rmtree(CKPT_ROOT / "straight")
+    save_s, restore_s, nbytes = _save_restore_s(model, state, meta)
+    batch = next(make_train_batches(DataConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+        start_doc=int(meta["next_doc"])))
+    batch = {k: torch.from_numpy(x).cuda() for k, x in batch.items()
+             if k != "next_doc"}
+    step = make_train_step(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    profile = device_profile(lambda: step(state["params"], state["opt"],
+                                          batch))
+    step_peak = torch.cuda.max_memory_allocated()
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = straight["step_time_s"]
+    return {
+        "config": cfg.name, "params": cfg.param_count(),
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "ckpt_every": CKPT_EVERY, "optimizer": dataclasses.asdict(opt),
+        "losses_final": {"straight": straight["loss"],
+                         "resumed": resumed["loss"],
+                         "after_3": first["loss"]},
+        "resume": "bit-equal" if diff == 0 else f"within {diff}",
+        "grad_norm": straight["grad_norm"],
+        "step_ms": step_s * 1e3, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ /
+        step_s, "run_seconds": {"straight_6": straight_s,
+                                "resumed_3_to_6": resumed_s},
+        "flash_launches": launched, "profiled_step": profile,
+        "max_memory_allocated_bytes_loop": loop_peak,
+        "max_memory_allocated_bytes_step": step_peak,
+        "checkpoint_bytes": nbytes, "checkpoint_save_s": save_s,
+        "checkpoint_restore_s": restore_s}
+
+
+def flash_per_train_step(cfg) -> tuple:
+    """Flash launches of one training step of an encdec model (forward,
+    backward): the encoder's self attention, the decoder's self (whisper's
+    decoder passes no segment ids) and cross attention, and again the
+    decoder's under remat's recompute; the encoder is not checkpointed."""
+    L, enc = cfg.num_layers, cfg.encoder_layers
+    recompute = 2 * L if cfg.remat != "none" else 0
+    return enc + 2 * L + recompute, enc + 2 * L
+
+
+def drive_train_whisper(flash_attention, flash_attention_bwd) -> dict:
+    """whisper-base as published (6 + 6 layers, bf16) through
+    ``make_train_step`` on the card: ``WHISPER_STEPS`` steps of 4 x 384
+    text tokens from the pipeline over 4 x 1500 frames drawn from the seed,
+    the flash forward and backward launches of every step exact; one step
+    profiled; the state's save and restore timed; then a float32 copy of
+    the first step at batch 1, held against the same step on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_train_batches
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import LM
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_config("whisper-base")
+    model = LM(cfg)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=WHISPER_STEPS)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    initial = params                      # the float32 copy starts here
+    opt_state = adamw_init(params)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    frames = torch.randn(LM_BATCH, cfg.num_frames, cfg.d_model,
+                         generator=gen, device="cuda").bfloat16()
+    batches = make_train_batches(DataConfig(cfg.vocab_size, WHISPER_TEXT,
+                                            LM_BATCH, seed=0))
+    host = [next(batches) for _ in range(WHISPER_STEPS + 1)]
+    cuda_batches = [{**{k: torch.from_numpy(x).cuda() for k, x in b.items()
+                        if k != "next_doc"}, "frames": frames} for b in host]
+    step = steps_mod.make_train_step(model, opt)
+    want = flash_per_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, per_step = [], [], [], set()
+    for b in cuda_batches[:WHISPER_STEPS]:
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+        per_step.add((flash_attention.launches - before[0],
+                      flash_attention_bwd.launches - before[1]))
+    peak = torch.cuda.max_memory_allocated()
+    if per_step != {want}:
+        raise AssertionError(f"whisper-base: flash launches per step "
+                             f"{per_step}, not {want}")
+    if not all(np.isfinite(losses)) or not min(norms) > 0:
+        raise AssertionError(f"whisper-base: losses {losses}, grad norms "
+                             f"{norms}")
+    profile = device_profile(lambda: step(params, opt_state,
+                                          cuda_batches[-1]))
+    save_s, restore_s, nbytes = _save_restore_s(
+        model, {"params": params, "opt": opt_state},
+        {"step": WHISPER_STEPS, "next_doc": int(host[-1]["next_doc"])})
+
+    # float32 at batch 1: the card's step vs the CPU's, from the same state
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        one = {k: x[:1].float() if x.is_floating_point() else x[:1]
+               for k, x in cuda_batches[0].items()}
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda x: x.to(device=dev, dtype=torch.float32),
+                         initial)
+            b = {k: x.to(dev) for k, x in one.items()}
+            (loss, _), grads = steps_mod._value_and_grad(model, p, b)
+            _, _, m = steps_mod.make_train_step(model, opt)(
+                p, adamw_init(p), b)
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        dict(_tree_leaves(grads)), float(loss))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    (gl, gn, gg, _), (cl, cn, cg, _) = out["cuda"], out["cpu"]
+    leaf_err = {k: float((gg[k].cpu() - cg[k]).abs().max() /
+                         cg[k].abs().max().clamp_min(1e-30)) for k in cg}
+    worst_leaf = max(leaf_err, key=leaf_err.get)
+    loss_rel, norm_rel = abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn)
+    if loss_rel > TRAIN_FP32_LOSS_RTOL or norm_rel > TRAIN_FP32_NORM_RTOL:
+        raise AssertionError(f"whisper-base float32 step, card vs CPU: loss "
+                             f"{gl} vs {cl}, grad norm {gn} vs {cn}")
+    del params, opt_state, initial
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = float(np.median(times[1:]))
+    return {
+        "config": cfg.name, "params": cfg.param_count(), "batch": LM_BATCH,
+        "text_tokens": WHISPER_TEXT, "frames": list(frames.shape),
+        "steps": WHISPER_STEPS, "losses": losses, "grad_norms": norms,
+        "step_ms": [t * 1e3 for t in times], "step_ms_median": step_s * 1e3,
+        "tokens_per_s": LM_BATCH * WHISPER_TEXT / step_s,
+        "frames_per_s": LM_BATCH * cfg.num_frames / step_s,
+        "flash_launches_per_step": {"forward": want[0], "backward": want[1]},
+        "profiled_step": profile, "max_memory_allocated_bytes": peak,
+        "checkpoint_bytes": nbytes, "checkpoint_save_s": save_s,
+        "checkpoint_restore_s": restore_s,
+        "fp32_batch1_card_vs_cpu": {
+            "loss": [gl, cl], "loss_rel": loss_rel,
+            "grad_norm": [gn, cn], "grad_norm_rel": norm_rel,
+            "tolerance": [TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_NORM_RTOL],
+            "worst_leaf": worst_leaf,
+            "worst_leaf_rel_to_its_max": leaf_err[worst_leaf]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: quantized_matmul, the int8 serving-path product
 # ---------------------------------------------------------------------------
 
@@ -2255,12 +2699,14 @@ def main() -> int:
 
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.bitplane_gemm import bitplane_matmul, int8_matmul
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.float_ops import float_binary, float_convert
     from repro_torch.kernels.mdgather import mdgather
     from repro_torch.kernels.mdscatter import mdscatter_
     wrappers = {"mdgather": mdgather, "mdscatter": mdscatter_,
                 "flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd,
                 "int8_matmul": int8_matmul,
                 "bitplane_matmul": bitplane_matmul,
                 "float_binary": float_binary, "float_convert": float_convert}
@@ -2306,15 +2752,22 @@ def main() -> int:
     float_cases = check_float_ops(ref, float_binary, float_convert)
     worst.update(float_binary=0.0, float_convert=0.0)
     timings.update(time_float_ops(ref, float_binary, float_convert))
+    bwd_cases, worst["flash_attention_bwd"], lse_err = check_flash_bwd(
+        ref, flash_attention_bwd)
+    timings["flash_attention_bwd"] = time_flash_bwd(ref, flash_attention_bwd)
     emit("kernels", seconds=time.perf_counter() - t0,
-         cases=cases + lm_cases + float_cases,
+         cases=cases + lm_cases + float_cases + bwd_cases,
          tolerance={"mdgather, mdscatter, int8_matmul, bitplane_matmul, "
                     "float_binary, float_convert":
                     "bit-equal (max_abs_err must be 0)",
                     "flash_attention": f"fp32 {FLASH_FP32_TOL} (test "
                                        f"shapes), {FLASH_FP32_PATH_TOL} "
                                        f"(prefill shapes); bf16 "
-                                       f"{FLASH_BF16_TOL}"},
+                                       f"{FLASH_BF16_TOL}; lse {LSE_TOL}",
+                    "flash_attention_bwd": "(rtol, share of the largest "
+                                           f"entry): fp32 {FLASH_BWD_FP32_TOL}"
+                                           f", bf16 {FLASH_BWD_BF16_TOL}"},
+         flash_lse_max_abs_err=lse_err,
          max_abs_err=worst, mdgather_routes=gather_routes,
          mdgather_device_ops=gather_ops, mdscatter_routes=routes,
          mdscatter_device_ops=scatter_ops,
@@ -2380,6 +2833,20 @@ def main() -> int:
         restore()
     emit("lm_families", seconds=time.perf_counter() - t0,
          launches=fam_counts, families=families)
+    t0 = time.perf_counter()
+    restore = _no_plain_version_on_cuda()
+    try:
+        train, train_counts = drive(
+            "train", ("flash_attention", "flash_attention_bwd"), lambda: {
+                "qwen2-0.5b": drive_train_qwen2(flash_attention,
+                                                flash_attention_bwd),
+                "whisper-base": drive_train_whisper(flash_attention,
+                                                    flash_attention_bwd)})
+    finally:
+        restore()
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    emit("train", seconds=time.perf_counter() - t0, launches=train_counts,
+         models=train)
     quant, quant_counts = drive("quantized", ("int8_matmul",
                                               "bitplane_matmul"),
                                 drive_quantized, ops, ref)
@@ -2389,7 +2856,9 @@ def main() -> int:
                 for name in mve + ("float_convert",)}
     launches.update({
         "flash_attention": (lm_counts["flash_attention"]
-                            + fam_counts["flash_attention"]),
+                            + fam_counts["flash_attention"]
+                            + train_counts["flash_attention"]),
+        "flash_attention_bwd": train_counts["flash_attention_bwd"],
         "int8_matmul": quant_counts["int8_matmul"],
         "bitplane_matmul": quant_counts["bitplane_matmul"]})
 

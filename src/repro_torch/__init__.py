@@ -9,8 +9,11 @@ found by path:
   frontend  — the ``@mve.kernel`` tracing builder
   kernels   — the hand-written Hopper kernels (CUDA C++ under
               ``kernels/csrc``) with their plain PyTorch versions
-  convert   — programs, geometry and machine state carried across from the
-              reference package for the parity tests
+  convert   — programs, geometry, machine state, parameters and optimizer
+              states carried across from the reference package for the
+              parity tests
+  models, launch — the LM families, their serving engine and training
+              loop; optim, data, checkpoint — the training substrate
 
 Entry points that allocate take ``device=`` and default to
 ``torch.device("cuda")``; asked for a CUDA device on a machine without one

@@ -1,5 +1,5 @@
-"""Carrying programs, geometry, machine state, model configs and model
-parameters across from the reference package, so a test can hand both
+"""Carrying programs, geometry, machine state, model configs, model
+parameters and optimizer states across from the reference package, so a test can hand both
 packages the same inputs and compare what comes out.
 
 Nothing here imports the reference: its objects are read by attribute name
@@ -100,3 +100,12 @@ def params_from_reference(tree, device=None):
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     return tensor_from_reference(tree, device)
+
+
+def opt_state_from_reference(state, device=None):
+    """The reference's AdamW state (``{"m", "v", "step"}``; fp32 moments,
+    or int8 ``{"q", "s"}`` moment leaves) as this package's on ``device``,
+    so that both packages take the same step from the same state."""
+    return {"m": params_from_reference(state["m"], device),
+            "v": params_from_reference(state["v"], device),
+            "step": tensor_from_reference(state["step"], device)}

@@ -60,6 +60,12 @@
 // holding its fp32 accumulator, m and l in registers; q scaled in fp32 as
 // the TPU kernel does, rows padded to D + 4 floats; K/V tiles of 32 rows
 // converted to fp32 in shared memory and read as broadcasts.
+//
+// Both kernels also write the log-sum-exp of each row's scaled logits,
+// lse = m + log(l) in fp32 ((B, H, Sq), -inf on a row that saw no key),
+// when the caller passes an lse buffer: the backward kernels
+// (flash_attention_bwd.cu) rebuild P = exp(S * scale - lse) from it.  A
+// null lse (serving) writes nothing more.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,6 +74,11 @@
 
 #define FA_NEG_INF (-1e30f)
 #define FA_LOG2E 1.4426950408889634f
+
+// lse of a row: m + log(l), or -inf where no key was seen (l = 0)
+__device__ __forceinline__ float fa_lse(float m, float l) {
+    return l > 0.f ? m + logf(l) : __int_as_float(0xff800000);
+}
 
 struct FaShape {
     long long heads, kv_group;          // H, H / Hkv
@@ -120,7 +131,8 @@ __global__ void __launch_bounds__(FM_THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, FaShape s) {
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, FaShape s) {
     extern __shared__ float4 fm_smem[];
     constexpr int LD = D + 8, TILE = FM_ROWS * LD;
     __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(fm_smem);
@@ -285,6 +297,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 2; ++i) {
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        const long long row = qw0 + g + 8 * i;
+        if (lse != nullptr && t == 0 && row < s.sq)
+            lse[bh * s.sq + row] = fa_lse(m[i], l[i]);
         if (l[i] == 0.f) l[i] = 1.f;            // rows that saw no key
     }
 #pragma unroll
@@ -316,7 +331,7 @@ template <int D>
 __global__ void __launch_bounds__(FA_BQ)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
-                      FaShape s) {
+                      float* __restrict__ lse, FaShape s) {
     extern __shared__ float4 fa_smem[];
     constexpr int QS = D + 4;
     float* q_s = reinterpret_cast<float*>(fa_smem);   // FA_BQ x QS
@@ -420,6 +435,7 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     if (qrow < s.sq) {
+        if (lse != nullptr) lse[bh * s.sq + qrow] = fa_lse(m, l);
         const float lf = l == 0.f ? 1.f : l;       // rows that saw no key
         float* o = out + (bh * s.sq + qrow) * D;
 #pragma unroll
@@ -434,27 +450,29 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T, typename Kernel>
 static int launch(Kernel kernel, size_t smem, int rows, int threads,
                   const void* q, const void* k, const void* v, void* out,
-                  const FaShape& s, long long bh, cudaStream_t stream) {
+                  float* lse, const FaShape& s, long long bh,
+                  cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((s.sq + rows - 1) / rows), (unsigned)bh);
     kernel<<<grid, threads, smem, stream>>>((const T*)q, (const T*)k,
-                                            (const T*)v, (T*)out, s);
+                                            (const T*)v, (T*)out, lse, s);
     return (int)cudaGetLastError();
 }
 
 // q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D), each given by element strides of
 // its first three dimensions (the last is dense); out: (B, H, Sq, D)
-// contiguous, of q's type.  dtype 0 = float32, 1 = bfloat16 (whose base
+// contiguous, of q's type; lse: (B, H, Sq) fp32 contiguous, or null to
+// skip it.  dtype 0 = float32, 1 = bfloat16 (whose base
 // pointers and strides must be 16-byte aligned); head_dim 64 or 128.  The
 // caller guarantees B*H, Sq > 0 and H % Hkv == 0.  Returns the CUDA error
 // code of the first failing call (0 = success), or -1 for a type or head
 // dimension no kernel is instantiated for.
 extern "C" int flash_attention_launch(
-        const void* q, const void* k, const void* v, void* out, int dtype,
-        int head_dim, long long batch, long long heads, long long kv_heads,
-        long long sq, long long sk, long long q_sb, long long q_sh,
+        const void* q, const void* k, const void* v, void* out, void* lse,
+        int dtype, int head_dim, long long batch, long long heads,
+        long long kv_heads, long long sq, long long sk, long long q_sb, long long q_sh,
         long long q_ss, long long k_sb, long long k_sh, long long k_ss,
         long long v_sb, long long v_sh, long long v_ss, int causal,
         float scale, void* stream) {
@@ -471,19 +489,20 @@ extern "C" int flash_attention_launch(
     s.scale = scale;
     const long long bh = batch * heads;
     cudaStream_t st = (cudaStream_t)stream;
+    float* l = (float*)lse;
     if (dtype == 0 && head_dim == 64)
         return launch<float>(flash_fwd_simt_kernel<64>, fa_smem_bytes<64>(),
-                             FA_BQ, FA_BQ, q, k, v, out, s, bh, st);
+                             FA_BQ, FA_BQ, q, k, v, out, l, s, bh, st);
     if (dtype == 0 && head_dim == 128)
         return launch<float>(flash_fwd_simt_kernel<128>, fa_smem_bytes<128>(),
-                             FA_BQ, FA_BQ, q, k, v, out, s, bh, st);
+                             FA_BQ, FA_BQ, q, k, v, out, l, s, bh, st);
     if (dtype == 1 && head_dim == 64)
         return launch<__nv_bfloat16>(flash_fwd_mma_kernel<64>,
                                      fm_smem_bytes<64>(), FM_ROWS, FM_THREADS,
-                                     q, k, v, out, s, bh, st);
+                                     q, k, v, out, l, s, bh, st);
     if (dtype == 1 && head_dim == 128)
         return launch<__nv_bfloat16>(flash_fwd_mma_kernel<128>,
                                      fm_smem_bytes<128>(), FM_ROWS,
-                                     FM_THREADS, q, k, v, out, s, bh, st);
+                                     FM_THREADS, q, k, v, out, l, s, bh, st);
     return -1;
 }

@@ -1,8 +1,10 @@
-"""Forward attention on Hopper: the online-softmax (flash) kernels.
+"""Attention on Hopper: the online-softmax (flash) kernels, forward and
+backward.
 
-Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
-(wrapper ``flash_attention``).  The CUDA source is
-``csrc/flash_attention.cu``, with one kernel per dtype:
+The forward replaces the TPU kernel
+``repro/kernels/flash_attention.py::_flash_kernel`` (wrapper
+``flash_attention``).  The CUDA source is ``csrc/flash_attention.cu``,
+with one kernel per dtype:
 
 * bfloat16 takes ``flash_fwd_mma_kernel``, on the tensor cores: one block
   per (batch*head, 64-row q tile), 4 warps of 16 q rows; K/V tiles of 64
@@ -23,34 +25,50 @@ NaN there, as the reference's oracle does).  Ragged ``Sq``/``Sk`` are masked
 inside the kernel; nothing is padded in device memory.  Both are counted in
 ``flash_attention.launches``.
 
-Bound on this card at the qwen2-0.5b prefill shape: operations (the
-kernel's source note has the arithmetic).
+The backward has no TPU kernel behind it: the reference differentiates its
+plain attention.  A call whose inputs require a gradient goes through
+:class:`FlashAttentionFn`, whose forward also keeps each row's log-sum-exp
+(``lse``) and whose backward, :func:`flash_attention_bwd`, launches the
+three kernels of ``csrc/flash_attention_bwd.cu`` (``D = rowsum(dO O)``,
+dK/dV per kv head with the GQA sum inside, dQ; SIMT, fp32 sums), counted
+in ``flash_attention_bwd.launches``.  A call that needs no gradient (every
+serving call) launches the forward alone and keeps no ``lse``.
 
-The plain PyTorch version is :func:`repro_torch.kernels.ref.flash_attention_ref`;
-the wrapper takes it only for a CPU tensor.
+Bound on this card at the qwen2-0.5b prefill shape: operations (the
+kernels' source notes have the arithmetic).
+
+The plain PyTorch versions are
+:func:`repro_torch.kernels.ref.flash_attention_ref`,
+``flash_attention_lse_ref`` and ``flash_attention_bwd_ref``; the wrappers
+take them only for a CPU tensor.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
+                  flash_attention_ref)
 
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
              + [ctypes.c_longlong] * 14 + [ctypes.c_int, ctypes.c_float,
                                            ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+                 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_float,
+                                              ctypes.c_void_p])
 
 
-def _entry():
-    fn = _build.load("flash_attention").flash_attention_launch
+def _entry(source: str, symbol: str, argtypes):
+    fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -67,6 +85,88 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           scale: Optional[float], float64_on_cpu: bool = False) -> float:
+    """Raise on what the kernels do not take; return the scale.  With
+    ``float64_on_cpu`` a CPU call may also be float64 (the plain versions
+    take it: the gradient checks run in float64)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, H, S, D)")
+    b, h, _, d = q.shape
+    hk = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: need k == v == (B, Hkv, Sk, D)")
+    if hk == 0 or h % hk:
+        raise ValueError(f"{h} q heads are not a multiple of {hk} kv heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIMS}")
+    types = set(_DTYPES)
+    if float64_on_cpu and not q.is_cuda:
+        types.add(torch.float64)
+    if q.dtype not in types or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v types {q.dtype}/{k.dtype}/{v.dtype}: need "
+                        "one of float32, bfloat16")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must lie on one device")
+    if q.is_cuda and b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
+    return float(scale if scale is not None else 1.0 / math.sqrt(d))
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, scale: float, with_lse: bool
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of the forward kernel on CUDA tensors: the output and,
+    when ``with_lse``, each row's log-sum-exp (fp32, ``(B, H, Sq)``)."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    out = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        code = _entry("flash_attention", "flash_attention_launch",
+                      _ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            0 if lse is None else lse.data_ptr(), _DTYPES[q.dtype], d, b, h,
+            hk, sq, sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(bool(causal)), scale,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash route with its gradient.  Forward: the forward kernel with
+    ``lse`` (the plain ``flash_attention_lse_ref`` on a CPU tensor); it
+    saves q, k, v, the output and ``lse``.  Backward:
+    :func:`flash_attention_bwd`.  Safe under non-reentrant
+    ``torch.utils.checkpoint``: its recompute runs the forward again and
+    saves afresh."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if q.is_cuda:
+            out, lse = _forward(q, k, v, causal, scale, with_lse=True)
+        else:
+            out, lse = flash_attention_lse_ref(q, k, v, causal=causal,
+                                               scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -80,45 +180,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``1/sqrt(D)``; the causal diagonal sits at ``Sk - Sq``.  Strided views
     are taken as they are as long as the head dimension is dense (and, in
     bfloat16, rows are 16-byte aligned; else they are copied).  A CUDA
-    tensor always goes through the kernel; only a CPU tensor takes the
-    plain version.
+    tensor always goes through the kernels; only a CPU tensor takes the
+    plain versions.  Where autograd needs a gradient of q, k or v the call
+    goes through :class:`FlashAttentionFn`.
     """
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k, v must be (B, H, S, D)")
-    b, h, sq, d = q.shape
-    hk, sk = k.shape[1], k.shape[2]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: need k == v == (B, Hkv, Sk, D)")
-    if hk == 0 or h % hk:
-        raise ValueError(f"{h} q heads are not a multiple of {hk} kv heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q/k/v types {q.dtype}/{k.dtype}/{v.dtype}: need "
-                        "one of float32, bfloat16")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k, v must lie on one device")
-    scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    scale = _check(q, k, v, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, bool(causal), scale)
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
-    q, k, v = (_kernel_operand(t) for t in (q, k, v))
-    out = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(q.device):
-        code = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), _DTYPES[q.dtype], d, b, h, hk, sq,
-                        sk, *q.stride()[:3], *k.stride()[:3],
-                        *v.stride()[:3], int(bool(causal)), scale,
-                        torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _forward(q, k, v, causal, scale, with_lse=False)[0]
 
 
-#: Number of times :func:`flash_attention` launched its kernel (CUDA
-#: tensors only).
+#: Number of times the forward kernel was launched (CUDA tensors only).
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` for the
+    output gradient ``dout``, given the forward's output ``o`` and its
+    ``lse`` (fp32 ``(B, H, Sq)``).  dq is ``(B, H, Sq, D)``, dk and dv
+    ``(B, Hkv, Sk, D)`` (each kv head's sum over its q heads), all in q's
+    type.  On CUDA tensors: the three backward kernels, one count in
+    ``flash_attention_bwd.launches`` per call; on CPU tensors the plain
+    :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`."""
+    scale = _check(q, k, v, scale, float64_on_cpu=True)
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    if o.shape != q.shape or dout.shape != q.shape or \
+            lse.shape != (b, h, sq):
+        raise ValueError(f"o {tuple(o.shape)}, dout {tuple(dout.shape)}, "
+                         f"lse {tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, o, lse, dout, causal=causal,
+                                       scale=scale)
+    if o.dtype != q.dtype or dout.dtype != q.dtype or \
+            lse.dtype != torch.float32:
+        raise TypeError(f"o {o.dtype}, dout {dout.dtype}, lse {lse.dtype}: "
+                        f"need {q.dtype}, {q.dtype}, float32")
+    if any(t.device != q.device for t in (o, lse, dout)):
+        raise ValueError("q, k, v, o, lse, dout must lie on one device")
+    q, k, v, dout = (t if t.stride(-1) == 1 else t.contiguous()
+                     for t in (q, k, v, dout))
+    o, lse = o.contiguous(), lse.contiguous()
+    dq = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device)
+    dk = torch.empty(b, hk, sk, d, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:     # nothing seen, no gradient
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *dout.stride()[:3])
+    with torch.cuda.device(q.device):
+        code = _entry("flash_attention_bwd", "flash_attention_bwd_launch",
+                      _BWD_ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], d, b, h, hk,
+            sq, sk, strides, int(bool(causal)), scale,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: Number of times the backward kernels were launched (CUDA tensors only;
+#: each call launches the three of them).
+flash_attention_bwd.launches = 0

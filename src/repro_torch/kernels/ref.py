@@ -140,7 +140,7 @@ def quantize_rowwise_ref(x: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Flash attention (forward).
+# Flash attention: forward, its log-sum-exp, backward.
 # ---------------------------------------------------------------------------
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -152,20 +152,89 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D)`` in q's type.  fp32 softmax; the causal diagonal sits at
     ``Sk - Sq``.  A row that sees no key (causal, ``Sq > Sk``) comes out
     NaN, as in the reference's oracle; the kernel gives 0 there."""
+    return flash_attention_lse_ref(q, k, v, causal=causal, scale=scale)[0]
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or float64 if it is already (the gradient checks
+    run in float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _attention_logits(q, k, causal, scale):
+    """Scaled logits ``(B, H, Sq, Sk)`` of q over the kv heads repeated to
+    H, with ``-inf`` where causality hides a key; and the visibility
+    mask."""
     sq, d = q.shape[-2:]
     sk = k.shape[-2]
     group = q.shape[1] // k.shape[1]
-    if group > 1:
-        k = k.repeat_interleave(group, dim=1)
-        v = v.repeat_interleave(group, dim=1)
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    logits = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
+    kr = k.repeat_interleave(group, dim=1) if group > 1 else k
+    logits = torch.einsum("...qd,...kd->...qk", _wide(q), _wide(kr)) * scale
+    visible = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
     if causal:
-        mask = torch.ones(sq, sk, dtype=torch.bool,
-                          device=q.device).tril(sk - sq)
-        logits = torch.where(mask, logits, float("-inf"))
+        visible = visible.tril(sk - sq)
+    return torch.where(visible, logits, float("-inf")), visible
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref` and the log-sum-exp of each row's scaled
+    logits, ``lse`` ``(B, H, Sq)`` (fp32; float64 for float64 inputs):
+    what the forward kernel hands its backward.  ``lse`` is ``-inf`` on a
+    row that sees no key."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits, _ = _attention_logits(q, k, causal, scale)
+    group = q.shape[1] // k.shape[1]
+    vr = v.repeat_interleave(group, dim=1) if group > 1 else v
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("...qk,...kd->...qd", probs, v.float()).to(q.dtype)
+    out = torch.einsum("...qk,...kd->...qd", probs, _wide(vr))
+    return out.to(q.dtype), torch.logsumexp(logits, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_ref` for
+    the output gradient ``do``, from the forward's output ``o`` and its
+    ``lse``, step by step as the backward kernels compute them
+    (flash-attention-2's recompute backward)::
+
+        P  = exp(S * scale - lse)          S = Q K^T, masked entries 0
+        dV = P^T dO
+        dP = dO V^T
+        D  = rowsum(dO * O)
+        dS = P * (dP - D)
+        dQ = dS K * scale,   dK = dS^T Q * scale
+
+    in fp32 (float64 for float64 inputs), each result in its input's type.
+    Under GQA (``H = G * Hkv``) each kv head's dK and dV sum over its G q
+    heads.  A row that sees no key (``lse = -inf``) has no gradient: it
+    adds nothing to dK and dV, and its dQ is 0."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    group = h // hk
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits, visible = _attention_logits(q, k, causal, scale)
+    visible = visible & torch.isfinite(lse)[..., None]
+    p = torch.where(visible, torch.exp(logits - lse[..., None]), 0.0)
+    dof = _wide(do)
+    kr = k.repeat_interleave(group, dim=1) if group > 1 else k
+    vr = v.repeat_interleave(group, dim=1) if group > 1 else v
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, _wide(vr))
+    delta = (dof * _wide(o)).sum(dim=-1)
+    ds = torch.where(visible, p * (dp - delta[..., None]), 0.0)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, _wide(kr)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _wide(q)) * scale
+    dk = dk.reshape(b, hk, group, sk, d).sum(dim=2)
+    dv = dv.reshape(b, hk, group, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,3 @@
-"""Launch layer: the prefill/decode step factories and the
-continuous-batching serving engine."""
+"""Launch layer: the train/prefill/decode step factories, the training
+loop (``python -m repro_torch.launch.train``) and the continuous-batching
+serving engine."""

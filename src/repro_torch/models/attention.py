@@ -1,10 +1,15 @@
-"""GQA attention: chunked-causal (prefill), cached decode.
+"""GQA attention: chunked-causal (train/prefill), cached decode.
 
-Prefill attention takes the hand-written flash kernel
+Attention takes the hand-written flash kernel
 (:func:`repro_torch.kernels.ops.flash_attention`) wherever the reference's
 ``use_pallas=True`` route does — no ``segment_ids`` and a head dim of 64 or
-128 — and the plain chunked route otherwise.  The reference's sharding
-constraints are no-ops outside a mesh and are left out.
+128 — and the plain chunked route otherwise.  In training the flash route
+is differentiated by its own backward kernels
+(:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`), the plain
+route by autograd, one query chunk at a time under non-reentrant
+``torch.utils.checkpoint`` as the reference's ``jax.checkpoint`` of each
+chunk.  The reference's sharding constraints are no-ops outside a mesh and
+are left out.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from ..kernels.flash_attention import HEAD_DIMS
@@ -52,29 +58,42 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     chunk = min(chunk, sq)
     kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
-    kpos = torch.arange(sk, device=q.device)
-    offset = sk - sq
+    # the backward recomputes each chunk's (chunk, Sk) probabilities
+    # instead of keeping them, as the reference's checkpointed scan body
+    record = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
     outs = []
     for start in range(0, sq, chunk):
-        qc = q[:, start:start + chunk]
-        c = qc.shape[1]
-        # operands in the model type, products accumulated in f32 and then
-        # rounded to it, as the reference's einsum does
-        logits = torch.einsum("bchd,bshd->bhcs", qc.to(dt), kr.to(dt))
-        logits = logits.float() * scale
-        valid = torch.ones(b, 1, c, sk, dtype=torch.bool, device=q.device)
-        if causal:
-            qpos = start + torch.arange(c, device=q.device) + offset
-            valid = valid & (qpos[:, None] >= kpos[None, :])[None, None]
-        if segment_ids is not None and kv_seg is not None:
-            seg_c = segment_ids[:, start:start + chunk]
-            valid = valid & (seg_c[:, None, :, None] ==
-                             kv_seg[:, None, None, :])
-        logits = torch.where(valid, logits, NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhcs,bshd->bchd", probs.to(vr.dtype), vr)
-        outs.append(out.to(q.dtype))
+        seg_c = (segment_ids[:, start:start + chunk]
+                 if segment_ids is not None and kv_seg is not None else None)
+        args = (q[:, start:start + chunk], kr, vr, start, seg_c, kv_seg,
+                causal, sk - sq, scale, dt)
+        outs.append(checkpoint(_attend_chunk, *args, use_reentrant=False)
+                    if record else _attend_chunk(*args))
     return torch.cat(outs, dim=1)
+
+
+def _attend_chunk(qc, kr, vr, start: int, seg_c, kv_seg, causal: bool,
+                  offset: int, scale: float, dt) -> torch.Tensor:
+    """One query chunk ``qc`` (B, c, Hq, D) of the plain route over the
+    repeated K/V (B, Sk, Hq, D)."""
+    b, c = qc.shape[:2]
+    sk = kr.shape[1]
+    # operands in the model type, products accumulated in f32 and then
+    # rounded to it, as the reference's einsum does
+    logits = torch.einsum("bchd,bshd->bhcs", qc.to(dt), kr.to(dt))
+    logits = logits.float() * scale
+    valid = torch.ones(b, 1, c, sk, dtype=torch.bool, device=qc.device)
+    if causal:
+        kpos = torch.arange(sk, device=qc.device)
+        qpos = start + torch.arange(c, device=qc.device) + offset
+        valid = valid & (qpos[:, None] >= kpos[None, :])[None, None]
+    if seg_c is not None:
+        valid = valid & (seg_c[:, None, :, None] == kv_seg[:, None, None, :])
+    logits = torch.where(valid, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhcs,bshd->bchd", probs.to(vr.dtype), vr)
+    return out.to(qc.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

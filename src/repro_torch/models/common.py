@@ -1,5 +1,6 @@
 """Shared model components: parameter declaration trees, norms, RoPE,
-sinusoidal positions, activations.
+sinusoidal positions, activations, and the chunked cross-entropy of the
+training loss.
 
 Parameters are declared as :class:`ParamDef` leaves of plain nested dicts
 carrying *logical* sharding axes (kept so the trees match the reference's;
@@ -18,6 +19,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16, "float8": torch.float8_e4m3fn}
@@ -45,11 +47,14 @@ def is_def(x) -> bool:
     return isinstance(x, ParamDef)
 
 
-def tree_map_defs(fn: Callable[[ParamDef], Any], tree):
-    """``fn`` on every :class:`ParamDef` of a nested dict, same structure."""
-    if is_def(tree):
-        return fn(tree)
-    return {k: tree_map_defs(fn, v) for k, v in tree.items()}
+def tree_map(fn: Callable[..., Any], tree, *others):
+    """``fn`` on every leaf of a nested dict (a :class:`ParamDef`, a
+    tensor: anything but a dict) and the nodes at the same place in
+    ``others``; same structure."""
+    if not isinstance(tree, dict):
+        return fn(tree, *others)
+    return {k: tree_map(fn, v, *(o[k] for o in others))
+            for k, v in tree.items()}
 
 
 def tree_leaves(tree, prefix: str = ""):
@@ -64,12 +69,11 @@ def tree_leaves(tree, prefix: str = ""):
 
 
 def abstract_tree(tree):
-    return tree_map_defs(lambda d: ShapeDtype(d.shape, DTYPES[d.dtype]),
-                         tree)
+    return tree_map(lambda d: ShapeDtype(d.shape, DTYPES[d.dtype]), tree)
 
 
 def axes_tree(tree):
-    return tree_map_defs(lambda d: d.axes, tree)
+    return tree_map(lambda d: d.axes, tree)
 
 
 def materialize_tree(tree, generator: torch.Generator, device=None):
@@ -92,19 +96,20 @@ def materialize_tree(tree, generator: torch.Generator, device=None):
         x.mul_(d.scale * 0.1 if d.init == "small" else d.scale)
         return x.to(device=dev, dtype=dt)
 
-    return _unflatten(tree, {path: make(d) for path, d in tree_leaves(tree)})
+    return tree_unflatten(tree, {path: make(d)
+                                 for path, d in tree_leaves(tree)})
 
 
-def _unflatten(node, flat, prefix=""):
-    """``node``'s structure with its leaves taken from ``flat`` by path.
-    A module-level function, not a closure: a nested function that calls
-    itself is a reference cycle, which would keep every tensor of ``flat``
-    alive until the garbage collector ran, even after a caller replaced
-    them (a full-width model cast to float32 leaf by leaf would hold both
-    copies)."""
-    if is_def(node):
+def tree_unflatten(node, flat, prefix=""):
+    """``node``'s structure with its leaves taken from ``flat``, a dict by
+    :func:`tree_leaves` path.  A module-level function, not a closure: a
+    nested function that calls itself is a reference cycle, which would
+    keep every tensor of ``flat`` alive until the garbage collector ran,
+    even after a caller replaced them (a full-width model cast to float32
+    leaf by leaf would hold both copies)."""
+    if not isinstance(node, dict):
         return flat[prefix]
-    return {k: _unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
+    return {k: tree_unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
             for k, v in node.items()}
 
 
@@ -165,3 +170,53 @@ def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
     table = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
     return torch.as_tensor(table, dtype=torch.float32, device=device)
 
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never holds (B, S, V) logits).
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(h: torch.Tensor, lm_head: torch.Tensor, t: torch.Tensor,
+              m: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The masked CE sum of one sequence chunk: logits in the model type,
+    then read as fp32 with the padded vocab entries at ``-1e30``."""
+    logits = (h @ lm_head).float()
+    v = logits.shape[-1]
+    vocab_mask = torch.arange(v, device=logits.device) < vocab_size
+    logits = torch.where(vocab_mask, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None].long()).squeeze(-1)
+    return ((lse - gold) * m).sum()
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, lm_head: torch.Tensor,
+                          targets: torch.Tensor, loss_mask: torch.Tensor,
+                          vocab_size: int, chunk: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over the masked tokens and their count, as the reference's:
+    the LM-head product runs over sequence chunks of ``chunk`` (the
+    sequence zero-padded to a multiple, the pad masked out), so the logits
+    held at once are ``(B, chunk, V)``.  Where autograd records, each chunk
+    runs under non-reentrant ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``): the backward recomputes its logits instead of
+    keeping every chunk's fp32 block (at a 151,936-entry vocab, 8 x 1024
+    tokens hold 5 GB of them per chunk)."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    pad = -s % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        loss_mask = F.pad(loss_mask, (0, pad))
+    mask = loss_mask.float()
+    record = torch.is_grad_enabled() and (hidden.requires_grad or
+                                          lm_head.requires_grad)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, s + pad, chunk):
+        args = (hidden[:, start:start + chunk], lm_head,
+                targets[:, start:start + chunk], mask[:, start:start + chunk],
+                vocab_size)
+        loss_sum = loss_sum + (checkpoint(_ce_chunk, *args,
+                                          use_reentrant=False)
+                               if record else _ce_chunk(*args))
+    count = mask.sum()
+    return loss_sum / torch.clamp(count, min=1.0), count

@@ -8,17 +8,22 @@ One :class:`LM` per config exposes
 
   * ``abstract_params()`` / ``init_params(generator, device)`` (+ logical
     sharding axes, kept so the trees match the reference's),
+  * ``loss(params, batch)``     -> (loss, metrics), the training objective,
   * ``prefill(params, batch)``  -> (last-token logits, cache),
   * ``decode_step(params, cache, tokens, cache_index)``,
   * ``cache_defs(batch, seq)``.
 
-Prefill attention, the whisper encoder's and every cross attention (in
-decode too, at one query row) run the hand-written flash kernel where the
-head dim allows it (64 or 128: qwen2, llama4-scout, the vision model,
-whisper; zamba2's 80 takes the plain chunked route, as in the reference).
-The training ``loss`` raises ``NotImplementedError``: it is the next slice
-of the port (ROADMAP.md, queue A).  The reference's scanned layer stacks
-are Python loops over the stacked ``(L, ...)`` parameters.
+Attention without segment ids — prefill and training alike: the whisper
+encoder's, every cross attention (in decode too, at one query row), and
+self attention given no ``segment_ids`` — runs the hand-written flash
+kernel where the head dim allows it (64 or 128: qwen2, llama4-scout, the
+vision model, whisper; zamba2's 80 takes the plain chunked route, as in
+the reference), and in training its backward kernels.  Packed training
+batches carry ``segment_ids``, so their self attention is plain, as in the
+reference.  The reference's scanned layer stacks are Python loops over
+the stacked ``(L, ...)`` parameters; with ``cfg.remat != "none"`` each
+training layer runs under non-reentrant ``torch.utils.checkpoint`` where
+the reference checkpoints its scan body.
 ``decode_step`` updates the cache in place: the KV rows and the recurrent
 (``ssm``, ``conv``) state alike; the cross caches are only read.
 
@@ -34,24 +39,20 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..core.machine import resolve_device
 from .attention import chunked_attention, decode_attention, update_cache
 from .common import (DTYPES, ParamDef, abstract_tree, activation_fn,
-                     axes_tree, materialize_tree, rmsnorm, rope,
-                     sinusoidal_positions)
+                     axes_tree, chunked_cross_entropy, materialize_tree,
+                     rmsnorm, rope, sinusoidal_positions)
 from .moe import moe_ffn
 from .ssm import mamba_block
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 POSITION_TABLE = 8192          # encdec token positions are clipped into it
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue A); "
-        f"ported families: {PORTED_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +283,25 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _mamba_out(p: Dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A Mamba2 layer in training: its output, no recurrent state."""
+    return mamba_block(p, h, cfg)[0]
+
+
+# remat="dots": the matrix products' outputs are kept, the rest recomputed
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _keep_products():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 # ---------------------------------------------------------------------------
 # The model object
 # ---------------------------------------------------------------------------
@@ -318,47 +338,91 @@ class LM:
         return h
 
     # ---- backbones ----
+    def _remat(self, fn, *args):
+        """``fn(*args)``; in training (autograd recording) with
+        ``cfg.remat != "none"`` under non-reentrant
+        ``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
+        the layer: ``"full"`` keeps the layer's inputs alone and recomputes
+        the rest in the backward, ``"dots"`` keeps the matrix products'
+        outputs too (selective checkpointing).  Values never change."""
+        remat = self.cfg.remat
+        if remat == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        if remat == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=_keep_products)
+        if remat != "full":
+            raise ValueError(f"unknown remat {remat!r}")
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def _dense_layer(self, p, cross, h, positions, segment_ids, mode,
+                     cache_kv, cache_index):
+        """One layer of the dense / moe / vlm stack: the gated cross layer
+        where ``cross`` = (its parameters, its K/V) is given, self
+        attention, then the MLP or the MoE.  Returns (h, the layer's aux
+        loss, (k, v))."""
+        cfg = self.cfg
+        if cross is not None:
+            h = _cross_attention(cfg, cross[0], h, cached_kv=cross[1],
+                                 gated=True)
+        h, kv = _self_attention(cfg, p["attn"], h, positions, segment_ids,
+                                mode, cache_kv=cache_kv,
+                                cache_index=cache_index)
+        if "moe" in p:
+            x = rmsnorm(h, p["moe"]["norm"], cfg.norm_eps)
+            out, aux = moe_ffn(p["moe"], x, cfg)
+            return h + out, aux, kv
+        return _mlp(cfg, p["mlp"], h), None, kv
+
     def _transformer_stack(self, params, h, positions, segment_ids, mode,
                            cache=None, cache_index=None, cross_kv=None):
         """dense, moe and vlm.  A vlm applies its gated cross layer
         ``i // every`` before self attention in every layer ``i`` with
-        ``i % every == 0``, over ``cross_kv`` (the stacked caches prefill
-        made) or, in decode, the cache's ``cross_k`` / ``cross_v``."""
+        ``i % every == 0``, over ``cross_kv`` (the stacked K/V of the image
+        embeddings) or, in decode, the cache's ``cross_k`` / ``cross_v``.
+        The MoE aux loss is summed over the layers in fp32, as the
+        reference's scan carry."""
         cfg = self.cfg
         every = cfg.cross_attn_every
         if mode == "decode" and every:
             cross_kv = (cache["cross_k"], cache["cross_v"])
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         ks, vs = [], []
         for i in range(cfg.num_layers):
             p = _layer(params["blocks"], i)
+            cross = None
             if every and i % every == 0:
                 ci = i // every
-                h = _cross_attention(cfg, _layer(params["cross"], ci), h,
-                                     cached_kv=(cross_kv[0][ci],
-                                                cross_kv[1][ci]),
-                                     gated=True)
-            cache_kv = ((cache["k"][i], cache["v"][i]) if mode == "decode"
-                        else None)
-            h, (k, v) = _self_attention(cfg, p["attn"], h, positions,
-                                        segment_ids, mode, cache_kv=cache_kv,
-                                        cache_index=cache_index)
-            if "moe" in p:
-                x = rmsnorm(h, p["moe"]["norm"], cfg.norm_eps)
-                out, _aux = moe_ffn(p["moe"], x, cfg)
-                h = h + out
+                cross = (_layer(params["cross"], ci),
+                         (cross_kv[0][ci], cross_kv[1][ci]))
+            if mode == "train":
+                h, a, _ = self._remat(self._dense_layer, p, cross, h,
+                                      positions, segment_ids, mode, None,
+                                      None)
             else:
-                h = _mlp(cfg, p["mlp"], h)
-            ks.append(k)
-            vs.append(v)
+                cache_kv = ((cache["k"][i], cache["v"][i])
+                            if mode == "decode" else None)
+                h, a, (k, v) = self._dense_layer(
+                    p, cross, h, positions, segment_ids, mode, cache_kv,
+                    cache_index)
+                ks.append(k)
+                vs.append(v)
+            if a is not None:
+                aux = aux + a
+        if mode == "train":
+            return h, aux, None
         if mode == "decode":
-            return h, cache                       # updated in place
-        return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
+            return h, aux, cache                  # updated in place
+        return h, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
     def _mamba_layer(self, params, i: int, h, mode, cache, states):
         """Layer ``i`` of the Mamba2 stack.  Decode reads the layer's
         recurrent state from ``cache`` and writes the new one back in
-        place; prefill appends its final state to ``states``."""
+        place; prefill appends its final state to ``states``; training
+        keeps no state (checkpointed by :meth:`_remat`)."""
         p = _layer(params["blocks"], i)
+        if mode == "train":
+            return self._remat(_mamba_out, p, h, self.cfg)
         if mode == "decode":
             h, ns = mamba_block(p, h, self.cfg, state={
                 "ssm": cache["ssm"][i], "conv": cache["conv"][i]})
@@ -378,6 +442,8 @@ class LM:
         states = []
         for i in range(self.cfg.num_layers):
             h = self._mamba_layer(params, i, h, mode, cache, states)
+        if mode == "train":
+            return h, None
         return h, (cache if mode == "decode" else
                    self._stacked_states(states))
 
@@ -385,7 +451,8 @@ class LM:
                       cache=None, cache_index=None):
         """``num_layers // attn_every`` groups; each applies a shared
         attention + MLP block (weight set ``group % num_shared_blocks``)
-        with its own KV cache, then ``attn_every`` Mamba2 layers."""
+        with its own KV cache, then ``attn_every`` Mamba2 layers (in
+        training only those are checkpointed, as in the reference)."""
         cfg = self.cfg
         every = cfg.attn_every
         states, ks, vs = [], [], []
@@ -401,6 +468,8 @@ class LM:
             vs.append(v)
             for i in range(gi * every, (gi + 1) * every):
                 h = self._mamba_layer(params, i, h, mode, cache, states)
+        if mode == "train":
+            return h, None
         if mode == "decode":
             return h, cache                       # updated in place
         return h, {**self._stacked_states(states),
@@ -409,7 +478,8 @@ class LM:
     def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """Whisper's encoder: the frames plus the sinusoidal table, then
         ``encoder_layers`` blocks of non-causal self attention (no RoPE)
-        and MLP, then ``enc_norm``."""
+        and MLP, then ``enc_norm``.  Not checkpointed in training, as the
+        reference's encoder scan is not."""
         cfg = self.cfg
         table = _position_table(cfg.num_frames, cfg.d_model, frames.device)
         h = frames + table[None, :frames.shape[1]].to(frames.dtype)
@@ -420,27 +490,41 @@ class LM:
             h = _mlp(cfg, p["mlp"], h)
         return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
+    def _decoder_layer(self, p, cross_kv, h, positions, mode, cache_kv,
+                       cache_index):
+        """One whisper decoder layer: causal self attention, cross
+        attention over the encoder output's K/V ``cross_kv``, MLP.
+        Returns (h, (k, v))."""
+        cfg = self.cfg
+        h, kv = _self_attention(cfg, p["attn"], h, positions, None, mode,
+                                cache_kv=cache_kv, cache_index=cache_index)
+        h = _cross_attention(cfg, p["cross"], h, cached_kv=cross_kv)
+        return _mlp(cfg, p["mlp"], h), kv
+
     def _encdec_stack(self, params, h, positions, mode, cross_kv=None,
                       cache=None, cache_index=None):
-        """Whisper's decoder: per layer, causal self attention, cross
-        attention over the encoder output's K/V (``cross_kv`` from prefill,
-        or the cache's ``cross_k`` / ``cross_v`` in decode), MLP."""
+        """Whisper's decoder over the encoder output's K/V (``cross_kv``
+        from the encoder, or the cache's ``cross_k`` / ``cross_v`` in
+        decode)."""
         cfg = self.cfg
         if mode == "decode":
             cross_kv = (cache["cross_k"], cache["cross_v"])
         ks, vs = [], []
         for i in range(cfg.num_layers):
             p = _layer(params["blocks"], i)
+            xkv = (cross_kv[0][i], cross_kv[1][i])
+            if mode == "train":
+                h, _ = self._remat(self._decoder_layer, p, xkv, h,
+                                   positions, mode, None, None)
+                continue
             cache_kv = ((cache["k"][i], cache["v"][i]) if mode == "decode"
                         else None)
-            h, (k, v) = _self_attention(cfg, p["attn"], h, positions, None,
-                                        mode, cache_kv=cache_kv,
-                                        cache_index=cache_index)
-            h = _cross_attention(cfg, p["cross"], h,
-                                 cached_kv=(cross_kv[0][i], cross_kv[1][i]))
-            h = _mlp(cfg, p["mlp"], h)
+            h, (k, v) = self._decoder_layer(p, xkv, h, positions, mode,
+                                            cache_kv, cache_index)
             ks.append(k)
             vs.append(v)
+        if mode == "train":
+            return h, None
         if mode == "decode":
             return h, cache                       # updated in place
         return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -448,6 +532,8 @@ class LM:
     def _backbone(self, params, tokens, positions, segment_ids, mode,
                   cache=None, cache_index=None, image_embeds=None,
                   frames=None):
+        """The final-normed hidden states, the MoE aux loss (0 for the
+        other families) and the cache (``None`` in training)."""
         cfg = self.cfg
         h = self._embed(params, tokens, positions)
         fam = cfg.family
@@ -457,8 +543,9 @@ class LM:
         elif mode != "decode" and fam == "encdec":
             cross_kv = _cross_kv_from(cfg, params["blocks"]["cross"],
                                       self._encode(params, frames))
+        aux = None
         if fam in ("dense", "moe", "vlm"):
-            h, new_cache = self._transformer_stack(
+            h, aux, new_cache = self._transformer_stack(
                 params, h, positions, segment_ids, mode, cache=cache,
                 cache_index=cache_index, cross_kv=cross_kv)
         elif fam == "ssm":
@@ -470,12 +557,30 @@ class LM:
             h, new_cache = self._encdec_stack(
                 params, h, positions, mode, cross_kv=cross_kv, cache=cache,
                 cache_index=cache_index)
-        if cross_kv is not None and mode != "decode":
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if cross_kv is not None and mode == "prefill":
             new_cache["cross_k"], new_cache["cross_v"] = cross_kv
-        return rmsnorm(h, params["final_norm"], cfg.norm_eps), new_cache
+        return rmsnorm(h, params["final_norm"], cfg.norm_eps), aux, new_cache
 
-    def loss(self, params, batch):
-        raise _not_ported("LM.loss (training)")
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """The training objective: the mean masked cross-entropy of the
+        next token plus ``0.01`` times the MoE load-balance aux loss, and
+        the metrics ``{"ce", "aux", "tokens"}`` (fp32 scalars, not
+        detached).  ``batch``: ``tokens``, ``targets``, ``positions``,
+        ``loss_mask`` (B, S), optional ``segment_ids``; a vlm's
+        ``image_embeds``, an encdec's ``frames``
+        (:func:`~repro_torch.models.specs.train_batch_specs`)."""
+        cfg = self.cfg
+        h, aux, _ = self._backbone(
+            params, batch["tokens"], batch["positions"],
+            batch.get("segment_ids"), "train",
+            image_embeds=batch.get("image_embeds"),
+            frames=batch.get("frames"))
+        ce, count = chunked_cross_entropy(
+            h, params["lm_head"], batch["targets"], batch["loss_mask"],
+            cfg.vocab_size, cfg.ce_chunk)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": count}
 
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """``batch``: ``tokens`` and ``positions`` (B, S), optional
@@ -487,11 +592,11 @@ class LM:
         "cross_v"}`` (vlm, encdec), the final recurrent state ``{"ssm",
         "conv"}`` per layer (ssm), or both with the shared blocks'
         ``{"shared_k", "shared_v"}`` (hybrid)."""
-        h, cache = self._backbone(params, batch["tokens"],
-                                  batch["positions"],
-                                  batch.get("segment_ids"), "prefill",
-                                  image_embeds=batch.get("image_embeds"),
-                                  frames=batch.get("frames"))
+        h, _, cache = self._backbone(params, batch["tokens"],
+                                     batch["positions"],
+                                     batch.get("segment_ids"), "prefill",
+                                     image_embeds=batch.get("image_embeds"),
+                                     frames=batch.get("frames"))
         return h[:, -1] @ params["lm_head"], cache
 
     def decode_step(self, params, cache, tokens, cache_index
@@ -510,8 +615,9 @@ class LM:
         else:
             cache_index = torch.as_tensor(cache_index, device=dev)
             positions = cache_index.reshape(b, 1).to(torch.int32)
-        h, cache = self._backbone(params, tokens, positions, None, "decode",
-                                  cache=cache, cache_index=cache_index)
+        h, _, cache = self._backbone(params, tokens, positions, None,
+                                     "decode", cache=cache,
+                                     cache_index=cache_index)
         return h[:, -1] @ params["lm_head"], cache
 
     # ---- cache declaration ----

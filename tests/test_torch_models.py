@@ -36,10 +36,11 @@ from repro.models import attention as ref_attention
 from repro.models import common as ref_common
 
 from repro_torch import convert
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, ShapeCell, get_config
 from repro_torch.models.lm import PORTED_FAMILIES
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import LM, attention, common
+from repro_torch.models.specs import train_batch_specs
 
 B, S = 2, 32
 TIGHT = dict(rtol=1e-5, atol=1e-5)
@@ -186,27 +187,42 @@ def test_configs_equal_the_reference():
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
 def test_other_families_say_they_are_not_ported(arch):
-    """The last two families serve (``tests/test_torch_vlm_encdec.py``);
-    what none of them does yet is train."""
+    """The last two families serve (``tests/test_torch_vlm_encdec.py``)
+    and now train too: ``loss`` gives a finite objective from a training
+    batch (its parity with the reference is
+    ``tests/test_torch_train_loss.py``).  An unknown family is still
+    refused."""
     assert arch in PORTED_ARCHS
     cfg = get_config(arch, reduced=True)
     model = LM(cfg)
     params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    specs, _ = train_batch_specs(cfg, ShapeCell("t", 4, 1, "train"))
     batch = {"tokens": torch.ones(1, 4, dtype=torch.long),
-             "positions": torch.zeros(1, 4, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss(params, batch)
+             "targets": torch.ones(1, 4, dtype=torch.long),
+             "loss_mask": torch.ones(1, 4),
+             "positions": torch.zeros(1, 4, dtype=torch.int32),
+             **{n: torch.zeros(d.shape, dtype=d.dtype) for n, d in
+                specs.items() if n in ("image_embeds", "frames")}}
+    loss, metrics = model.loss(params, batch)
+    assert torch.isfinite(loss) and float(metrics["tokens"]) == 4.0
     with pytest.raises(ValueError, match="unknown family"):
         LM(dataclasses.replace(cfg, family="retrieval"))
 
 
 def test_loss_says_it_is_not_ported():
+    """Training is ported: ``loss`` of the dense family is the masked mean
+    CE (about ln V at init) and needs the batch's ``targets``."""
     model = LM(get_config("qwen2-0.5b", reduced=True))
     params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
     batch = {"tokens": torch.ones(1, 4, dtype=torch.long),
              "positions": torch.zeros(1, 4, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="targets"):
         model.loss(params, batch)
+    batch.update(targets=torch.ones(1, 4, dtype=torch.long),
+                 loss_mask=torch.tensor([[1.0, 1.0, 0.0, 0.0]]))
+    loss, metrics = model.loss(params, batch)
+    assert float(metrics["tokens"]) == 2.0 and float(metrics["aux"]) == 0.0
+    assert abs(float(loss) - np.log(model.cfg.vocab_size)) < 0.5
 
 
 def test_init_params_is_seeded_and_follows_the_declarations():
