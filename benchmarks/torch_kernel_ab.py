@@ -4,11 +4,13 @@ Times ``mdscatter_`` at the store walks of its three routes (the
 ``transpose`` pattern's contiguous store, its transposing walk, whole rows
 colliding; fp32, 8192 lanes, image 50176, 1 and 1024 images, all lanes
 active), ``mdgather`` at three load walks (the transposing walk, a
-contiguous run, gemm's replicating row walk), and ``int8_matmul`` /
+contiguous run, gemm's replicating row walk), ``int8_matmul`` /
 ``bitplane_matmul`` (8 and 4 planes) at qwen2-0.5b's MLP shape (x 4096x896
 @ w 896x4864), each beside its PyTorch library call (the gather and the
 scatter also with their device time alone: calls queued behind a sleeping
-kernel), for every source tree given, in the order given.  Each tree runs in a process of its own
+kernel), and ``flash_attention_bwd`` at ``chip_smoke.py``'s training
+shapes (bf16 and fp32, device time), for every source tree given, in the
+order given.  Each tree runs in a process of its own
 (both are the package ``repro_torch``) and builds its kernels into its own
 ``build/``.  Needs a CUDA device.
 
@@ -35,6 +37,11 @@ GATHER_WALKS = {"transposing": ((512, 16), (49, 1), 0),
                 "contiguous": ((8192,), (1,), 0),
                 "replicating": ((64, 128), (0, 16), 0)}
 MLP_SHAPE = (4096, 896, 4864)
+# chip_smoke.py::TRAIN_SHAPES, (B, H, Hkv, Sq, Sk, D, causal)
+FLASH_BWD_SHAPES = {"whisper_encoder": (4, 8, 8, 1500, 1500, 64, False),
+                    "whisper_cross": (4, 8, 8, 384, 1500, 64, False),
+                    "vision_cross": (4, 32, 8, 1024, 1024, 128, False),
+                    "qwen2_causal": (4, 14, 2, 1024, 1024, 64, True)}
 
 
 def time_ms(fn, iters: int) -> float:
@@ -72,17 +79,47 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def measure_flash_bwd() -> dict:
+    """The flash backward's device time at ``FLASH_BWD_SHAPES``, bf16 and
+    fp32, on o and lse from the forward kernel."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for name, (b, h, hk, sq, sk, d, causal) in FLASH_BWD_SHAPES.items():
+        for dtype, label in ((torch.bfloat16, "bf16"),
+                             (torch.float32, "fp32")):
+            q, do = (torch.randn(b, h, sq, d, generator=gen, device="cuda")
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda")
+                    .to(dtype) for _ in range(2))
+            o, lse = _forward(q, k, v, causal, 1.0 / d ** 0.5, with_lse=True)
+            out[f"flash_attention_bwd {name} {label} device"] = device_ms(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal), 10)
+    return out
+
+
 def measure() -> dict:
     """Every time, from the ``repro_torch`` first on ``sys.path``."""
     import torch
 
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {**measure_mve(gen), **measure_gemm(gen), **measure_flash_bwd()}
+
+
+def measure_mve(gen) -> dict:
+    """``mdscatter_`` and ``mdgather`` at their walks, 1024 and 1 image,
+    beside ``index_copy_`` / ``index_select``."""
+    import torch
+
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bitplane_gemm import (bitplane_matmul,
-                                                   int8_matmul)
     from repro_torch.kernels.mdgather import mdgather
     from repro_torch.kernels.mdscatter import mdscatter_
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     mask = torch.ones(LANES, dtype=torch.bool, device="cuda")
     out = {}
     for batch, iters in ((BATCH, 50), (1, 500)):
@@ -114,6 +151,19 @@ def measure() -> dict:
             out[f"mdgather {name} B={batch} device"] = device_ms(call, 100)
             out[f"index_select {name} B={batch} device"] = device_ms(lib,
                                                                      100)
+    return out
+
+
+def measure_gemm(gen) -> dict:
+    """``int8_matmul`` and ``bitplane_matmul`` at ``MLP_SHAPE`` beside
+    ``torch._int_mm``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitplane_gemm import (bitplane_matmul,
+                                                   int8_matmul)
+
+    out = {}
     m, k, n = MLP_SHAPE
     x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
                       dtype=torch.int16).to(torch.int8)

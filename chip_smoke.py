@@ -90,7 +90,9 @@ non-zero:
    recorded), a ``(B,)`` cache index bit-equal to the scalar one, 16
    greedy decode steps, and a ``ContinuousBatchingEngine`` of 4 slots
    answering 8 requests, each checked against a one-slot engine
-   (``drive_family``, shared with 5b).
+   (``drive_family``, shared with 5b); a float8 KV cache written through
+   ``update_cache`` on the card (the overflow edges, ROADMAP C12), its
+   bytes equal to the same writes on the CPU.
 6. ``quantized`` — ``quantized_matmul`` at the MLP shape, both
    ``bitserial`` values, equal to the plain product and close to the float
    one.
@@ -200,6 +202,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -256,6 +259,8 @@ def card_line() -> str:
 # <false> bitplane_matmul's), and the SASS mnemonic of their matrix
 # instructions
 TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": "HMMA",
+                       "flash_bwd_dkdv_mma_kernel": "HMMA",
+                       "flash_bwd_dq_mma_kernel": "HMMA",
                        "bitplane_gemm_kernelILb1E": "IMMA",
                        "bitplane_gemm_kernelILb0E": "IMMA"}
 
@@ -291,6 +296,21 @@ def ptxas_usage(log: str) -> dict:
         elif fn and ("spill" in line or "registers" in line):
             usage[fn].append(line.split(":", 1)[-1].strip())
     return {fn: "; ".join(parts) for fn, parts in usage.items()}
+
+
+def check_no_spills(usage: dict, kernel: str) -> dict:
+    """The ``ptxas_usage`` lines of every instance of ``kernel`` (a
+    substring of the mangled names); fails if an instance has none or
+    spills."""
+    mine = {fn: u for fn, u in usage.items() if kernel in fn}
+    if not mine:
+        raise AssertionError(f"{kernel}: no instance in the ptxas log")
+    for fn, u in mine.items():
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", u)
+        if spill is None or any(int(x) for x in spill.groups()):
+            raise AssertionError(f"{fn} spills: {u}")
+    return mine
 
 
 def time_ms(fn, iters: int) -> float:
@@ -881,8 +901,9 @@ def time_family_shapes(ref, flash_attention, gen) -> dict:
     """The flash kernel at each of ``FAMILY_SHAPES``: bf16 (``ms``, and
     ``device_ms`` queued behind a sleep, so the device's own time shows
     under a one-row call's host overhead) and float32, each beside
-    ``scaled_dot_product_attention`` with ``enable_gqa`` (timed only) and
-    its bound; the plain version in bf16."""
+    ``scaled_dot_product_attention`` with ``enable_gqa`` (timed only; in
+    bf16 back to back and, ``library_device_ms``, behind a sleep) and its
+    bound; the plain version in bf16."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
     for name, (b, h, hk, sq, sk, d, causal) in FAMILY_SHAPES.items():
@@ -902,6 +923,8 @@ def time_family_shapes(ref, flash_attention, gen) -> dict:
                 q16, k16, v16, causal=causal), 50),
             library_ms=time_ms(lambda: sdpa(q16, k16, v16, is_causal=causal,
                                             enable_gqa=True), 50),
+            library_device_ms=device_ms(lambda: sdpa(
+                q16, k16, v16, is_causal=causal, enable_gqa=True), 50),
             bound_ms=bound, bound_by=by,
             plain_ms=time_ms(lambda: ref.flash_attention_ref(
                 q16, k16, v16, causal=causal), 5),
@@ -1033,15 +1056,26 @@ def _bwd_inputs(shape, dtype, gen):
 def check_flash_bwd(ref, flash_attention_bwd):
     """The forward kernel's ``lse`` and the backward kernels' dq, dk, dv
     against the plain versions on the card, in fp32 and bf16, at
-    ``FLASH_BWD_SWEEP`` and ``TRAIN_SHAPES``.  Returns (cases, the largest
-    |difference|, the largest |lse difference|)."""
+    ``FLASH_BWD_SWEEP`` and ``TRAIN_SHAPES``; bf16 (the tensor-core
+    kernels) both ways of the GQA sum, in the dK/dV block and split over
+    blocks (``flash_attention.gqa_split`` forced each way; a shape whose
+    q heads do not share a kv head has one way).  Returns (cases, the
+    largest |difference|, the largest |lse difference|, the split each
+    case took unforced)."""
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as fa
+
     gen = torch.Generator(device="cuda").manual_seed(7)
     worst = lse_worst = 0.0
-    cases = 0
+    cases, taken = 0, {}
     shapes = [(f"test {s}", s) for s in FLASH_BWD_SWEEP] + list(
         TRAIN_SHAPES.items())
     for name, shape in shapes:
-        causal = shape[-1]
+        b, h, hk, _, sk, _, causal = shape
+        taken[name] = fa.gqa_split(b, hk, sk, h // hk, torch.cuda.
+                                   get_device_properties(0).
+                                   multi_processor_count)
         for dtype, (rtol, step) in ((torch.float32, FLASH_BWD_FP32_TOL),
                                     (torch.bfloat16, FLASH_BWD_BF16_TOL)):
             q, k, v, o, lse, do = _bwd_inputs(shape, dtype, gen)
@@ -1051,26 +1085,34 @@ def check_flash_bwd(ref, flash_attention_bwd):
                 raise AssertionError(f"lse: rows without a key differ at "
                                      f"{name} {dtype}")
             lse_err = float((lse - want_lse)[seen].abs().max())
-            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
             want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                causal=causal)
-            torch.cuda.synchronize()
-            for what, g, w in zip(("dq", "dk", "dv"), got, want):
-                scale = float(w.float().abs().max())
-                if g.dtype != dtype or g.shape != w.shape or not \
-                        torch.allclose(g.float(), w.float(), rtol=rtol,
-                                       atol=step * scale):
-                    raise AssertionError(
-                        f"flash_attention_bwd != plain: {what} at {name} "
-                        f"{dtype}: max_abs_err {max_abs_err(g, w)} "
-                        f"(largest entry {scale})")
-                worst = max(worst, max_abs_err(g, w))
+            ways = ((None,) if dtype == torch.float32 or h == hk
+                    else (False, True))
+            for split in ways:
+                with mock.patch.object(
+                        fa, "gqa_split",
+                        fa.gqa_split if split is None
+                        else (lambda *a, split=split: split)):
+                    got = flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=causal)
+                torch.cuda.synchronize()
+                for what, g, w in zip(("dq", "dk", "dv"), got, want):
+                    scale = float(w.float().abs().max())
+                    if g.dtype != dtype or g.shape != w.shape or not \
+                            torch.allclose(g.float(), w.float(), rtol=rtol,
+                                           atol=step * scale):
+                        raise AssertionError(
+                            f"flash_attention_bwd != plain: {what} at "
+                            f"{name} {dtype} (split {split}): max_abs_err "
+                            f"{max_abs_err(g, w)} (largest entry {scale})")
+                    worst = max(worst, max_abs_err(g, w))
+                cases += 1
             if lse_err > LSE_TOL:
                 raise AssertionError(f"lse != plain at {name} {dtype}: "
                                      f"{lse_err}")
             lse_worst = max(lse_worst, lse_err)
-            cases += 1
-    return cases, worst, lse_worst
+    return cases, worst, lse_worst, taken
 
 
 def time_flash_bwd(ref, flash_attention_bwd) -> dict:
@@ -1079,7 +1121,14 @@ def time_flash_bwd(ref, flash_attention_bwd) -> dict:
     and the backward of ``scaled_dot_product_attention`` with
     ``enable_gqa`` on the same inputs (timed only; the port never calls
     it).  The row's own numbers are whisper-base's encoder, the largest
-    call of the training path that runs the kernels."""
+    call of the training path that runs the kernels.  Where q heads share
+    a kv head, bf16 is also timed with ``gqa_split`` forced each way
+    (``device_ms_in_block``, ``device_ms_split``): the evidence for the
+    wrapper's rule."""
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as fa
+
     gen = torch.Generator(device="cuda").manual_seed(9)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = {}
@@ -1095,7 +1144,9 @@ def time_flash_bwd(ref, flash_attention_bwd) -> dict:
                                         peak=FP32_FLOPS)
         cases[name] = dict(
             shape=f"q ({b}, {h}, {sq}, {d}), k/v ({b}, {hk}, {sk}, {d})",
-            causal=causal,
+            causal=causal, gqa_split=fa.gqa_split(
+                b, hk, sk, h // hk,
+                torch.cuda.get_device_properties(0).multi_processor_count),
             ms=time_ms(lambda: flash_attention_bwd(
                 q, k, v, o, lse, do, causal=causal), 10),
             device_ms=device_ms(lambda: flash_attention_bwd(
@@ -1112,6 +1163,13 @@ def time_flash_bwd(ref, flash_attention_bwd) -> dict:
             ms_fp32=time_ms(lambda: flash_attention_bwd(
                 q32, k32, v32, o32, lse32, do32, causal=causal), 3),
             bound_ms_fp32=bound32, bound_by_fp32=by32)
+        ways = () if h == hk else (("in_block", False), ("split", True))
+        for way, split in ways:
+            with mock.patch.object(fa, "gqa_split",
+                                   lambda *a, split=split: split):
+                cases[name][f"device_ms_{way}"] = device_ms(
+                    lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                causal=causal), 10)
         del qs, ks, vs, so
     row = {key: cases["whisper_encoder"][key] for key in (
         "ms", "device_ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
@@ -2018,6 +2076,54 @@ DECODE_STEPS = 16
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_SEQ = 4, 8, 256
 
 
+# ROADMAP C12: the values tests/test_torch_float8_cache.py writes into a
+# float8 cache (the reference's NaN above 464 and at +-inf, 448 at 464)
+F8_EDGES = (464.0, -464.0, 464.01, -464.01, 479.9, -479.9, 480.0, -480.0,
+            1e4, -1e4, float("inf"), float("-inf"), float("nan"),
+            -float("nan"), 448.0, -0.0, 1e-9)
+
+
+def check_float8_cache() -> dict:
+    """``update_cache`` into a ``float8_e4m3fn`` cache on the card: the
+    ``F8_EDGES`` of both signs and random values of scale 300 (about one
+    in eight past 464), 4 x 8 kv heads x 128, k in float32 and v in bf16,
+    by an int index and a ``(B,)`` index; the cache bytes must equal the
+    same writes on the CPU."""
+    from repro_torch.models.attention import update_cache
+
+    edges = torch.tensor(F8_EDGES)
+    gen = torch.Generator().manual_seed(12)
+    vals = torch.cat([edges, -edges, 300 * torch.randn(
+        4096 - 2 * len(F8_EDGES), generator=gen)]).reshape(4, 1, 8, 128)
+    # rounded to bf16 once, on the CPU: the card's own rounding of a NaN
+    # drops its sign, which is not update_cache's to answer for
+    vals16 = vals.bfloat16()
+    nan_bytes = 0
+    for index in (3, torch.tensor([0, 5, 2, 7])):
+        got = []
+        for dev in ("cpu", "cuda"):
+            k, v = (torch.zeros(4, 8, 8, 128, dtype=torch.float8_e4m3fn,
+                                device=dev) for _ in range(2))
+            idx = index.to(dev) if isinstance(index, torch.Tensor) else index
+            update_cache(k, v, vals.to(dev), vals16.to(dev), idx)
+            got.append([bits(c).cpu() for c in (k, v)])
+        for what, x, cpu, card in zip("kv", (vals, vals16.float()), *got):
+            if not torch.equal(cpu, card):
+                rows = torch.arange(4)
+                at = index if isinstance(index, torch.Tensor) else \
+                    torch.full((4,), index)
+                diff = (cpu != card)[rows, at].reshape(-1)
+                raise AssertionError(
+                    f"float8 cache {what} (index {index}): "
+                    f"{int(diff.sum())} bytes differ from the CPU's, at "
+                    f"inputs {x.reshape(-1)[diff][:8].tolist()}: CPU "
+                    f"{cpu[rows, at].reshape(-1)[diff][:8].tolist()}, card "
+                    f"{card[rows, at].reshape(-1)[diff][:8].tolist()}")
+        nan_bytes = int(((got[1][0] & 0x7F) == 0x7F).sum())
+    return {"values": vals.numel(), "nan_bytes": nan_bytes,
+            "indices": ["int", "(B,)"], "bit_equal_to_cpu": True}
+
+
 def device_profile(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: host wall ms, device
     busy ms (kernel + memcpy/memset time), the flash kernel's ms, device
@@ -2731,9 +2837,17 @@ def main() -> int:
         _build.load(name)
     logs = {name: ptxas_usage((_build.BUILD_DIR / f"{name}.log").read_text())
             for name in libs}
+    bwd_usage = {kernel: check_no_spills(logs["flash_attention_bwd"], kernel)
+                 for kernel in ("flash_bwd_delta_kernel",
+                                "flash_bwd_dkdv_mma_kernel",
+                                "flash_bwd_gqa_sum_kernel",
+                                "flash_bwd_dq_mma_kernel",
+                                "flash_bwd_dkdv_kernel",
+                                "flash_bwd_dq_kernel")}
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(str(p.relative_to(ROOT)) for p in libs.values()),
-         ptxas=logs, sass_mma=sass_mma_counts(_build, libs))
+         ptxas=logs, flash_bwd_no_spills=bwd_usage,
+         sass_mma=sass_mma_counts(_build, libs))
 
     # ---- 3. kernels ------------------------------------------------------
     t0 = time.perf_counter()
@@ -2752,8 +2866,8 @@ def main() -> int:
     float_cases = check_float_ops(ref, float_binary, float_convert)
     worst.update(float_binary=0.0, float_convert=0.0)
     timings.update(time_float_ops(ref, float_binary, float_convert))
-    bwd_cases, worst["flash_attention_bwd"], lse_err = check_flash_bwd(
-        ref, flash_attention_bwd)
+    bwd_cases, worst["flash_attention_bwd"], lse_err, bwd_split = \
+        check_flash_bwd(ref, flash_attention_bwd)
     timings["flash_attention_bwd"] = time_flash_bwd(ref, flash_attention_bwd)
     emit("kernels", seconds=time.perf_counter() - t0,
          cases=cases + lm_cases + float_cases + bwd_cases,
@@ -2767,7 +2881,7 @@ def main() -> int:
                     "flash_attention_bwd": "(rtol, share of the largest "
                                            f"entry): fp32 {FLASH_BWD_FP32_TOL}"
                                            f", bf16 {FLASH_BWD_BF16_TOL}"},
-         flash_lse_max_abs_err=lse_err,
+         flash_lse_max_abs_err=lse_err, flash_bwd_gqa_split=bwd_split,
          max_abs_err=worst, mdgather_routes=gather_routes,
          mdgather_device_ops=gather_ops, mdscatter_routes=routes,
          mdscatter_device_ops=scatter_ops,
@@ -2823,7 +2937,7 @@ def main() -> int:
         lm, lm_counts = drive("LM", ("flash_attention",), drive_family,
                               *FAMILIES[0], flash_attention)
         emit("lm", seconds=time.perf_counter() - t0, launches=lm_counts,
-             **lm)
+             float8_cache=check_float8_cache(), **lm)
         t0 = time.perf_counter()
         families, fam_counts = drive(
             "lm_families", ("flash_attention",), lambda: {

@@ -102,28 +102,14 @@ constexpr size_t fm_smem_bytes() {  // q tile + two stages of k and v
     return (size_t)5 * FM_ROWS * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-// Stage rows row0 .. row0 + 63 of one head (row stride `stride` elements)
-// into a padded tile; rows at or past `end` are filled with zeros.
+// Stage rows row0 .. row0 + 63 of one head into a padded tile
+// (mma_sync.cuh); rows at or past `end` are filled with zeros.
 template <int D>
 __device__ __forceinline__ void fm_stage(__nv_bfloat16* dst,
                                          const __nv_bfloat16* src,
                                          long long stride, long long row0,
                                          long long end, int tid) {
-    constexpr int LD = D + 8, CHUNKS = D / 8;
-#pragma unroll
-    for (int it = 0; it < FM_ROWS * CHUNKS / FM_THREADS; ++it) {
-        const int i = tid + it * FM_THREADS;
-        const int r = i / CHUNKS, c = i % CHUNKS;
-        const long long row = row0 + r;
-        const bool in = row < end;
-        cp_async16(smem_addr(dst + r * LD + c * 8),
-                   in ? src + row * stride + c * 8 : src, in ? 16 : 0);
-    }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
+    cp_async_rows<FM_ROWS, D, FM_THREADS>(dst, src, stride, row0, end, tid);
 }
 
 template <int D>

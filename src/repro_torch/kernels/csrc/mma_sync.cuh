@@ -1,6 +1,7 @@
-// Warp-level tensor-core building blocks shared by the flash-attention and
-// bit-plane GEMM kernels: 16-byte cp.async staging into shared memory,
-// ldmatrix fragment loads, and the two mma.sync shapes they use.
+// Warp-level tensor-core building blocks shared by the flash-attention
+// (forward and backward) and bit-plane GEMM kernels: 16-byte cp.async
+// staging into shared memory, ldmatrix fragment loads, the two mma.sync
+// shapes they use, and packing an fp32 C fragment into a bf16 A fragment.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 / k32"),
 // with g = lane / 4 and t = lane % 4:
@@ -17,6 +18,7 @@
 // matrix i.  With .trans each matrix arrives transposed.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -41,6 +43,36 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows row0 .. row0 + ROWS - 1 of one head (D bf16 a row, row stride
+// `stride` elements, 16-byte aligned) into a tile whose rows are padded to
+// D + 8 bf16 (a 16-byte skew, so the eight rows one ldmatrix reads hit
+// eight distinct groups of four banks), THREADS threads together; rows at
+// or past `end` are filled with zeros.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              long long stride,
+                                              long long row0, long long end,
+                                              int tid) {
+    constexpr int LD = D + 8, CHUNKS = D / 8;
+#pragma unroll
+    for (int it = 0; it < ROWS * CHUNKS / THREADS; ++it) {
+        const int i = tid + it * THREADS;
+        const int r = i / CHUNKS, c = i % CHUNKS;
+        const long long row = row0 + r;
+        const bool in = row < end;
+        cp_async16(smem_addr(dst + r * LD + c * 8),
+                   in ? src + row * stride + c * 8 : src, in ? 16 : 0);
+    }
+}
+
+// Two fp32 values rounded to bf16 and packed into one 32-bit register (lo
+// in the low half): C fragment c0, c1 (or c2, c3) -> one A register.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {

@@ -29,10 +29,22 @@ The backward has no TPU kernel behind it: the reference differentiates its
 plain attention.  A call whose inputs require a gradient goes through
 :class:`FlashAttentionFn`, whose forward also keeps each row's log-sum-exp
 (``lse``) and whose backward, :func:`flash_attention_bwd`, launches the
-three kernels of ``csrc/flash_attention_bwd.cu`` (``D = rowsum(dO O)``,
-dK/dV per kv head with the GQA sum inside, dQ; SIMT, fp32 sums), counted
-in ``flash_attention_bwd.launches``.  A call that needs no gradient (every
-serving call) launches the forward alone and keeps no ``lse``.
+kernels of ``csrc/flash_attention_bwd.cu`` (``D = rowsum(dO O)``, dK/dV,
+dQ; fp32 sums, no atomics), counted once a call in
+``flash_attention_bwd.launches``.  The dtype picks them as in the forward:
+
+* bfloat16 takes ``flash_bwd_dkdv_mma_kernel`` and
+  ``flash_bwd_dq_mma_kernel`` on the tensor cores (``mma.sync``, P and dS
+  rounded to bf16 as A operands).  The GQA sum over a kv head's q heads
+  stays inside its dK/dV block unless those blocks are too few to fill the
+  card (:func:`gqa_split`); then each block takes one q head, writes fp32
+  partials to a scratch allocated here, and ``flash_bwd_gqa_sum_kernel``
+  sums them in head order.
+* float32 takes the SIMT kernels (``flash_bwd_dkdv_kernel``,
+  ``flash_bwd_dq_kernel``), for the reason the forward's float32 does.
+
+A call that needs no gradient (every serving call) launches the forward
+alone and keeps no ``lse``.
 
 Bound on this card at the qwen2-0.5b prefill shape: operations (the
 kernels' source notes have the arithmetic).
@@ -59,7 +71,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
              + [ctypes.c_longlong] * 14 + [ctypes.c_int, ctypes.c_float,
                                            ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
                  + [ctypes.c_longlong] * 5 + [ctypes.c_void_p, ctypes.c_int,
                                               ctypes.c_float,
                                               ctypes.c_void_p])
@@ -197,6 +209,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+#: Rows of a K tile of the bf16 dK/dV kernel (``FBM_ROWS``).
+BWD_TILE = 64
+
+
+def gqa_split(batch: int, kv_heads: int, sk: int, group: int,
+              sms: int) -> bool:
+    """Whether the bf16 dK/dV kernel splits each kv head's ``group`` q
+    heads over blocks (fp32 partials, summed after in head order): where
+    the blocks of the in-block sum, ``batch * kv_heads * ceil(sk / 64)``,
+    are fewer than two for each of the card's ``sms`` SMs (qwen2-0.5b's
+    training shape, 4 x 2 x 16 = 128 on 132 SMs, splits; whisper's and the
+    vision cross attention's, 512 and more, do not)."""
+    blocks = batch * kv_heads * -(-sk // BWD_TILE)
+    return group > 1 and blocks < 2 * sms
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, causal: bool = True,
@@ -206,7 +234,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output gradient ``dout``, given the forward's output ``o`` and its
     ``lse`` (fp32 ``(B, H, Sq)``).  dq is ``(B, H, Sq, D)``, dk and dv
     ``(B, Hkv, Sk, D)`` (each kv head's sum over its q heads), all in q's
-    type.  On CUDA tensors: the three backward kernels, one count in
+    type.  On CUDA tensors: the backward kernels (bf16: on the tensor
+    cores, with the GQA split of :func:`gqa_split`), one count in
     ``flash_attention_bwd.launches`` per call; on CPU tensors the plain
     :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`."""
     scale = _check(q, k, v, scale, float64_on_cpu=True)
@@ -226,8 +255,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"need {q.dtype}, {q.dtype}, float32")
     if any(t.device != q.device for t in (o, lse, dout)):
         raise ValueError("q, k, v, o, lse, dout must lie on one device")
-    q, k, v, dout = (t if t.stride(-1) == 1 else t.contiguous()
-                     for t in (q, k, v, dout))
+    q, k, v, dout = (_kernel_operand(t) for t in (q, k, v, dout))
     o, lse = o.contiguous(), lse.contiguous()
     dq = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device)
     dk = torch.empty(b, hk, sk, d, dtype=q.dtype, device=q.device)
@@ -235,6 +263,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0 or dk.numel() == 0:     # nothing seen, no gradient
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    part = None
+    if q.dtype == torch.bfloat16 and gqa_split(
+            b, hk, sk, h // hk,
+            torch.cuda.get_device_properties(q.device).multi_processor_count):
+        part = torch.empty(2, b, h, sk, d, dtype=torch.float32,
+                           device=q.device)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *dout.stride()[:3])
     with torch.cuda.device(q.device):
@@ -242,14 +276,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       _BWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], d, b, h, hk,
-            sq, sk, strides, int(bool(causal)), scale,
+            dv.data_ptr(), delta.data_ptr(),
+            0 if part is None else part.data_ptr(), _DTYPES[q.dtype], d, b,
+            h, hk, sq, sk, strides, int(bool(causal)), scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
-#: Number of times the backward kernels were launched (CUDA tensors only;
-#: each call launches the three of them).
+#: Number of calls that launched the backward kernels (CUDA tensors only;
+#: each call launches three of them, four with the GQA split).
 flash_attention_bwd.launches = 0

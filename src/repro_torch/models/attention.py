@@ -123,6 +123,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, one, hq, d).to(q.dtype)
 
 
+#: float8_e4m3fn has no infinity, and the reference's conversion (ml_dtypes'
+#: rule, round to nearest even) gives NaN for what rounds past 448: every
+#: |x| > 464, and +-inf.  torch saturates those to +-448 instead on the CPU.
+E4M3_NAN_ABOVE = 464.0
+
+
+def _to_cache_type(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` converted to the cache's type as the reference's ``astype``
+    converts it.  For ``float8_e4m3fn`` the rule is written out: widened
+    to float32, NaN, +-inf and |x| > ``E4M3_NAN_ABOVE`` become NaN with x's
+    sign (bytes 0x7f / 0xff, the same on every device), everything else
+    goes through ``.to``.  Other types convert with ``.to`` as they are."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    x = x.float()
+    nan = ~(x.abs() <= E4M3_NAN_ABOVE)
+    out = torch.where(nan, 0.0, x).to(dtype).view(torch.uint8)
+    nan_bits = torch.signbit(x).to(torch.uint8) << 7 | 0x7F
+    return torch.where(nan, nan_bits, out).view(dtype)
+
+
 def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor,
                  cache_index) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -138,8 +159,8 @@ def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     s = k_cache.shape[1]
     if isinstance(cache_index, int):
         i = min(max(cache_index, 0), s - 1)
-        k_cache[:, i] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[:, i] = v_new[:, 0].to(v_cache.dtype)
+        k_cache[:, i] = _to_cache_type(k_new[:, 0], k_cache.dtype)
+        v_cache[:, i] = _to_cache_type(v_new[:, 0], v_cache.dtype)
         return k_cache, v_cache
     ci = cache_index.to(k_cache.device).long()
     ci = torch.where(ci < 0, ci + s, ci)
@@ -147,6 +168,8 @@ def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     ci = ci.clamp(0, s - 1)
     rows = torch.arange(k_cache.shape[0], device=k_cache.device)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        cache[rows, ci] = torch.where(keep, new[:, 0].to(cache.dtype),
-                                      cache[rows, ci])
+        new = _to_cache_type(new[:, 0], cache.dtype)
+        if cache.dtype == torch.float8_e4m3fn:     # select and scatter bytes
+            cache, new = cache.view(torch.uint8), new.view(torch.uint8)
+        cache[rows, ci] = torch.where(keep, new, cache[rows, ci])
     return k_cache, v_cache

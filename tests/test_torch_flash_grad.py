@@ -12,10 +12,11 @@
   rows that see a key.
 * ``torch.autograd.gradcheck`` of ``FlashAttentionFn``'s CPU path in
   float64 (its saved tensors, the GQA sum, the scale).
-* The backward kernels' loops (``csrc/flash_attention_bwd.cu``: 64-row K
-  blocks over 32-row q tiles from the causal diagonal on, 64-row q blocks
-  over 32-row K tiles up to it, the thread-to-column map) emulated in
-  NumPy against the plain backward.
+* The float32 backward kernels' loops (``csrc/flash_attention_bwd.cu``,
+  SIMT: 64-row K blocks over 32-row q tiles from the causal diagonal on,
+  64-row q blocks over 32-row K tiles up to it, the thread-to-column map)
+  emulated in NumPy against the plain backward; the bf16 tensor-core
+  kernels are emulated in ``tests/test_torch_flash_bwd_mma.py``.
 * ``LM.loss`` through the flash route: the reduced dense, vlm and encdec
   configs at ``head_dim=64``, with and without ``segment_ids``, against
   ``jax.value_and_grad`` of the reference's loss (its plain attention, its
@@ -177,7 +178,7 @@ def _columns(d):
 
 
 def emulate_backward(q, k, v, o, lse, do, causal, scale):
-    """``flash_bwd_{delta,dkdv,dq}_kernel`` block by block in float32: the
+    """The float32 ``flash_bwd_{delta,dkdv,dq}_kernel`` block by block: the
     same tiles, loop bounds, masks and GQA order, the columns of a row
     gathered through the threads' column map."""
     b, h, sq, d = q.shape

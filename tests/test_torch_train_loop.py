@@ -2,8 +2,9 @@
 ``tests/test_train_loop.py`` (loss decreases, checkpoint restart resumes
 exactly, gradient accumulation) through ``repro_torch.launch.train``, one
 ``make_train_step`` step against the reference's from the same parameters,
-state and batch (``grad_accum`` 1 and 2, fp32 and int8 moments), and the
-entry point's refusals.
+state and batch (``grad_accum`` 1 and 2, fp32 and int8 moments), the
+entry point's refusals, and the reference's own loop failing to resume
+int8 moments (ROADMAP C13; the port resumes them).
 
 Step parity, float32 parameters: loss and metrics within ``rtol 1e-6``;
 fp32 moments within ``1e-5`` of each leaf's largest entry; int8 moments
@@ -21,8 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ShapeCell as RefShapeCell
 from repro.configs import get_config as ref_get_config
 from repro.launch.steps import make_train_step as ref_make_train_step
+from repro.launch.train import TrainLoopConfig as RefTrainLoopConfig
+from repro.launch.train import train_loop as ref_train_loop
 from repro.models import LM as RefLM
 from repro.optim import AdamWConfig as RefAdamWConfig
 from repro.optim import adamw_init as ref_adamw_init
@@ -79,6 +83,28 @@ def test_checkpoint_restart_exact_resume(tmp_path, fmt):
         seed=0, device="cpu")
     assert m_full["loss"] == m_resumed["loss"]
     assert m_resumed["final_step"] == 10.0
+
+
+def test_reference_does_not_resume_int8_moments(tmp_path):
+    """ROADMAP C13, the reference's side: its ``train_loop`` shapes the
+    restore template's moments like the float32 parameters, while int8
+    moments are saved as ``{"q", "s"}``, so resuming them raises
+    ``KeyError`` in ``repro/checkpoint/store.py``'s ``load_checkpoint``
+    (the port's side is ``test_checkpoint_restart_exact_resume[int8]``)."""
+    cell = RefShapeCell("t", 32, 4, "train")
+    opt = RefAdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                         state_format="int8")
+    d = str(tmp_path / "ref")
+    ref_train_loop(ref_get_config("qwen2-0.5b", reduced=True), cell,
+                   RefTrainLoopConfig(steps=1, ckpt_dir=d, ckpt_every=1,
+                                      log_every=100), opt_cfg=opt)
+    with pytest.raises(KeyError, match="opt/m/") as err:
+        ref_train_loop(ref_get_config("qwen2-0.5b", reduced=True), cell,
+                       RefTrainLoopConfig(steps=2, ckpt_dir=d, ckpt_every=1,
+                                          log_every=100), opt_cfg=opt)
+    last = err.traceback[-1]
+    assert str(last.path).endswith("repro/checkpoint/store.py")
+    assert last.name == "load_checkpoint"
 
 
 def test_grad_accum_equivalence():
