@@ -2662,6 +2662,7 @@ def drive_train_whisper(flash_attention, flash_attention_bwd) -> dict:
     from repro_torch.models import LM
     from repro_torch.models.common import tree_map
     from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.trees import value_and_grad
 
     cfg = get_config("whisper-base")
     model = LM(cfg)
@@ -2717,7 +2718,7 @@ def drive_train_whisper(flash_attention, flash_attention_bwd) -> dict:
             p = tree_map(lambda x: x.to(device=dev, dtype=torch.float32),
                          initial)
             b = {k: x.to(dev) for k, x in one.items()}
-            (loss, _), grads = steps_mod._value_and_grad(model, p, b)
+            (loss, _), grads = value_and_grad(model.loss, p, b)
             _, _, m = steps_mod.make_train_step(model, opt)(
                 p, adamw_init(p), b)
             out[dev] = (float(m["loss"]), float(m["grad_norm"]),
@@ -2754,6 +2755,410 @@ def drive_train_whisper(flash_attention, flash_attention_bwd) -> dict:
             "tolerance": [TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_NORM_RTOL],
             "worst_leaf": worst_leaf,
             "worst_leaf_rel_to_its_max": leaf_err[worst_leaf]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the data mesh
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3                         # whisper-base through jitted_cell
+DP_STEPS = 2                           # make_dp_train_step, each way
+PIPE_MICRO, PIPE_ROWS, PIPE_DIM = 4, 8, 1024
+# tests/test_sharding.py's pipeline check: forward, gradient
+PIPE_TOL, PIPE_GRAD_RTOL = 1e-5, 1e-4
+MESH_ENTRY_ARGS = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "128",
+                   "--data", "1", "--ckpt-every", "2"]
+
+
+def _leaves_equal(a, b) -> list:
+    """Paths of the leaves of two trees (DTensors gathered) whose bits
+    differ."""
+    from repro_torch.parallel.axes import gather
+    b = dict(_tree_leaves(b))
+    return [k for k, x in _tree_leaves(a)
+            if not torch.equal(bits(gather(x)), bits(gather(b[k])))]
+
+
+def drive_mesh_whisper(mesh, flash_attention, flash_attention_bwd) -> dict:
+    """whisper-base as published, the ``train`` phase's cell (4 x 384 text
+    tokens over 4 x 1500 frames, bf16 weights, fp32 moments): ``MESH_STEPS``
+    steps through ``jitted_cell`` on the mesh beside ``make_train_step``
+    from the same state; every parameter, both moments and the loss bit for
+    bit, the flash launches of each mesh step exact; one mesh step
+    profiled (the ``train`` phase profiles ``make_train_step``'s)."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import DataConfig, make_train_batches
+    from repro_torch.launch.steps import (jitted_cell, make_train_step,
+                                          state_shardings)
+    from repro_torch.models import LM
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel.axes import place, sharding_context
+
+    cfg = get_config("whisper-base")
+    model = LM(cfg)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=MESH_STEPS)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    frames = torch.randn(LM_BATCH, cfg.num_frames, cfg.d_model,
+                         generator=gen, device="cuda").bfloat16()
+    batches = make_train_batches(DataConfig(cfg.vocab_size, WHISPER_TEXT,
+                                            LM_BATCH, seed=0))
+    batches = [{**{k: torch.from_numpy(x).cuda() for k, x in b.items()
+                   if k != "next_doc"}, "frames": frames}
+               for b in (next(batches) for _ in range(MESH_STEPS))]
+    with sharding_context(mesh) as ctx:
+        step, _ = jitted_cell(cfg, ShapeCell("mesh", WHISPER_TEXT, LM_BATCH,
+                                             "train"), ctx, opt_cfg=opt)
+        shard = state_shardings(model, opt, ctx)
+    plain = make_train_step(model, opt)
+    p1, s1 = params, adamw_init(params)
+    p2 = tree_map(place, params, shard["params"])
+    s2 = tree_map(place, adamw_init(params), shard["opt"])
+    want = flash_per_train_step(cfg)
+    per_step, times, losses = set(), [], []
+    for b in batches:
+        p1, s1, m1 = plain(p1, s1, b)
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p2, s2, m2 = step(p2, s2, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.add((flash_attention.launches - before[0],
+                      flash_attention_bwd.launches - before[1]))
+        losses.append((float(m1["loss"]), float(m2["loss"])))
+        if not torch.equal(bits(m1["loss"]), bits(m2["loss"])):
+            raise AssertionError(f"whisper-base on the mesh: loss "
+                                 f"{losses[-1]} differs from one device's")
+    differ = {"params": _leaves_equal(p1, p2),
+              "m": _leaves_equal(s1["m"], s2["m"]),
+              "v": _leaves_equal(s1["v"], s2["v"])}
+    if any(differ.values()):
+        raise AssertionError(f"whisper-base through jitted_cell differs from "
+                             f"make_train_step in {differ}")
+    if per_step != {want}:
+        raise AssertionError(f"whisper-base on the mesh: flash launches per "
+                             f"step {per_step}, not {want}")
+    profile = device_profile(lambda: step(p2, s2, batches[-1]))
+    del p1, s1, p2, s2, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "batch": LM_BATCH,
+            "text_tokens": WHISPER_TEXT, "frames": list(frames.shape),
+            "steps": MESH_STEPS, "losses_plain_mesh": losses,
+            "equal": "bit for bit: every parameter, m, v and the loss",
+            "flash_launches_per_step": {"forward": want[0],
+                                        "backward": want[1]},
+            "mesh_step_ms": [t * 1e3 for t in times],
+            "profiled_step": profile}
+
+
+def qwen2_gradients():
+    """qwen2-0.5b as published, random bf16 weights from seed 0, and the
+    gradient of its loss on the ``train`` phase's first 8 x 1024 batch
+    (``make_train_step``'s backward): (model, params, batch, gradients)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_train_batches
+    from repro_torch.models import LM
+    from repro_torch.trees import value_and_grad
+
+    cfg = get_config("qwen2-0.5b")
+    model = LM(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batches = make_train_batches(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                            TRAIN_BATCH, seed=0))
+    batches = [{k: torch.from_numpy(x).cuda() for k, x in b.items()
+                if k != "next_doc"}
+               for b in (next(batches) for _ in range(DP_STEPS))]
+    _, grads = value_and_grad(model.loss, params, batches[0])
+    return model, params, batches, grads
+
+
+def drive_mesh_compression(grads, cpu_group) -> tuple:
+    """``compressed_allreduce_mean`` of every leaf of qwen2-0.5b's gradient
+    (as float32), then ``compress_with_feedback`` from a zero residual, on
+    the card over NCCL; the pass profiled (device ms, launches) beside
+    ``dist.all_reduce`` of the same float32 tree (device time behind a
+    sleep, timed only).  Each leaf's int8 payload, scale, mean, new
+    gradient and new residual are copied to the host, where a thread
+    started here runs the same functions over gloo (``cpu_group``) on the
+    same gradients and holds them equal bit for bit, beside the checks
+    that follow.  Returns (the record, the card's residual on the host,
+    the thread's join function, which raises on a difference)."""
+    import threading
+    import traceback
+    import torch.distributed as dist
+    from repro_torch.models.common import tree_map
+    from repro_torch.parallel.compression import (compress_with_feedback,
+                                                  compressed_allreduce_mean,
+                                                  int8_payload,
+                                                  zeros_like_residual)
+
+    g32 = tree_map(lambda g: g.float(), grads)
+    n = sum(x.numel() for _, x in _tree_leaves(g32))
+
+    def sync():
+        means = tree_map(compressed_allreduce_mean, g32)
+        return compress_with_feedback(means, zeros_like_residual(means))
+
+    def all_reduce():
+        for _, x in _tree_leaves(g32):
+            dist.all_reduce(x)          # one rank: the values stay
+
+    sync()
+    profile = device_profile(sync)
+    ar_ms = device_ms(all_reduce, 3)
+
+    def one(g, group):
+        q, scale = int8_payload(g, group)
+        mean = compressed_allreduce_mean(g, group)
+        new_g, new_r = compress_with_feedback(
+            {"g": mean}, {"g": torch.zeros_like(mean)})
+        return q, scale, mean, new_g["g"], new_r["g"]
+
+    card = {path: [x.cpu() for x in (g,) + one(g, None)]
+            for path, g in _tree_leaves(g32)}
+    del g32
+    errors, seconds = [], []
+
+    def check_on_cpu():
+        t0 = time.perf_counter()
+        try:
+            for path, (g, *want) in card.items():
+                for name, a, b in zip(("payload", "scale", "mean", "grad",
+                                       "residual"), want, one(g, cpu_group)):
+                    if not torch.equal(bits(a), bits(b)):
+                        errors.append(f"{path}: the card's {name} differs "
+                                      "from the CPU's")
+        except Exception:               # reported by join, in the caller
+            errors.append(traceback.format_exc())
+        seconds.append(time.perf_counter() - t0)
+
+    thread = threading.Thread(target=check_on_cpu, daemon=True)
+    thread.start()
+
+    def join() -> float:
+        thread.join()
+        if errors:
+            raise AssertionError(f"compressed sync, card vs CPU: {errors}")
+        return seconds[0]
+
+    bytes_sync = 16 * n        # g and residual in, grad and residual out
+    record = {"config": "qwen2-0.5b", "values": n,
+              "equal_to_cpu": "bit for bit: payload, scale, mean, gradient, "
+                              "residual of every leaf",
+              "sync": {**profile, "bytes": bytes_sync,
+                       "bound_ms": bytes_sync / HBM_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes"},
+              "all_reduce_fp32": {"device_ms": ar_ms, "bytes": 8 * n,
+                                  "bound_ms": 8 * n / HBM_BYTES_PER_S * 1e3}}
+    return record, {k: v[-1] for k, v in card.items()}, join
+
+
+def drive_mesh_dp(mesh, model, params, batches, residual) -> dict:
+    """``make_dp_train_step`` on qwen2-0.5b's ``LM.loss``, ``DP_STEPS`` steps
+    with ``compress=False`` (every parameter, both moments and the loss
+    equal to ``make_train_step``'s bit for bit) and with ``compress=True``
+    (finite loss; the residual after the first step equal to the
+    compressed sync's on the same gradient)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.parallel.compression import (make_dp_train_step,
+                                                  zeros_like_residual)
+
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=DP_STEPS)
+
+    def loss_fn(p, b):
+        return model.loss(p, b)[0]
+
+    def update(p, g, s):
+        return adamw_update(opt, p, g, s)[:2]
+
+    plain = make_train_step(model, opt)
+    p, s = params, adamw_init(params)
+    for b in batches:
+        p, s, m = plain(p, s, b)
+    out = {}
+    for compress in (False, True):
+        step = make_dp_train_step(loss_fn, update, mesh, compress=compress)
+        q, st, r = params, adamw_init(params), zeros_like_residual(params)
+        losses, t0 = [], time.perf_counter()
+        for i, b in enumerate(batches):
+            q, st, r, loss = step(q, st, r, b)
+            losses.append(float(loss))
+            if compress and i == 0:
+                differ = [k for k, x in _tree_leaves(r) if not torch.equal(
+                    bits(x.cpu()), bits(residual[k]))]
+                if differ:
+                    raise AssertionError(f"make_dp_train_step's residual "
+                                         f"differs from the sync's in "
+                                         f"{differ}")
+        seconds = time.perf_counter() - t0
+        if compress:
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"compressed DP losses {losses}")
+        else:
+            differ = {"params": _leaves_equal(p, q),
+                      "m": _leaves_equal(s["m"], st["m"]),
+                      "v": _leaves_equal(s["v"], st["v"])}
+            if any(differ.values()) or losses[-1] != float(m["loss"]):
+                raise AssertionError(f"make_dp_train_step(compress=False) "
+                                     f"differs from make_train_step: "
+                                     f"{differ}, {losses} vs {m['loss']}")
+        out[f"compress={compress}"] = {"losses": losses,
+                                       "seconds": seconds}
+        del q, st, r
+    del p, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": "qwen2-0.5b", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": DP_STEPS, **out,
+            "compress=False": {**out["compress=False"],
+                               "equal": "bit for bit to make_train_step"}}
+
+
+def drive_mesh_pipeline() -> dict:
+    """``pipeline_apply`` with one stage on the card (the reference test's
+    ``tanh(h @ w)`` stage at D = ``PIPE_DIM``) against the sequential
+    composition: output, loss and the weight's gradient."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.randn(1, PIPE_DIM, PIPE_DIM, generator=gen,
+                    device="cuda") * PIPE_DIM ** -0.5
+    x = torch.randn(PIPE_MICRO, PIPE_ROWS, PIPE_DIM, generator=gen,
+                    device="cuda")
+    apply = pipeline_apply(lambda ws, h: torch.tanh(h @ ws["w"]),
+                           make_mesh({"stage": 1}), 1)
+    ws = w[0].clone().requires_grad_(True)
+    y = apply({"w": ws}, x)
+    loss = torch.mean(y ** 2)
+    loss.backward()
+    wq = w.clone().requires_grad_(True)
+    h = torch.tanh(x.reshape(-1, PIPE_DIM) @ wq[0])
+    want = torch.mean(h ** 2)
+    want.backward()
+    y_err = float((y - h.reshape(y.shape)).detach().abs().max())
+    torch.testing.assert_close(y, h.reshape(y.shape), rtol=PIPE_TOL,
+                               atol=PIPE_TOL)
+    torch.testing.assert_close(ws.grad, wq.grad[0], rtol=PIPE_GRAD_RTOL,
+                               atol=PIPE_TOL)
+    if abs(float(loss.detach()) - float(want.detach())) > 1e-6:
+        raise AssertionError(f"pipeline loss {float(loss.detach())} vs "
+                             f"{float(want.detach())}")
+    return {"stages": 1, "micro": PIPE_MICRO, "rows": PIPE_ROWS,
+            "dim": PIPE_DIM, "max_abs_err": y_err,
+            "grad_max_abs_err": float((ws.grad - wq.grad[0]).abs().max())}
+
+
+def drive_mesh_entry_point() -> dict:
+    """``launch/train.main`` for qwen2-0.5b as published
+    (``MESH_ENTRY_ARGS``) as a torchrun rank of a 1-rank job, through the
+    mesh path: 4 steps straight; 2 steps, then a resumed run to 4.  The
+    resumed run's final checkpoint equals the straight run's bit for
+    bit."""
+    import os
+    from repro_torch.launch import train as train_mod
+
+    meshes, loop = [], train_mod.train_loop
+
+    def spy(*args, **kw):
+        meshes.append(kw.get("mesh"))
+        return loop(*args, **kw)
+
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    train_mod.train_loop = spy
+    root = CKPT_ROOT / "mesh"
+    t0 = time.perf_counter()
+    try:
+        for steps, where in ((4, "straight"), (2, "resumed"),
+                             (4, "resumed")):
+            train_mod.main(MESH_ENTRY_ARGS + ["--steps", str(steps),
+                                              "--ckpt-dir",
+                                              str(root / where)])
+    finally:
+        train_mod.train_loop = loop
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    if len(meshes) != 3 or any(m is None for m in meshes):
+        raise AssertionError(f"train.main under WORLD_SIZE=1 took the "
+                             f"meshes {meshes}")
+    a, b = (root / w / "step_00000004" for w in ("straight", "resumed"))
+    manifest = json.loads((a / "manifest.json").read_text())
+    if json.loads((b / "manifest.json").read_text()) != manifest:
+        raise AssertionError("resumed checkpoint's manifest differs")
+    differ = [e["key"] for e in manifest["leaves"]
+              if not np.array_equal(np.load(a / e["file"], mmap_mode="r"),
+                                    np.load(b / e["file"], mmap_mode="r"))]
+    shutil.rmtree(root)
+    if differ:
+        raise AssertionError(f"resumed run differs from the straight one in "
+                             f"{differ}")
+    return {"args": MESH_ENTRY_ARGS, "runs": ["4 straight", "2", "2 -> 4"],
+            "resumed_equal": "bit for bit (every leaf of step 4)",
+            "mesh": str(meshes[0]), "seconds": seconds}
+
+
+def drive_mesh(flash_attention, flash_attention_bwd) -> dict:
+    """Phase 5d: a 1-rank process group (NCCL for the card, gloo for the
+    CPU side of the compressed sync, which runs on a thread beside the
+    later checks) from a ``FileStore`` in a temporary directory, a
+    ``{"data": 1, "model": 1}`` mesh on ``cuda``, the five checks, the
+    group destroyed at the end."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    out = {}
+    torch.cuda.set_device(0)            # the rank's card, before the mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "cpu:gloo,cuda:nccl", rank=0, world_size=1,
+            store=dist.FileStore(str(Path(tmp) / "store"), 1))
+        try:
+            mesh = make_mesh({"data": 1, "model": 1})
+            if mesh.device_type != "cuda":
+                raise AssertionError(f"mesh on {mesh.device_type}")
+            seconds, t = {}, time.perf_counter()
+
+            def lap(name):
+                nonlocal t
+                seconds[name] = time.perf_counter() - t
+                t = time.perf_counter()
+
+            out["whisper-base"] = drive_mesh_whisper(
+                mesh, flash_attention, flash_attention_bwd)
+            lap("whisper-base")
+            model, params, batches, grads = qwen2_gradients()
+            lap("qwen2_gradients")
+            out["compressed_sync"], residual, join = drive_mesh_compression(
+                grads, dist.new_group(backend="gloo"))
+            del grads
+            lap("compressed_sync")
+            out["make_dp_train_step"] = drive_mesh_dp(
+                mesh, model, params, batches, residual)
+            del params, batches, residual
+            gc.collect()
+            torch.cuda.empty_cache()
+            lap("make_dp_train_step")
+            out["pipeline"] = drive_mesh_pipeline()
+            lap("pipeline")
+            out["entry_point"] = drive_mesh_entry_point()
+            lap("entry_point")
+            out["compressed_sync"]["cpu_check_seconds"] = join()
+            lap("compressed_sync_cpu_wait")
+            out["check_seconds"] = seconds
+        finally:
+            dist.destroy_process_group()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2961,6 +3366,17 @@ def main() -> int:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     emit("train", seconds=time.perf_counter() - t0, launches=train_counts,
          models=train)
+    t0 = time.perf_counter()
+    restore = _no_plain_version_on_cuda()
+    try:
+        mesh, mesh_counts = drive(
+            "mesh", ("flash_attention", "flash_attention_bwd"), drive_mesh,
+            flash_attention, flash_attention_bwd)
+    finally:
+        restore()
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    emit("mesh", seconds=time.perf_counter() - t0, launches=mesh_counts,
+         **mesh)
     quant, quant_counts = drive("quantized", ("int8_matmul",
                                               "bitplane_matmul"),
                                 drive_quantized, ops, ref)
@@ -2971,8 +3387,10 @@ def main() -> int:
     launches.update({
         "flash_attention": (lm_counts["flash_attention"]
                             + fam_counts["flash_attention"]
-                            + train_counts["flash_attention"]),
-        "flash_attention_bwd": train_counts["flash_attention_bwd"],
+                            + train_counts["flash_attention"]
+                            + mesh_counts["flash_attention"]),
+        "flash_attention_bwd": (train_counts["flash_attention_bwd"]
+                                + mesh_counts["flash_attention_bwd"]),
         "int8_matmul": quant_counts["int8_matmul"],
         "bitplane_matmul": quant_counts["bitplane_matmul"]})
 

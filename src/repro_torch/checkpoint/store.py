@@ -12,8 +12,10 @@ loads in the other.
     preempted writer never corrupts the latest checkpoint;
   * async saves on a background thread (the tree is copied to the host
     first, so the train loop keeps stepping);
-  * restore onto a device (the single-device counterpart of the
-    reference's resharding restore);
+  * restore onto a device, and onto DTensor placements on a mesh (the
+    reference's elastic restore: a checkpoint written on one mesh loads
+    onto another); a DTensor leaf is saved whole (``full_tensor()``, which
+    every rank of its mesh calls; one rank writes);
   * retention policy + emergency ("preemption") saves;
   * step/data-position metadata for exact training resume.
 """
@@ -30,6 +32,7 @@ import torch
 
 from ..core.machine import resolve_device
 from ..models.common import tree_leaves, tree_map, tree_unflatten
+from ..parallel.axes import gather, place
 
 _SEP = "/"                  # path separator of tree_leaves
 # logical type -> (stored NumPy bits, torch type)
@@ -42,7 +45,7 @@ _TORCH_NAMES = {t: name for name, (_, t) in _RAW.items()}
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as the array to store and its logical type's name."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu")
+        t = gather(leaf.detach()).to("cpu")
         if t.dtype in _TORCH_NAMES:
             name = _TORCH_NAMES[t.dtype]
             bits = _RAW[name][0]
@@ -102,12 +105,17 @@ def _read_leaf(path: str, entry: Dict) -> torch.Tensor:
 
 
 def load_checkpoint(directory: str, template, step: Optional[int] = None,
-                    device=None) -> Tuple[Any, Dict]:
+                    device=None, shardings=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``template`` (a nested dict whose
     leaves have a ``shape``: tensors, arrays, ``ShapeDtype``s) on
     ``device`` (default ``cuda``).  Each leaf keeps the type it was saved
     in; a shape that differs from the template's raises ``ValueError``.
-    Returns (tree, metadata)."""
+
+    ``shardings``: optional tree of
+    :class:`~repro_torch.parallel.axes.NamedPlacement` (same structure);
+    every rank of the mesh reads each leaf and keeps its own part as a
+    DTensor, which is how a checkpoint written on one mesh restores onto
+    another (or onto one device).  Returns (tree, metadata)."""
     dev = resolve_device(device)
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -116,6 +124,7 @@ def load_checkpoint(directory: str, template, step: Optional[int] = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {entry["key"]: entry for entry in manifest["leaves"]}
+    where = dict(tree_leaves(shardings)) if shardings is not None else {}
     leaves = {}
     for key, tmpl in tree_leaves(template):
         leaf = _read_leaf(path, by_key[key])
@@ -123,7 +132,8 @@ def load_checkpoint(directory: str, template, step: Optional[int] = None,
             raise ValueError(f"shape mismatch for {key}: ckpt "
                              f"{tuple(leaf.shape)} vs template "
                              f"{tuple(tmpl.shape)}")
-        leaves[key] = leaf.to(dev)
+        leaf = leaf.to(dev)
+        leaves[key] = place(leaf, where[key]) if key in where else leaf
     return tree_unflatten(template, leaves), manifest["metadata"]
 
 
@@ -136,16 +146,19 @@ def reshard_tree(tree, device):
 
 def _host_copy(leaf):
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return gather(leaf.detach()).to("cpu", copy=True)
     return np.array(leaf)
 
 
 class CheckpointManager:
-    """Async saves + retention + emergency save hook."""
+    """Async saves + retention + emergency save hook.  On a mesh every rank
+    makes one and calls its saves (a DTensor leaf is gathered whole, a
+    collective); only the ``writer`` writes."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, writer: bool = True):
         self.directory = directory
         self.keep = keep
+        self.writer = writer
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -154,6 +167,8 @@ class CheckpointManager:
         a failure surfaces at the next :meth:`wait`."""
         self.wait()
         host_tree = tree_map(_host_copy, tree)
+        if not self.writer:
+            return
 
         def work():
             try:
@@ -165,12 +180,16 @@ class CheckpointManager:
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 
-    def save_emergency(self, step: int, tree, metadata=None) -> str:
+    def save_emergency(self, step: int, tree, metadata=None
+                       ) -> Optional[str]:
         """Synchronous, used from preemption signal handlers."""
         self.wait()
         meta = dict(metadata or {})
         meta["emergency"] = True
-        return save_checkpoint(self.directory, step, tree, meta)
+        host_tree = tree_map(_host_copy, tree)
+        if not self.writer:
+            return None
+        return save_checkpoint(self.directory, step, host_tree, meta)
 
     def wait(self) -> None:
         if self._thread is not None:

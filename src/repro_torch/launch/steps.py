@@ -1,36 +1,96 @@
-"""Step-function factories shared by the training loop and the serving
-drivers.
+"""Step-function factories and the sharding trees shared by the training
+loop and the serving drivers.
 
 PyTorch runs eagerly, so a step is a plain function: the training step
 differentiates ``LM.loss`` with ``torch.autograd`` and applies
 :func:`~repro_torch.optim.adamw_update`; the prefill and decode steps are
-the model's methods.  The reference's ``jitted_cell`` and its shardings
-come with the mesh slice of the port (ROADMAP.md, queue A).
+the model's methods.  :func:`jitted_cell` builds the same steps over a
+mesh, for every rank of it to call: parameters and optimizer moments are
+``DTensor``s placed by :func:`~repro_torch.parallel.axes.spec_for` (with
+no ``model`` axis, FSDP over ``data``), the batch is split over the batch
+axes, and the loss and the gradient are the whole batch's.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..models.common import (DTYPES, tree_leaves, tree_map,
-                             tree_unflatten)
+from ..configs.base import ModelConfig, ShapeCell
+from ..models.common import (DTYPES, ShapeDtype, abstract_tree, axes_tree,
+                             tree_leaves, tree_map, value_and_grad)
 from ..models.lm import LM
+from ..models.specs import (decode_specs, prefill_batch_specs,
+                            train_batch_specs)
 from ..optim import AdamWConfig, adamw_update
+from ..optim.adamw import _scale_shape
+from ..parallel.axes import (MODEL_AXIS_NOT_PORTED, NamedPlacement,
+                             ShardingCtx, all_reduce, batch_reduction,
+                             gather, local_shard, mesh_shape, named_sharding,
+                             shard_groups)
 
 
-def _value_and_grad(model: LM, params, batch):
-    """``(loss, metrics), grads`` of ``model.loss`` at ``params`` (each leaf
-    taken as a fresh autograd leaf); grads in the parameters' types (zero
-    for a leaf the loss does not reach, as ``jax.grad`` gives),
-    everything detached."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    paths, flat = zip(*tree_leaves(leaves))
-    loss, metrics = model.loss(leaves, batch)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                materialize_grads=True)
-    return ((loss.detach(), {k: m.detach() for k, m in metrics.items()}),
-            tree_unflatten(leaves, dict(zip(paths, grads))))
+def shardings_for(axes, shapes, ctx: ShardingCtx):
+    """Tree of :class:`~repro_torch.parallel.axes.NamedPlacement` from
+    parallel (axes, ``ShapeDtype``) trees."""
+    return tree_map(lambda a, s: named_sharding(a, s.shape, ctx), axes,
+                    shapes)
+
+
+def replicated(ctx: ShardingCtx) -> NamedPlacement:
+    return NamedPlacement(ctx.mesh,
+                          (Replicate(),) * len(mesh_shape(ctx.mesh)))
+
+
+def opt_state_axes(param_axes):
+    return {"m": param_axes, "v": param_axes, "step": ()}
+
+
+def state_shardings(model: LM, opt_cfg: AdamWConfig, ctx: ShardingCtx):
+    """``{"params", "opt"}`` placements of a training state.  int8 moments:
+    ``q`` placed like the parameter, the per-row scale like the
+    parameter's leading dims (its last dim, of size 1, whole)."""
+    p_abs, p_axes = model.abstract_params(), model.param_axes()
+    p_shard = shardings_for(p_axes, p_abs, ctx)
+    if opt_cfg.state_format == "int8":
+        m_shard = tree_map(lambda a, s: {
+            "q": named_sharding(a, s.shape, ctx),
+            "s": named_sharding(tuple(a[:-1]) + (None,) if a else (None,),
+                                _scale_shape(s.shape), ctx)}, p_axes, p_abs)
+    else:
+        m_shard = p_shard
+    return {"params": p_shard,
+            "opt": {"m": m_shard, "v": m_shard, "step": replicated(ctx)}}
+
+
+def _loss_and_grads(model: LM, params, batch):
+    """``(loss, metrics), grads`` of one step's batch: with
+    ``cfg.grad_accum > 1``, over that many microbatches of its rows, the
+    gradients summed in ``cfg.grad_accum_dtype`` accumulators and averaged,
+    the loss and metrics averaged too."""
+    ga = model.cfg.grad_accum
+    if ga <= 1:
+        return value_and_grad(model.loss, params, batch)
+    acc_dt = DTYPES[model.cfg.grad_accum_dtype]
+    micro = {k: x.reshape(ga, x.shape[0] // ga, *x.shape[1:])
+             for k, x in batch.items()}
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
+                                           device=p.device), params)
+    dev = tree_leaves(params)[0][1].device
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
+               for k in ("ce", "aux", "tokens")}
+    for i in range(ga):
+        (mb_loss, m), g = value_and_grad(
+            model.loss, params, {k: x[i] for k, x in micro.items()})
+        gsum = tree_map(lambda a, b: a + b.to(acc_dt), gsum, g)
+        loss = loss + mb_loss
+        metrics = {k: metrics[k] + m[k] for k in metrics}
+    grads = tree_map(lambda g: g / ga, gsum)
+    return (loss / ga, {k: x / ga for k, x in metrics.items()}), grads
 
 
 def make_train_step(model: LM, opt_cfg: AdamWConfig):
@@ -40,33 +100,12 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig):
     summed in ``cfg.grad_accum_dtype`` accumulators and averaged, the loss
     and metrics averaged too), then one AdamW update.  ``batch``: tensors on
     the parameters' device
-    (:func:`~repro_torch.models.specs.train_batch_specs`).  Metrics: ``ce``, ``aux``, ``tokens``, ``lr``, ``grad_norm``, ``loss``,
-    as 0-dim tensors (reading one waits for the device)."""
-    ga = model.cfg.grad_accum
-    acc_dt = DTYPES[model.cfg.grad_accum_dtype]
-
+    (:func:`~repro_torch.models.specs.train_batch_specs`).  Metrics: ``ce``,
+    ``aux``, ``tokens``, ``lr``, ``grad_norm``, ``loss``, as 0-dim tensors
+    (reading one waits for the device)."""
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Dict, Dict, Dict[str, torch.Tensor]]:
-        if ga <= 1:
-            (loss, metrics), grads = _value_and_grad(model, params, batch)
-        else:
-            micro = {k: x.reshape(ga, x.shape[0] // ga, *x.shape[1:])
-                     for k, x in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                                   device=p.device), params)
-            dev = tree_leaves(params)[0][1].device
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
-                       for k in ("ce", "aux", "tokens")}
-            for i in range(ga):
-                (mb_loss, m), g = _value_and_grad(
-                    model, params, {k: x[i] for k, x in micro.items()})
-                gsum = tree_map(lambda a, b: a + b.to(acc_dt), gsum, g)
-                loss = loss + mb_loss
-                metrics = {k: metrics[k] + m[k] for k in metrics}
-            grads = tree_map(lambda g: g / ga, gsum)
-            loss = loss / ga
-            metrics = {k: x / ga for k, x in metrics.items()}
+        (loss, metrics), grads = _loss_and_grads(model, params, batch)
         params, opt_state, om = adamw_update(opt_cfg, params, grads,
                                              opt_state)
         return params, opt_state, {**metrics, **om, "loss": loss}
@@ -85,3 +124,213 @@ def make_decode_step(model: LM):
     def decode_step(params, cache, tokens, cache_index):
         return model.decode_step(params, cache, tokens, cache_index)
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Steps over a mesh
+# ---------------------------------------------------------------------------
+
+def _own(x, where: NamedPlacement) -> torch.Tensor:
+    """This rank's part of a leaf: a DTensor's local tensor, or its part of
+    a tensor every rank holds whole."""
+    if isinstance(x, DTensor):
+        return x.to_local()
+    return local_shard(x, where.mesh, where.placements)
+
+
+def _placed(tree, shardings):
+    """Local parts as DTensors on their placements."""
+    return tree_map(lambda x, w: DTensor.from_local(
+        x, w.mesh, w.placements, run_check=False), tree, shardings)
+
+
+def _rows(x: torch.Tensor, where: NamedPlacement, micro: int = 1
+          ) -> torch.Tensor:
+    """This rank's rows of a batch leaf that every rank holds whole: with
+    ``micro`` microbatches, its part of each (the rows the reference's
+    microbatch ``i`` holds are those of the whole batch's)."""
+    if micro == 1:
+        return local_shard(x, where.mesh, where.placements)
+    split = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                  for p in where.placements)
+    y = x.reshape(micro, x.shape[0] // micro, *x.shape[1:])
+    return local_shard(y, where.mesh, split).reshape(-1, *x.shape[1:])
+
+
+def _batch_ranks(where: NamedPlacement, cfg: ModelConfig, rows: int,
+                 seq: int, micro: int = 1):
+    """The groups that split the batch's rows and their rank count; checks
+    that each rank's rows of each microbatch hold whole MoE groups, so that
+    every group of ``moe_group_size`` tokens lies on one rank, as in the
+    reference's one program."""
+    groups = shard_groups(where.mesh, where.placements, 0)
+    count = math.prod(dist.get_world_size(g) for g in groups)
+    tokens = rows // (micro * count) * seq
+    if (cfg.family == "moe" and count > 1
+            and tokens % cfg.moe_group_size):
+        raise ValueError(
+            f"{tokens} tokens per rank and microbatch do not hold whole MoE "
+            f"groups of {cfg.moe_group_size}: a group would span ranks")
+    return groups, count
+
+
+def _reduce_grad(g: torch.Tensor, where: NamedPlacement, batch_dims
+                 ) -> torch.Tensor:
+    """This rank's shard of ``g`` summed over the batch's ranks, mesh dim by
+    mesh dim (major to minor): a reduce-scatter along the tensor dim that a
+    batch axis also shards the leaf by, an all-reduce over a batch axis that
+    leaves the leaf whole, this rank's chunk along a dim split only for the
+    leaf."""
+    mesh = where.mesh
+    names, coord = list(mesh_shape(mesh)), mesh.get_coordinate()
+    for i, p in enumerate(where.placements):
+        group = mesh.get_group(names[i])
+        if isinstance(p, Shard):
+            n = dist.get_world_size(group)
+            if i in batch_dims:
+                x = g.movedim(p.dim, 0).contiguous()
+                part = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+                dist.reduce_scatter_tensor(part, x, group=group)
+                g = part.movedim(0, p.dim)
+            else:
+                size = g.shape[p.dim] // n
+                g = g.narrow(p.dim, coord[i] * size, size)
+        elif i in batch_dims:
+            g = all_reduce(g, (group,))
+    return g.contiguous()
+
+
+def _sharded_norm(grads, shardings) -> torch.Tensor:
+    """:func:`~repro_torch.optim.global_norm` of the whole gradient from the
+    ranks' shards: each leaf's squares summed on its shard, then over the
+    mesh dims that split the leaf (one all-reduce a mesh dim, every leaf at
+    once), the leaves added in the reference's order."""
+    leaves = tree_leaves(grads)
+    where = dict(tree_leaves(shardings))
+    sq = torch.stack([torch.sum(torch.square(g.float())) for _, g in leaves])
+    mesh = where[leaves[0][0]].mesh
+    for i, name in enumerate(mesh_shape(mesh)):
+        split = [isinstance(where[k].placements[i], Shard) for k, _ in leaves]
+        if any(split):
+            split = torch.tensor(split, device=sq.device)
+            summed = all_reduce(torch.where(split, sq, 0.0),
+                                (mesh.get_group(name),))
+            sq = torch.where(split, summed, sq)
+    return torch.sqrt(sum(sq.unbind()))
+
+
+def _train_step(model: LM, opt_cfg: AdamWConfig, shardings, b_shard,
+                cell: ShapeCell):
+    cfg = model.cfg
+    p_shard, opt_shard = shardings["params"], shardings["opt"]
+    ga = max(cfg.grad_accum, 1)
+    b_where = b_shard["tokens"]
+    groups, count = _batch_ranks(b_where, cfg, cell.global_batch,
+                                 cell.seq_len, ga)
+    batch_dims = {i for i, p in enumerate(b_where.placements)
+                  if isinstance(p, Shard)}
+    row_max = None
+    if opt_cfg.state_format == "int8":
+        def reducer(s, w):
+            split = shard_groups(w.mesh, w.placements, len(s.shape) - 1)
+            return (None if not split else lambda amax: all_reduce(
+                amax, split, dist.ReduceOp.MAX))
+        row_max = tree_map(reducer, model.abstract_params(), p_shard)
+
+    def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        full = tree_map(gather, params)
+        mine = {k: _rows(x, b_shard[k], ga) for k, x in batch.items()}
+        with batch_reduction(groups, count):
+            (loss, metrics), grads = _loss_and_grads(model, full, mine)
+        del full
+        grads = tree_map(lambda g, w: _reduce_grad(g, w, batch_dims),
+                         grads, p_shard)
+        norm = _sharded_norm(grads, p_shard)
+        new_p, new_s, om = adamw_update(
+            opt_cfg, tree_map(_own, params, p_shard), grads,
+            tree_map(_own, opt_state, opt_shard), grad_norm=norm,
+            row_max=row_max)
+        return (_placed(new_p, p_shard), _placed(new_s, opt_shard),
+                {**metrics, **om, "loss": loss})
+    return train_step
+
+
+def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
+                opt_cfg: Optional[AdamWConfig] = None):
+    """``(step, abstract args)`` for one (arch x shape) cell over
+    ``ctx.mesh``; every rank of the mesh calls ``step`` with the same
+    arguments: parameters (and optimizer state) as DTensors on
+    :func:`state_shardings`' placements, or tensors every rank holds whole,
+    and the whole batch.  Each parameter is gathered whole, the step runs
+    on this rank's rows of the batch (``batch`` -> ``("pod", "data")``)
+    with the loss's sums and the MoE statistics taken over every rank's
+    rows, each gradient is reduce-scattered over those ranks to this rank's
+    shard, and each rank applies AdamW to its own shard (the gradient's
+    norm from the shards' squares).  Outputs are DTensors (metrics: tensors, the
+    same on every rank).
+
+    ``train``: ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``prefill``: ``step(params, batch) -> (logits, cache)``;
+    ``decode``: ``step(params, cache, tokens, cache_index) -> (logits,
+    cache)``, the cache placed by the cache's logical axes."""
+    if mesh_shape(ctx.mesh).get("model", 1) > 1:
+        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+    model = LM(cfg)
+    p_abs = model.abstract_params()
+    logits_shard = named_sharding(
+        ("batch", "act_vocab"), (cell.global_batch, cfg.padded_vocab), ctx)
+
+    if cell.kind == "train":
+        opt_cfg = opt_cfg or AdamWConfig()
+        specs, baxes = train_batch_specs(cfg, cell)
+        if opt_cfg.state_format == "int8":
+            m_abs = tree_map(lambda s: {
+                "q": ShapeDtype(s.shape, torch.int8),
+                "s": ShapeDtype(_scale_shape(s.shape), torch.float32)},
+                p_abs)
+        else:
+            m_abs = tree_map(lambda s: ShapeDtype(s.shape, torch.float32),
+                             p_abs)
+        opt_abs = {"m": m_abs, "v": m_abs,
+                   "step": ShapeDtype((), torch.int32)}
+        step = _train_step(model, opt_cfg,
+                           state_shardings(model, opt_cfg, ctx),
+                           shardings_for(baxes, specs, ctx), cell)
+        return step, (p_abs, opt_abs, specs)
+
+    p_shard = shardings_for(model.param_axes(), p_abs, ctx)
+    if cell.kind == "prefill":
+        specs, baxes = prefill_batch_specs(cfg, cell)
+        b_shard = shardings_for(baxes, specs, ctx)
+        cache_defs = model.cache_defs(cell.global_batch, cell.seq_len)
+        c_shard = shardings_for(axes_tree(cache_defs),
+                                abstract_tree(cache_defs), ctx)
+        _batch_ranks(b_shard["tokens"], cfg, cell.global_batch,
+                     cell.seq_len)
+
+        def prefill_step(params, batch):
+            logits, cache = model.prefill(
+                tree_map(gather, params),
+                {k: _rows(x, b_shard[k]) for k, x in batch.items()})
+            return (_placed(logits, logits_shard),
+                    _placed(cache, c_shard))
+        return prefill_step, (p_abs, specs)
+
+    if cell.kind == "decode":
+        c_abs, c_axes, tok, tok_axes = decode_specs(cfg, cell)
+        c_shard = shardings_for(c_axes, c_abs, ctx)
+        t_shard = shardings_for(tok_axes, tok, ctx)["tokens"]
+        _batch_ranks(t_shard, cfg, cell.global_batch, 1)
+
+        def decode_step(params, cache, tokens, cache_index):
+            if torch.is_tensor(cache_index) and cache_index.dim():
+                cache_index = _rows(cache_index, t_shard)  # (B,) index
+            logits, cache = model.decode_step(
+                tree_map(gather, params), tree_map(_own, cache, c_shard),
+                _rows(tokens, t_shard), cache_index)
+            return (_placed(logits, logits_shard),
+                    _placed(cache, c_shard))
+        return decode_step, (p_abs, c_abs, tok["tokens"],
+                             ShapeDtype((), torch.int32))
+
+    raise ValueError(cell.kind)

@@ -1,5 +1,6 @@
 """Training driver: data pipeline -> train loop -> checkpoints, on one
-device (``cuda`` unless the caller passes ``device="cpu"``).
+device (``cuda`` unless the caller passes ``device="cpu"``) or over a data
+mesh of ranks.
 
 Production behaviors, as the reference's (``repro/launch/train.py``):
   * restart-from-latest-checkpoint (exact data-position resume),
@@ -8,25 +9,31 @@ Production behaviors, as the reference's (``repro/launch/train.py``):
   * heartbeat + straggler runtime hooks (single-host here; the monitors
     are the same objects a multi-host coordinator would drive).
 
-The mesh (``--data`` / ``--model`` above 1) and the int8-compressed
-gradient sync come with the mesh slice of the port (ROADMAP.md, queue A
-item 10).
+Data parallelism: under ``torchrun`` (``WORLD_SIZE`` set) every rank runs
+the loop over a ``(data, model)`` mesh through
+:func:`~repro_torch.launch.steps.jitted_cell`; ``--model`` above 1 is not
+ported yet (ROADMAP.md, queue A).  The int8-compressed gradient sync is
+:mod:`repro_torch.parallel.compression`'s data-parallel trainer.
 
 CPU-scale usage (``examples/train_tiny_torch.py`` wraps this)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --reduced --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \\
         --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --reduced --steps 4 --batch 4 --seq 32 --data 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import signal
 import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager, latest_step, load_checkpoint
 from ..configs import ARCH_IDS, get_config
@@ -37,11 +44,10 @@ from ..models.common import ShapeDtype, tree_map
 from ..models.lm import LM
 from ..optim import AdamWConfig, adamw_init
 from ..optim.adamw import _scale_shape
+from ..parallel.axes import MODEL_AXIS_NOT_PORTED, place, sharding_context
 from ..runtime import HeartbeatMonitor, StragglerDetector
-from .steps import make_train_step
-
-MESH_NOT_PORTED = ("a data or model mesh above 1 is not ported yet "
-                   "(ROADMAP.md, queue A item 10: the mesh modules)")
+from .mesh import make_mesh
+from .steps import jitted_cell, make_train_step, state_shardings
 
 
 @dataclasses.dataclass
@@ -77,12 +83,20 @@ def _batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
 
 def train_loop(cfg, cell: ShapeCell, loop: TrainLoopConfig,
                opt_cfg: Optional[AdamWConfig] = None, seed: int = 0,
-               device=None) -> Dict[str, float]:
+               device=None, mesh=None) -> Dict[str, float]:
     """Runs the loop on ``device`` (default ``cuda``); returns the final
     step's metrics as floats, with ``step_time_s`` and ``final_step``.
     Restartable: with a checkpoint in ``loop.ckpt_dir`` it resumes from the
     latest one, at its data position.  Parameters are drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    ``torch.Generator`` seeded with ``seed`` on ``device``.
+
+    With a ``mesh`` (of ``device``'s type) every rank of it runs the loop:
+    the step is :func:`~repro_torch.launch.steps.jitted_cell`'s, the state
+    lives as DTensors on :func:`~repro_torch.launch.steps.state_shardings`,
+    every rank reads the whole batch and steps on its rows, and rank 0
+    writes the checkpoints, whole, in the single-device format (so either
+    run resumes the other's).  Without one (the default) nothing is
+    distributed: the reference's ``(1, 1)`` mesh, in values."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig(total_steps=loop.steps)
     model = LM(cfg)
@@ -90,14 +104,25 @@ def train_loop(cfg, cell: ShapeCell, loop: TrainLoopConfig,
                           global_batch=cell.global_batch, seed=seed)
     heart = HeartbeatMonitor([loop.host])
     straggler = StragglerDetector()
-    manager = CheckpointManager(loop.ckpt_dir) if loop.ckpt_dir else None
-    step_fn = make_train_step(model, opt_cfg)
+    shardings = None
+    if mesh is None:
+        step_fn = make_train_step(model, opt_cfg)
+    else:
+        if mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot train on "
+                             f"{dev}")
+        with sharding_context(mesh) as ctx:
+            step_fn, _ = jitted_cell(cfg, cell, ctx, opt_cfg=opt_cfg)
+            shardings = state_shardings(model, opt_cfg, ctx)
+    writer = mesh is None or dist.get_rank() == 0
+    manager = (CheckpointManager(loop.ckpt_dir, writer=writer)
+               if loop.ckpt_dir else None)
 
     start_step, start_doc = 0, 0
     if loop.ckpt_dir and latest_step(loop.ckpt_dir) is not None:
         state, meta = load_checkpoint(
             loop.ckpt_dir, state_template(model, opt_cfg.state_format),
-            device=dev)
+            device=dev, shardings=shardings)
         params, opt_state = state["params"], state["opt"]
         if opt_cfg.state_format == "fp32":
             for name in ("m", "v"):
@@ -111,12 +136,23 @@ def train_loop(cfg, cell: ShapeCell, loop: TrainLoopConfig,
         params = model.init_params(
             torch.Generator(device=dev).manual_seed(seed), device=dev)
         opt_state = adamw_init(params, opt_cfg.state_format)
+        if shardings is not None:
+            params = tree_map(place, params, shardings["params"])
+            opt_state = tree_map(place, opt_state, shardings["opt"])
 
     batches = make_train_batches(data_cfg, start_doc=start_doc)
     interrupted = {"flag": False}
 
     def on_signal(signum, frame):
         interrupted["flag"] = True
+
+    def stop() -> bool:
+        """The flag, agreed by every rank (a save is a collective)."""
+        if mesh is None:
+            return interrupted["flag"]
+        flag = torch.tensor(float(interrupted["flag"]), device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag)
 
     old_handlers = {}
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -147,7 +183,7 @@ def train_loop(cfg, cell: ShapeCell, loop: TrainLoopConfig,
             meta = {"step": step + 1, "next_doc": next_doc}
             if manager and (step + 1) % loop.ckpt_every == 0:
                 manager.save_async(step + 1, state, meta)
-            if interrupted["flag"]:
+            if stop():
                 if manager:
                     manager.save_emergency(step + 1, state, meta)
                     print(f"[train] emergency checkpoint at "
@@ -163,6 +199,30 @@ def train_loop(cfg, cell: ShapeCell, loop: TrainLoopConfig,
     return metrics
 
 
+def _train_on_mesh(args, cfg, cell: ShapeCell, loop: TrainLoopConfig,
+                   world: int) -> Dict[str, float]:
+    """One rank of a ``torchrun`` job: a ``(data, model)`` mesh over the
+    job's ranks (NCCL on ``cuda:LOCAL_RANK``, or gloo on the CPU under
+    ``--device cpu``); the process group is started here unless the caller
+    started one."""
+    if args.device == "cpu":
+        dev, backend = torch.device("cpu"), "gloo"
+    else:
+        dev = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group(backend, rank=int(os.environ["RANK"]),
+                                world_size=world)
+    try:
+        mesh = make_mesh({"data": args.data, "model": args.model})
+        return train_loop(cfg, cell, loop, device=dev, mesh=mesh)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-0.5b")
@@ -173,22 +233,30 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data", type=int, default=1,
-                    help="data-parallel mesh extent (1: the mesh is not "
-                         "ported yet)")
+                    help="data-parallel mesh extent (ranks from torchrun)")
     ap.add_argument("--model", type=int, default=1,
-                    help="model-parallel mesh extent (1: the mesh is not "
-                         "ported yet)")
+                    help="model-parallel mesh extent (1: not ported yet)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda)")
+                    help="torch device (default: cuda; cpu: gloo ranks)")
     args = ap.parse_args(argv)
-    if args.data != 1 or args.model != 1:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    if args.model != 1:
+        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world != args.data * args.model:
+        raise RuntimeError(
+            f"--data {args.data} --model {args.model} needs "
+            f"{args.data * args.model} ranks and WORLD_SIZE is {world}: "
+            f"start them with torchrun --nproc-per-node "
+            f"{args.data * args.model} -m repro_torch.launch.train ...")
 
     cfg = get_config(args.arch, reduced=args.reduced)
     cell = ShapeCell("custom", args.seq, args.batch, "train")
     loop = TrainLoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                            ckpt_every=args.ckpt_every)
-    metrics = train_loop(cfg, cell, loop, device=args.device)
+    if "WORLD_SIZE" in os.environ:
+        metrics = _train_on_mesh(args, cfg, cell, loop, world)
+    else:
+        metrics = train_loop(cfg, cell, loop, device=args.device)
     print(f"[train] done: {metrics}")
 
 

@@ -3,9 +3,9 @@ sinusoidal positions, activations, and the chunked cross-entropy of the
 training loss.
 
 Parameters are declared as :class:`ParamDef` leaves of plain nested dicts
-carrying *logical* sharding axes (kept so the trees match the reference's;
-the port has no mesh yet); ``abstract_tree`` / ``materialize_tree`` turn a
-declaration into shapes and types or into initialised tensors.
+carrying *logical* sharding axes (resolved on a mesh by
+:mod:`repro_torch.parallel.axes`); ``abstract_tree`` / ``materialize_tree``
+turn a declaration into shapes and types or into initialised tensors.
 
 Every bf16 rounding point of the reference is kept where it is: the norm
 rounds to the input's type before the scale, RoPE rotates in the model
@@ -14,12 +14,16 @@ type.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.axes import batch_sum
+from ..trees import (tree_leaves, tree_map, tree_unflatten,  # noqa: F401
+                     value_and_grad)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16, "float8": torch.float8_e4m3fn}
@@ -45,27 +49,6 @@ class ShapeDtype(NamedTuple):
 
 def is_def(x) -> bool:
     return isinstance(x, ParamDef)
-
-
-def tree_map(fn: Callable[..., Any], tree, *others):
-    """``fn`` on every leaf of a nested dict (a :class:`ParamDef`, a
-    tensor: anything but a dict) and the nodes at the same place in
-    ``others``; same structure."""
-    if not isinstance(tree, dict):
-        return fn(tree, *others)
-    return {k: tree_map(fn, v, *(o[k] for o in others))
-            for k, v in tree.items()}
-
-
-def tree_leaves(tree, prefix: str = ""):
-    """``[(path, leaf)]`` of a nested dict in the reference's flattening
-    order (keys sorted, depth first); paths join keys with ``/``."""
-    if not isinstance(tree, dict):
-        return [(prefix, tree)]
-    out = []
-    for k in sorted(tree):
-        out += tree_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
-    return out
 
 
 def abstract_tree(tree):
@@ -98,19 +81,6 @@ def materialize_tree(tree, generator: torch.Generator, device=None):
 
     return tree_unflatten(tree, {path: make(d)
                                  for path, d in tree_leaves(tree)})
-
-
-def tree_unflatten(node, flat, prefix=""):
-    """``node``'s structure with its leaves taken from ``flat``, a dict by
-    :func:`tree_leaves` path.  A module-level function, not a closure: a
-    nested function that calls itself is a reference cycle, which would
-    keep every tensor of ``flat`` alive until the garbage collector ran,
-    even after a caller replaced them (a full-width model cast to float32
-    leaf by leaf would hold both copies)."""
-    if not isinstance(node, dict):
-        return flat[prefix]
-    return {k: tree_unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
-            for k, v in node.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -218,5 +188,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, lm_head: torch.Tensor,
         loss_sum = loss_sum + (checkpoint(_ce_chunk, *args,
                                           use_reentrant=False)
                                if record else _ce_chunk(*args))
-    count = mask.sum()
-    return loss_sum / torch.clamp(count, min=1.0), count
+    # on a mesh, the sum and the count over the whole batch (the
+    # reference's one program sees every row)
+    count = batch_sum(mask.sum())
+    return batch_sum(loss_sum) / torch.clamp(count, min=1.0), count

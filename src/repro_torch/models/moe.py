@@ -4,8 +4,9 @@ capacity.
 Tokens are split into groups of ``cfg.moe_group_size``; per group a
 (g, E, c) dispatch/combine pair routes tokens to experts via einsum so the
 expert matmuls stay dense.  The reference shards the experts over its
-mesh (expert parallelism); on one device that reduces to nothing, and its
-sharding constraints are left out.
+mesh (expert parallelism); the port's mesh has no model axis yet, so its
+sharding constraints are left out, and on a data mesh the load-balance
+statistics are averaged over the batch's ranks.
 
 Supports: top-1 (llama4-scout) and top-2 (arctic), a llama4-style shared
 expert, an arctic-style parallel dense residual, and a load-balance aux
@@ -19,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.axes import batch_mean
 from .common import activation_fn
 
 
@@ -78,8 +80,10 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg
             gate_vals[..., j, None, None] * mask_j[..., None]
 
     # aux load-balance loss: E * sum_e mean(frac_tokens_e) * mean(prob_e)
-    frac = F.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
-    mean_prob = probs.mean(dim=(0, 1))
+    # means over every group of the batch, on a mesh too (each rank holds
+    # as many whole groups)
+    frac = batch_mean(F.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1)))
+    mean_prob = batch_mean(probs.mean(dim=(0, 1)))
     aux = e * torch.sum(frac * mean_prob)
 
     xd = torch.einsum("GgEc,Ggd->GEcd", dispatch, xg)

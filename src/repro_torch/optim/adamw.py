@@ -63,10 +63,14 @@ def _scale_shape(shape) -> Tuple[int, ...]:
     return (shape[:-1] + (1,)) if shape else (1,)
 
 
-def _quantize_moment(x: torch.Tensor, signed: bool) -> Dict[str, torch.Tensor]:
-    """Per-row absmax int8 quantization of one moment tensor."""
+def _quantize_moment(x: torch.Tensor, signed: bool,
+                     row_max=None) -> Dict[str, torch.Tensor]:
+    """Per-row absmax int8 quantization of one moment tensor; ``row_max``
+    reduces the rows' absmax where a row is split over ranks."""
     amax = (torch.amax(torch.abs(x), dim=-1, keepdim=True) if x.dim()
             else torch.abs(x)[None])
+    if row_max is not None:
+        amax = row_max(amax)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127 if signed else 0, 127)
     return {"q": q.to(torch.int8),
@@ -97,13 +101,19 @@ def adamw_init(params, state_format: str = "fp32") -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state
+def adamw_update(cfg: AdamWConfig, params, grads, state, grad_norm=None,
+                 row_max=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: returns (new params, new state, ``{"lr",
-    "grad_norm"}``).  New tensors; the arguments are not written."""
+    "grad_norm"}``).  New tensors; the arguments are not written.
+
+    On a mesh each rank updates its own shard of every leaf: it passes the
+    norm of the whole gradient as ``grad_norm``, and for int8 moments a
+    tree like ``params`` whose leaves reduce a moment's row absmax over
+    the ranks that split its rows (``None`` where a row is whole)."""
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2
@@ -111,7 +121,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state
     bc2 = 1 - b2 ** step.to(torch.float32)
     quant = cfg.state_format == "int8"
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, reduce=None):
         v_floor = 0.0
         if quant:
             # entries of v below half a quantization step read back as 0;
@@ -131,12 +141,14 @@ def adamw_update(cfg: AdamWConfig, params, grads, state
         delta = delta + cfg.weight_decay * p.to(torch.float32)
         new_p = p.to(torch.float32) - lr * delta
         if quant:
-            m = _quantize_moment(m, signed=True)
-            v = _quantize_moment(v, signed=True)
+            m = _quantize_moment(m, signed=True, row_max=reduce)
+            v = _quantize_moment(v, signed=True, row_max=reduce)
         return new_p.to(p.dtype), m, v
 
     # an int8 moment's node is its {"q", "s"} dict, passed to upd whole
-    out = tree_map(upd, params, grads, state["m"], state["v"])
+    others = (state["m"], state["v"]) + (() if row_max is None
+                                         else (row_max,))
+    out = tree_map(upd, params, grads, *others)
     pick = (lambda i: tree_map(lambda o: o[i], out)
             if isinstance(out, dict) else out[i])
     new_state = {"m": pick(1), "v": pick(2), "step": step}

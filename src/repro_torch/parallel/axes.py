@@ -1,0 +1,298 @@
+"""Logical-axis sharding: one rule table maps model-level axis names onto
+mesh axes (DP/FSDP/TP/SP/EP), with automatic divisibility fallback.
+
+Models and launchers name their dims *logically*; :func:`spec_for`
+resolves the names on a mesh (any object whose ``.shape`` is a dict of axis
+sizes, or a ``torch.distributed`` ``DeviceMesh``) into a spec with the
+reference's ``PartitionSpec`` entries, and :func:`placements_for` turns a
+spec into ``DTensor`` placements.  Outside a :func:`sharding_context` every
+constraint is a no-op, so the same model code runs on one device.
+
+The ``batch_sum`` family stands in for what one SPMD program over the
+whole batch gives the reference: inside a :func:`batch_reduction` it sums a
+rank's term over the ranks that hold the other rows, and passes the
+gradient to this rank's own term unchanged, so the sum of the ranks'
+gradients is the gradient of the global quantity.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+# Logical axis -> tuple of mesh axes.  'pod' only exists on the multi-pod
+# mesh; missing mesh axes are dropped at resolution time.
+DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
+    # parameter axes
+    "embed": ("data",),        # FSDP (ZeRO-3) over the data axis
+    "vocab": ("model",),
+    "heads": ("model",),
+    "kv": ("model",),
+    "mlp": ("model",),
+    "expert": ("model",),
+    "ssm_inner": ("model",),
+    "conv_dim": ("model",),
+    # activation axes
+    "batch": ("pod", "data"),
+    "seq": ("model",),         # sequence parallelism on the residual stream
+    "act_heads": ("model",),
+    "kv_seq": ("model",),      # decode KV-cache sequence sharding
+    "act_vocab": ("model",),
+    "act_expert": ("model",),
+}
+
+MODEL_AXIS_NOT_PORTED = (
+    "a 'model' mesh axis above 1 is not ported yet (ROADMAP.md, queue A, "
+    "next item: tensor parallelism through DTensor at the reference's "
+    "constrain sites, --model N)")
+
+
+@dataclasses.dataclass
+class ShardingCtx:
+    mesh: Any
+    rules: Dict[str, Tuple[str, ...]]
+
+
+class NamedPlacement(NamedTuple):
+    """The port's ``NamedSharding``: DTensor placements on a mesh."""
+    mesh: Any
+    placements: Tuple
+
+
+_TLS = threading.local()
+
+
+def current_ctx() -> Optional[ShardingCtx]:
+    return getattr(_TLS, "ctx", None)
+
+
+@contextlib.contextmanager
+def sharding_context(mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
+    """Bind ``mesh`` and a rule table for this thread."""
+    prev = current_ctx()
+    _TLS.ctx = ShardingCtx(mesh, dict(rules or DEFAULT_RULES))
+    try:
+        yield _TLS.ctx
+    finally:
+        _TLS.ctx = prev
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` in the mesh's dim order."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+
+
+def _resolve_dim(name: Optional[str], size: int, mesh,
+                 rules: Dict[str, Tuple[str, ...]]):
+    """Mesh axes for one logical dim; falls back to replication when the
+    dim size does not divide the mesh extent (e.g. 14 heads on 16-way TP)."""
+    if name is None:
+        return None
+    shape = mesh_shape(mesh)
+    axes = tuple(a for a in rules.get(name, ()) if a in shape)
+    if not axes:
+        return None
+    extent = math.prod(shape[a] for a in axes)
+    if size % extent != 0:
+        # try a prefix of the axes (e.g. drop 'data' keep 'pod')
+        for end in range(len(axes) - 1, 0, -1):
+            sub = axes[:end]
+            if size % math.prod(shape[a] for a in sub) == 0:
+                return sub if len(sub) > 1 else sub[0]
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def spec_for(logical: Sequence[Optional[str]], shape: Sequence[int], mesh,
+             rules: Dict[str, Tuple[str, ...]]) -> Tuple:
+    """One entry per dim: ``None``, a mesh axis name, or a tuple of names
+    (the reference's ``PartitionSpec`` entries)."""
+    if len(logical) != len(shape):
+        raise ValueError(f"logical axes {logical} vs shape {shape}")
+    used = set()
+    parts = []
+    for name, size in zip(logical, shape):
+        r = _resolve_dim(name, size, mesh, rules)
+        # a mesh axis may appear at most once in a spec
+        if r is not None:
+            axes = (r,) if isinstance(r, str) else tuple(r)
+            if any(a in used for a in axes):
+                r = None
+            else:
+                used.update(axes)
+        parts.append(r)
+    return tuple(parts)
+
+
+def placements_for(spec: Sequence, mesh) -> Tuple:
+    """DTensor placements of ``spec`` on ``mesh``, one per mesh dim: a mesh
+    dim named by the spec's entry for tensor dim ``d`` is ``Shard(d)``, an
+    unnamed one ``Replicate()``.
+
+    A dim split over several mesh axes is split major to minor in the
+    order the spec names them (JAX's rule); DTensor splits it in mesh-dim
+    order.  The two agree only when the spec names the axes in mesh-dim
+    order, which is checked."""
+    names = list(mesh_shape(mesh))
+    placements = [Replicate()] * len(names)
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = (part,) if isinstance(part, str) else tuple(part)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {part} names mesh axes out of the "
+                             f"mesh's order {names}: DTensor would split "
+                             "the dim in another order than JAX")
+        for i in idx:
+            placements[i] = Shard(dim)
+    return tuple(placements)
+
+
+def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical names: a
+    no-op outside a context, and on a mesh without a ``model`` axis above
+    1, where activations are split by the batch alone."""
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    if mesh_shape(ctx.mesh).get("model", 1) > 1:
+        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+    return x
+
+
+def named_sharding(logical: Sequence[Optional[str]], shape: Sequence[int],
+                   ctx: Optional[ShardingCtx] = None) -> NamedPlacement:
+    ctx = ctx or current_ctx()
+    if ctx is None:
+        raise ValueError("named_sharding requires a sharding context")
+    return NamedPlacement(ctx.mesh, placements_for(
+        spec_for(logical, shape, ctx.mesh, ctx.rules), ctx.mesh))
+
+
+# ---------------------------------------------------------------------------
+# A rank's part of a placed tensor
+# ---------------------------------------------------------------------------
+
+def shard_bounds(shape: Sequence[int], sizes: Sequence[int],
+                 placements: Sequence, coordinate: Sequence[int]
+                 ) -> Tuple[Tuple[int, int], ...]:
+    """``(start, stop)`` per tensor dim of the part held at ``coordinate``
+    of a mesh of ``sizes``: each ``Shard(d)`` splits dim ``d`` evenly, the
+    mesh dims in order (major to minor)."""
+    bounds = [[0, int(n)] for n in shape]
+    for size, p, c in zip(sizes, placements, coordinate):
+        if isinstance(p, Shard):
+            lo, hi = bounds[p.dim]
+            if (hi - lo) % size:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"split evenly {size} ways")
+            step = (hi - lo) // size
+            bounds[p.dim] = [lo + c * step, lo + (c + 1) * step]
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"unsupported placement {p}")
+    return tuple((lo, hi) for lo, hi in bounds)
+
+
+def local_shard(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's part of ``full`` (which every rank holds whole)."""
+    coord = mesh.get_coordinate()
+    out = full
+    for dim, (lo, hi) in enumerate(shard_bounds(full.shape, mesh.shape,
+                                                placements, coord)):
+        if (lo, hi) != (0, full.shape[dim]):
+            out = out.narrow(dim, lo, hi - lo)
+    return out.contiguous()
+
+
+def place(full: torch.Tensor, where: NamedPlacement) -> DTensor:
+    """A DTensor from a tensor that every rank holds whole: each rank
+    keeps its own part, nothing is sent."""
+    return DTensor.from_local(
+        local_shard(full, where.mesh, where.placements), where.mesh,
+        where.placements, run_check=False, shape=full.shape,
+        stride=full.contiguous().stride())
+
+
+def gather(x):
+    """The whole tensor: a DTensor's ``full_tensor()`` (a collective: every
+    rank of its mesh calls it), anything else as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def shard_groups(mesh, placements, dim: int) -> Tuple:
+    """The process groups of the mesh dims that split tensor dim ``dim``,
+    in mesh order."""
+    names = list(mesh_shape(mesh))
+    return tuple(mesh.get_group(names[i]) for i, p in enumerate(placements)
+                 if isinstance(p, Shard) and p.dim == dim)
+
+
+def all_reduce(x: torch.Tensor, groups: Sequence, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """``x`` reduced over each group in turn (a new, contiguous tensor)."""
+    x = x.clone(memory_format=torch.contiguous_format)
+    for g in groups:
+        dist.all_reduce(x, op=op, group=g)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Global quantities of a batch split over ranks
+# ---------------------------------------------------------------------------
+
+class _SumOverRanks(torch.autograd.Function):
+    """Forward: the sum over ``groups``.  Backward: the gradient to this
+    rank's own term unchanged; every rank computes the same function of the
+    sum, so summing the ranks' gradients afterwards counts it once."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over_ranks(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    return _SumOverRanks.apply(x, tuple(groups))
+
+
+# The batch_reduction in force, ``(groups, count)`` or ``None``.  Held for
+# the process, not per thread: autograd runs a CUDA graph's backward, and so
+# the recompute of a checkpointed layer (``LM._remat``), on a device worker
+# thread, which must reduce the same way as the forward did.
+_BATCH: Optional[Tuple[Tuple, int]] = None
+
+
+@contextlib.contextmanager
+def batch_reduction(groups: Sequence, count: int):
+    """Within it, on every thread (the backward pass included),
+    :func:`batch_sum` and :func:`batch_mean` reduce over ``groups``, the
+    ``count`` ranks that hold the batch's rows."""
+    global _BATCH
+    prev, _BATCH = _BATCH, (tuple(groups), count)
+    try:
+        yield
+    finally:
+        _BATCH = prev
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the batch's ranks (``x`` outside a
+    :func:`batch_reduction`)."""
+    return x if _BATCH is None else sum_over_ranks(x, _BATCH[0])
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch's ranks of a mean over equal parts."""
+    return x if _BATCH is None else sum_over_ranks(x, _BATCH[0]) / _BATCH[1]

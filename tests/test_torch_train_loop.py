@@ -173,9 +173,11 @@ def test_entry_point_runs_on_the_cpu_when_asked(capsys, tmp_path):
 
 
 def test_entry_point_refuses_a_mesh_and_defaults_to_cuda():
-    for flag in ("--data", "--model"):
-        with pytest.raises(NotImplementedError, match="queue A item 10"):
-            train_mod.main(["--reduced", flag, "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="'model' mesh axis.*"
+                       "queue A, next item"):
+        train_mod.main(["--reduced", "--model", "2", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        train_mod.main(["--reduced", "--data", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_loop(_cfg(), ShapeCell("t", 16, 2, "train"),
