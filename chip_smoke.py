@@ -184,16 +184,30 @@ non-zero:
    batch 1 on the card against the same step on the CPU (loss within
    1e-4, grad norm within 1e-3 relative; the worst gradient leaf
    printed).  A CUDA tensor reaching a plain flash version fails the run.
+5d. ``mesh`` — a 1-rank process group (``cpu:gloo,cuda:nccl``) and a
+   ``(data 1, model 1)`` mesh on the card, whose ``model`` axis runs every
+   ``constrain`` site of the models as a ``DTensor`` redistribution and
+   the flash route on the rank's own heads: whisper-base through
+   ``jitted_cell``'s train cell bit-equal to ``make_train_step`` for 3
+   steps (30 / 18 flash launches a step); each family's prefill and
+   decode through ``jitted_cell``'s cells bit-equal to ``LM.prefill`` /
+   ``LM.decode_step`` (``MODEL_AXIS``: qwen2-0.5b as published, 4 x 1024
+   and 16 steps; the others at published widths and a few layers, 2
+   steps), the flash launches of ``lm_families``' rule, one decode step
+   profiled on each path; the int8-compressed sync over qwen2-0.5b's
+   whole gradient bit-equal to the CPU's; ``make_dp_train_step``; a
+   one-stage pipeline; ``train.main`` resumed bit for bit.
 7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
-Phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5c and 6 are the main paths: the launch
-counters of the kernels each runs are set to 0 just before it and read
-just after (4b: around the VM's runs alone, before they are compared; 4e:
+Phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5c, 5d and 6 are the main paths: the
+launch counters of the kernels each runs are set to 0 just before it and
+read just after (4b: around the VM's runs alone, before they are compared; 4e:
 around the fault-free serving, not the chaos replays; 4f: around the card
 runs, after the CPU references); a kernel never launched there fails the
 run.  The kernels line's ``launches`` adds 4, 4b, 4d, 4e and 4f for the
-MVE kernels, 5, 5b and 5c for flash attention, 5c for its backward.  Without a CUDA device, or
+MVE kernels, 5, 5b, 5c and 5d for flash attention, 5c and 5d for its
+backward.  Without a CUDA device, or
 without the rest of the checkout beside it, the script exits non-zero and
 prints no result line.
 """
@@ -2758,7 +2772,7 @@ def drive_train_whisper(flash_attention, flash_attention_bwd) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5d: the data mesh
+# phase 5d: the mesh (its data and model axes at one rank)
 # ---------------------------------------------------------------------------
 
 MESH_STEPS = 3                         # whisper-base through jitted_cell
@@ -2852,6 +2866,133 @@ def drive_mesh_whisper(mesh, flash_attention, flash_attention_bwd) -> dict:
                                         "backward": want[1]},
             "mesh_step_ms": [t * 1e3 for t in times],
             "profiled_step": profile}
+
+
+# (arch, layers, decode steps) through jitted_cell's prefill and decode
+# cells: qwen2-0.5b as published with DECODE_STEPS steps, each other family
+# at its published widths with the fewest layers that hold every kind of
+# its layers (2; llama4 4, as in `lm_families`; zamba2 6: one group of
+# Mamba2 layers with its shared attention block; the vision model 5: one
+# gated cross layer), 2 steps
+MODEL_AXIS = (("qwen2-0.5b", None, DECODE_STEPS), ("mamba2-2.7b", 2, 2),
+              ("zamba2-2.7b", 6, 2), ("llama4-scout-17b-a16e", 4, 2),
+              ("llama-3.2-vision-11b", 5, 2), ("whisper-base", 2, 2))
+# where a DTensor op computes otherwise than the plain one (named in
+# PERF.md), its family's logits and cache are held to this
+MODEL_AXIS_RTOL = 1e-6
+
+
+def _rel_err(a, b) -> float:
+    """The largest difference over the largest entry (0 for equal bits)."""
+    if torch.equal(bits(a), bits(b)):
+        return 0.0
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def drive_mesh_model_axis(mesh, arch, layers, steps, flash_attention
+                          ) -> dict:
+    """One family at its published widths through ``jitted_cell``'s
+    ``prefill`` and ``decode`` cells on the mesh, whose ``model`` axis of
+    one rank carries every ``constrain`` site as a ``DTensor``
+    redistribution and the flash route on the rank's own heads: a
+    ``LM_BATCH`` x 1024 prefill (whisper 384 tokens) and ``steps`` decode
+    steps, beside ``LM.prefill`` / ``LM.decode_step`` called directly on
+    the same inputs.  Logits and every cache leaf bit for bit (qwen2), or
+    within ``MODEL_AXIS_RTOL`` where a DTensor op rounds otherwise (the
+    worst relative error printed); the flash launches of each prefill
+    and decode step those of :func:`flash_launches` on both paths; one
+    more decode step profiled on each path (host wall ms, device busy ms,
+    launches): the difference is what the ``DTensor`` path costs the
+    host."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch.steps import jitted_cell
+    from repro_torch.models import LM
+    from repro_torch.models.specs import prefill_batch_specs
+    from repro_torch.parallel.axes import gather, sharding_context
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    seq = 384 if cfg.family == "encdec" else LM_SEQ
+    model, b = LM(cfg), LM_BATCH
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    if "cross" in params:
+        params["cross"]["gate"].fill_(VLM_GATE)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(1, cfg.vocab_size, (b, seq + steps + 1),
+                           generator=gen, device="cuda")
+    specs, _ = prefill_batch_specs(cfg, ShapeCell("p", seq, b, "prefill"))
+    batch = {"tokens": tokens[:, :seq],
+             "positions": torch.arange(seq, dtype=torch.int32,
+                                       device="cuda").expand(b, seq),
+             **{n: torch.randn(d.shape, generator=gen, device="cuda").to(
+                 d.dtype) for n, d in specs.items()
+                if d.dtype.is_floating_point}}
+    room = seq + steps + 1
+    with sharding_context(mesh) as ctx:
+        prefill, _ = jitted_cell(cfg, ShapeCell("p", seq, b, "prefill"), ctx)
+        decode, _ = jitted_cell(cfg, ShapeCell("d", room, b, "decode"), ctx)
+    want_prefill, want_step = flash_launches(cfg)
+    errs, launches = {}, {"direct": [], "mesh": []}
+
+    def run(name, fn, *args):
+        before = flash_attention.launches
+        out = fn(*args)
+        torch.cuda.synchronize()
+        launches[name].append(flash_attention.launches - before)
+        return out
+
+    def hold(what, got, want):
+        errs[what] = max(errs.get(what, 0.0), _rel_err(gather(got), want))
+
+    def pad(c):
+        return {n: (torch.nn.functional.pad(gather(x), (0, 0, 0, 0, 0,
+                                                        steps + 1))
+                    if n in ("k", "v", "shared_k", "shared_v")
+                    else gather(x).clone()) for n, x in c.items()}
+
+    logits, cache = run("direct", model.prefill, params, batch)
+    m_logits, m_cache = run("mesh", prefill, params, batch)
+    hold("prefill_logits", m_logits, logits)
+    for n, x in cache.items():
+        hold("prefill_cache", m_cache[n], x)
+    cache, m_cache = pad(cache), pad(m_cache)
+    for t in range(seq, seq + steps):
+        tok = tokens[:, t:t + 1]
+        logits, cache = run("direct", model.decode_step, params, cache, tok,
+                            t)
+        m_logits, m_cache = run("mesh", decode, params, m_cache, tok,
+                                torch.tensor(t))
+        hold("decode_logits", m_logits, logits)
+        for n, x in cache.items():
+            hold("decode_cache", m_cache[n], x)
+    tok, t = tokens[:, seq + steps:], seq + steps
+    profile = {"direct": device_profile(
+        lambda: model.decode_step(params, cache, tok, t)),
+        "mesh": device_profile(
+        lambda: decode(params, m_cache, tok, torch.tensor(t)))}
+    for name in ("direct", "mesh"):
+        got = launches[name]
+        if got[0] != want_prefill or set(got[1:]) != {want_step}:
+            raise AssertionError(f"{arch} {name}: flash launches {got}, not "
+                                 f"{want_prefill} then {want_step} a step")
+    worst = max(errs.values())
+    tol = 0.0 if arch == MODEL_AXIS[0][0] else MODEL_AXIS_RTOL
+    if worst > tol:
+        raise AssertionError(f"{arch} through jitted_cell's model path: "
+                             f"relative errors {errs} > {tol}")
+    del params, cache, m_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "batch": b, "prompt": seq,
+            "decode_steps": steps, "bit_equal": worst == 0.0,
+            "rel_err": errs,
+            "flash_launches": {"prefill": want_prefill,
+                               "decode_step": want_step},
+            "decode_step_profile": profile,
+            "dtensor_host_ms_per_decode_step": (
+                profile["mesh"]["wall_ms"] - profile["direct"]["wall_ms"])}
 
 
 def qwen2_gradients():
@@ -3111,7 +3252,7 @@ def drive_mesh(flash_attention, flash_attention_bwd) -> dict:
     """Phase 5d: a 1-rank process group (NCCL for the card, gloo for the
     CPU side of the compressed sync, which runs on a thread beside the
     later checks) from a ``FileStore`` in a temporary directory, a
-    ``{"data": 1, "model": 1}`` mesh on ``cuda``, the five checks, the
+    ``{"data": 1, "model": 1}`` mesh on ``cuda``, the six checks, the
     group destroyed at the end."""
     import tempfile
     import torch.distributed as dist
@@ -3137,6 +3278,11 @@ def drive_mesh(flash_attention, flash_attention_bwd) -> dict:
             out["whisper-base"] = drive_mesh_whisper(
                 mesh, flash_attention, flash_attention_bwd)
             lap("whisper-base")
+            out["model_axis"] = {
+                arch: drive_mesh_model_axis(mesh, arch, layers, steps,
+                                            flash_attention)
+                for arch, layers, steps in MODEL_AXIS}
+            lap("model_axis")
             model, params, batches, grads = qwen2_gradients()
             lap("qwen2_gradients")
             out["compressed_sync"], residual, join = drive_mesh_compression(

@@ -49,6 +49,9 @@ alone and keeps no ``lse``.
 Bound on this card at the qwen2-0.5b prefill shape: operations (the
 kernels' source notes have the arithmetic).
 
+On a ``model`` mesh axis the attention hands the kernels each rank's own
+heads as plain tensors; a ``DTensor`` reaching a wrapper raises.
+
 The plain PyTorch versions are
 :func:`repro_torch.kernels.ref.flash_attention_ref`,
 ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref``; the wrappers
@@ -61,6 +64,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import _build
 from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
@@ -102,6 +106,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Raise on what the kernels do not take; return the scale.  With
     ``float64_on_cpu`` a CPU call may also be float64 (the plain versions
     take it: the gradient checks run in float64)."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("a DTensor reached the flash kernels: pass each "
+                        "rank's local heads (models/attention.py, "
+                        "_flash_on_local_heads)")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
     b, h, _, d = q.shape

@@ -6,9 +6,10 @@ differentiates ``LM.loss`` with ``torch.autograd`` and applies
 :func:`~repro_torch.optim.adamw_update`; the prefill and decode steps are
 the model's methods.  :func:`jitted_cell` builds the same steps over a
 mesh, for every rank of it to call: parameters and optimizer moments are
-``DTensor``s placed by :func:`~repro_torch.parallel.axes.spec_for` (with
-no ``model`` axis, FSDP over ``data``), the batch is split over the batch
-axes, and the loss and the gradient are the whole batch's.
+``DTensor``s placed by :func:`~repro_torch.parallel.axes.spec_for` (FSDP
+over ``data``, tensor, sequence and expert parallelism over ``model``),
+the batch is split over the batch axes, and the loss and the gradient are
+the whole batch's.
 """
 from __future__ import annotations
 
@@ -27,10 +28,10 @@ from ..models.specs import (decode_specs, prefill_batch_specs,
                             train_batch_specs)
 from ..optim import AdamWConfig, adamw_update
 from ..optim.adamw import _scale_shape
-from ..parallel.axes import (MODEL_AXIS_NOT_PORTED, NamedPlacement,
-                             ShardingCtx, all_reduce, batch_reduction,
-                             gather, local_shard, mesh_shape, named_sharding,
-                             shard_groups)
+from ..parallel.axes import (NamedPlacement, ShardingCtx, all_reduce,
+                             batch_reduction, local_shard, mesh_shape,
+                             model_mesh, named_sharding, on_model_mesh,
+                             shard_groups, step_context)
 
 
 def shardings_for(axes, shapes, ctx: ShardingCtx):
@@ -77,8 +78,8 @@ def _loss_and_grads(model: LM, params, batch):
     acc_dt = DTYPES[model.cfg.grad_accum_dtype]
     micro = {k: x.reshape(ga, x.shape[0] // ga, *x.shape[1:])
              for k, x in batch.items()}
-    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                           device=p.device), params)
+    gsum = tree_map(lambda p: torch.zeros_like(
+        p, dtype=acc_dt, memory_format=torch.contiguous_format), params)
     dev = tree_leaves(params)[0][1].device
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
@@ -130,6 +131,54 @@ def make_decode_step(model: LM):
 # Steps over a mesh
 # ---------------------------------------------------------------------------
 
+def _model_dim(mesh) -> Optional[int]:
+    names = list(mesh_shape(mesh))
+    return names.index("model") if "model" in names else None
+
+
+def _step_param(x, where: NamedPlacement):
+    """A parameter as the step computes with it: gathered over every mesh
+    axis but ``model``, a ``DTensor`` on the ``model`` sub-mesh with the
+    leaf's ``model`` placement (on a mesh without a ``model`` axis, the
+    whole tensor)."""
+    mesh, m = where.mesh, _model_dim(where.mesh)
+    keep = tuple(p if i == m else Replicate()
+                 for i, p in enumerate(where.placements))
+    local = (x.redistribute(mesh, keep).to_local() if isinstance(x, DTensor)
+             else local_shard(x, mesh, keep))
+    return _on_model(local, where)
+
+
+def _on_model(local: torch.Tensor, where: NamedPlacement):
+    """This rank's part along the ``model`` axis (whole along the others'
+    or their rows) as a ``DTensor`` on the ``model`` sub-mesh, placed as
+    ``where`` places it there."""
+    m = _model_dim(where.mesh)
+    if m is None:
+        return local
+    sub = model_mesh(where.mesh)
+    return DTensor.from_local(local, sub, _sub_placements(where, m, sub),
+                              run_check=False)
+
+
+def _sub_placements(where: NamedPlacement, m: int, sub) -> Tuple:
+    """``where``'s placement along the ``model`` axis; ``Replicate`` on a
+    ``model`` axis of one rank, as ``constrain`` places there."""
+    return (where.placements[m],) if sub.size() > 1 else (Replicate(),)
+
+
+def _model_part(x, where: NamedPlacement) -> torch.Tensor:
+    """This rank's part along the ``model`` axis of a step's result (a
+    ``DTensor`` on the ``model`` sub-mesh, or a plain tensor every
+    ``model`` rank holds alike), as ``where`` places it there."""
+    m = _model_dim(where.mesh)
+    if m is None:
+        return x
+    sub = model_mesh(where.mesh)
+    return on_model_mesh(x, sub).redistribute(
+        sub, _sub_placements(where, m, sub)).to_local()
+
+
 def _own(x, where: NamedPlacement) -> torch.Tensor:
     """This rank's part of a leaf: a DTensor's local tensor, or its part of
     a tensor every rank holds whole."""
@@ -142,6 +191,13 @@ def _placed(tree, shardings):
     """Local parts as DTensors on their placements."""
     return tree_map(lambda x, w: DTensor.from_local(
         x, w.mesh, w.placements, run_check=False), tree, shardings)
+
+
+def _results(tree, shardings):
+    """A serving step's results (their rows, as DTensors on the ``model``
+    sub-mesh or plain) as DTensors on their placements over the whole
+    mesh."""
+    return _placed(tree_map(_model_part, tree, shardings), shardings)
 
 
 def _rows(x: torch.Tensor, where: NamedPlacement, micro: int = 1
@@ -176,14 +232,17 @@ def _batch_ranks(where: NamedPlacement, cfg: ModelConfig, rows: int,
 
 def _reduce_grad(g: torch.Tensor, where: NamedPlacement, batch_dims
                  ) -> torch.Tensor:
-    """This rank's shard of ``g`` summed over the batch's ranks, mesh dim by
-    mesh dim (major to minor): a reduce-scatter along the tensor dim that a
-    batch axis also shards the leaf by, an all-reduce over a batch axis that
+    """This rank's shard of ``g`` (this rank's part along the ``model``
+    axis already) summed over the batch's ranks, mesh dim by mesh dim
+    (major to minor): a reduce-scatter along the tensor dim that a batch
+    axis also shards the leaf by, an all-reduce over a batch axis that
     leaves the leaf whole, this rank's chunk along a dim split only for the
-    leaf."""
+    leaf by another axis."""
     mesh = where.mesh
     names, coord = list(mesh_shape(mesh)), mesh.get_coordinate()
     for i, p in enumerate(where.placements):
+        if names[i] == "model":
+            continue
         group = mesh.get_group(names[i])
         if isinstance(p, Shard):
             n = dist.get_world_size(group)
@@ -220,7 +279,7 @@ def _sharded_norm(grads, shardings) -> torch.Tensor:
 
 
 def _train_step(model: LM, opt_cfg: AdamWConfig, shardings, b_shard,
-                cell: ShapeCell):
+                cell: ShapeCell, ctx: ShardingCtx):
     cfg = model.cfg
     p_shard, opt_shard = shardings["params"], shardings["opt"]
     ga = max(cfg.grad_accum, 1)
@@ -238,13 +297,13 @@ def _train_step(model: LM, opt_cfg: AdamWConfig, shardings, b_shard,
         row_max = tree_map(reducer, model.abstract_params(), p_shard)
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
-        full = tree_map(gather, params)
         mine = {k: _rows(x, b_shard[k], ga) for k, x in batch.items()}
-        with batch_reduction(groups, count):
-            (loss, metrics), grads = _loss_and_grads(model, full, mine)
-        del full
-        grads = tree_map(lambda g, w: _reduce_grad(g, w, batch_dims),
-                         grads, p_shard)
+        with step_context(ctx), batch_reduction(groups, count):
+            used = tree_map(_step_param, params, p_shard)
+            (loss, metrics), grads = _loss_and_grads(model, used, mine)
+            del used
+            grads = tree_map(lambda g, w: _reduce_grad(
+                _model_part(g, w), w, batch_dims), grads, p_shard)
         norm = _sharded_norm(grads, p_shard)
         new_p, new_s, om = adamw_update(
             opt_cfg, tree_map(_own, params, p_shard), grads,
@@ -261,20 +320,22 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
     ``ctx.mesh``; every rank of the mesh calls ``step`` with the same
     arguments: parameters (and optimizer state) as DTensors on
     :func:`state_shardings`' placements, or tensors every rank holds whole,
-    and the whole batch.  Each parameter is gathered whole, the step runs
-    on this rank's rows of the batch (``batch`` -> ``("pod", "data")``)
-    with the loss's sums and the MoE statistics taken over every rank's
-    rows, each gradient is reduce-scattered over those ranks to this rank's
-    shard, and each rank applies AdamW to its own shard (the gradient's
-    norm from the shards' squares).  Outputs are DTensors (metrics: tensors, the
-    same on every rank).
+    and the whole batch.  The step runs on this rank's rows of the batch
+    (``batch`` -> ``("pod", "data")``) with the loss's sums and the MoE
+    statistics taken over every rank's rows.  Each parameter is gathered
+    over every axis but ``model`` and enters as a ``DTensor`` on the
+    ``model`` sub-mesh with its ``model`` placement; the activations are
+    redistributed at the reference's ``constrain`` sites, and the flash
+    kernels run on each rank's own heads.  Each gradient, taken to this
+    rank's ``model`` part, is reduce-scattered over the batch's ranks to
+    this rank's shard, and each rank applies AdamW to its own shard (the
+    gradient's norm from the shards' squares).  Outputs are DTensors
+    (metrics: tensors, the same on every rank).
 
     ``train``: ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``prefill``: ``step(params, batch) -> (logits, cache)``;
     ``decode``: ``step(params, cache, tokens, cache_index) -> (logits,
     cache)``, the cache placed by the cache's logical axes."""
-    if mesh_shape(ctx.mesh).get("model", 1) > 1:
-        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
     model = LM(cfg)
     p_abs = model.abstract_params()
     logits_shard = named_sharding(
@@ -295,7 +356,7 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
                    "step": ShapeDtype((), torch.int32)}
         step = _train_step(model, opt_cfg,
                            state_shardings(model, opt_cfg, ctx),
-                           shardings_for(baxes, specs, ctx), cell)
+                           shardings_for(baxes, specs, ctx), cell, ctx)
         return step, (p_abs, opt_abs, specs)
 
     p_shard = shardings_for(model.param_axes(), p_abs, ctx)
@@ -309,11 +370,12 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
                      cell.seq_len)
 
         def prefill_step(params, batch):
-            logits, cache = model.prefill(
-                tree_map(gather, params),
-                {k: _rows(x, b_shard[k]) for k, x in batch.items()})
-            return (_placed(logits, logits_shard),
-                    _placed(cache, c_shard))
+            with step_context(ctx):
+                logits, cache = model.prefill(
+                    tree_map(_step_param, params, p_shard),
+                    {k: _rows(x, b_shard[k]) for k, x in batch.items()})
+                return (_results(logits, logits_shard),
+                        _results(cache, c_shard))
         return prefill_step, (p_abs, specs)
 
     if cell.kind == "decode":
@@ -325,11 +387,14 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
         def decode_step(params, cache, tokens, cache_index):
             if torch.is_tensor(cache_index) and cache_index.dim():
                 cache_index = _rows(cache_index, t_shard)  # (B,) index
-            logits, cache = model.decode_step(
-                tree_map(gather, params), tree_map(_own, cache, c_shard),
-                _rows(tokens, t_shard), cache_index)
-            return (_placed(logits, logits_shard),
-                    _placed(cache, c_shard))
+            with step_context(ctx):
+                logits, cache = model.decode_step(
+                    tree_map(_step_param, params, p_shard),
+                    tree_map(lambda x, w: _on_model(_own(x, w), w), cache,
+                             c_shard),
+                    _rows(tokens, t_shard), cache_index)
+                return (_results(logits, logits_shard),
+                        _results(cache, c_shard))
         return decode_step, (p_abs, c_abs, tok["tokens"],
                              ShapeDtype((), torch.int32))
 

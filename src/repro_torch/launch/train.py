@@ -9,10 +9,11 @@ Production behaviors, as the reference's (``repro/launch/train.py``):
   * heartbeat + straggler runtime hooks (single-host here; the monitors
     are the same objects a multi-host coordinator would drive).
 
-Data parallelism: under ``torchrun`` (``WORLD_SIZE`` set) every rank runs
-the loop over a ``(data, model)`` mesh through
-:func:`~repro_torch.launch.steps.jitted_cell`; ``--model`` above 1 is not
-ported yet (ROADMAP.md, queue A).  The int8-compressed gradient sync is
+Parallelism: under ``torchrun`` (``WORLD_SIZE`` set, ``--data D --model
+M`` on ``D * M`` ranks) every rank runs the loop over a ``(data, model)``
+mesh through :func:`~repro_torch.launch.steps.jitted_cell`: FSDP and data
+parallelism over ``data``, tensor, sequence and expert parallelism over
+``model``.  The int8-compressed gradient sync is
 :mod:`repro_torch.parallel.compression`'s data-parallel trainer.
 
 CPU-scale usage (``examples/train_tiny_torch.py`` wraps this)::
@@ -20,8 +21,9 @@ CPU-scale usage (``examples/train_tiny_torch.py`` wraps this)::
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --reduced --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \\
         --device cpu
-    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
-        --reduced --steps 4 --batch 4 --seq 32 --data 2 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --reduced --steps 4 --batch 4 --seq 32 --data 2 --model 2 \\
+        --device cpu
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from ..models.common import ShapeDtype, tree_map
 from ..models.lm import LM
 from ..optim import AdamWConfig, adamw_init
 from ..optim.adamw import _scale_shape
-from ..parallel.axes import MODEL_AXIS_NOT_PORTED, place, sharding_context
+from ..parallel.axes import place, sharding_context
 from ..runtime import HeartbeatMonitor, StragglerDetector
 from .mesh import make_mesh
 from .steps import jitted_cell, make_train_step, state_shardings
@@ -235,12 +237,11 @@ def main(argv=None) -> None:
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel mesh extent (ranks from torchrun)")
     ap.add_argument("--model", type=int, default=1,
-                    help="model-parallel mesh extent (1: not ported yet)")
+                    help="model-parallel mesh extent (tensor, sequence and "
+                    "expert parallelism; ranks from torchrun)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu: gloo ranks)")
     args = ap.parse_args(argv)
-    if args.model != 1:
-        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
     world = int(os.environ.get("WORLD_SIZE", 1))
     if world != args.data * args.model:
         raise RuntimeError(

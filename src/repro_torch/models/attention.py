@@ -8,8 +8,13 @@ is differentiated by its own backward kernels
 (:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`), the plain
 route by autograd, one query chunk at a time under non-reentrant
 ``torch.utils.checkpoint`` as the reference's ``jax.checkpoint`` of each
-chunk.  The reference's sharding constraints are no-ops outside a mesh and
-are left out.
+chunk.
+
+The reference's sharding constraints stand at its sites
+(:func:`~repro_torch.parallel.axes.constrain`): no-ops outside a mesh, on a
+``model`` axis ``DTensor`` redistributions.  The flash route takes each
+rank's own q heads and the kv heads they use as local tensors
+(:func:`_flash_on_local_heads`), so no ``DTensor`` reaches the kernel.
 """
 from __future__ import annotations
 
@@ -17,18 +22,19 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from ..kernels.flash_attention import HEAD_DIMS
+from ..parallel.axes import constrain, gather, on_model_mesh, unflatten
 
 NEG_INF = -1e30
 
 
 def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
     """(B,S,Hq,D) -> (B,S,K,G,D)."""
-    b, s, hq, d = q.shape
-    return q.reshape(b, s, kv_heads, hq // kv_heads, d)
+    return unflatten(q, 2, (kv_heads, q.shape[2] // kv_heads))
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,6 +51,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # meet q in the promoted type, as in the reference
     dt = torch.promote_types(q.dtype, k.dtype)
     if segment_ids is None and d in HEAD_DIMS:
+        if any(isinstance(x, DTensor) for x in (q, k, v)):
+            return _flash_on_local_heads(q, k, v, causal, dt)
         # the flash route: (B,H,S,D) views, no copies; the kernel serves
         # q head h from kv head h // (Hq/K), which is the reference's
         # jnp.repeat of the kv heads
@@ -52,9 +60,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      for x in (q, k, v)), causal=causal)
         return out.transpose(1, 2).to(q.dtype)
 
+    # GQA: the kv heads repeated so that the merged head axis splits over
+    # the model axis as the q heads do
     g = hq // kh
     kr = k.repeat_interleave(g, dim=2) if g > 1 else k     # (B,Sk,Hq,D)
     vr = v.repeat_interleave(g, dim=2) if g > 1 else v
+    kr = constrain(kr, "batch", None, "act_heads", None)
+    vr = constrain(vr, "batch", None, "act_heads", None)
 
     chunk = min(chunk, sq)
     kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
@@ -73,6 +85,40 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def _flash_on_local_heads(q, k, v, causal: bool, dt) -> DTensor:
+    """The flash route on the ``model`` sub-mesh: each rank runs the
+    kernel on its own q heads (all of them where the head count does not
+    split over the axis) and the kv heads those use, as local tensors.
+    The kernel serves local q head ``h`` from local kv head ``h // group``,
+    so the kv heads handed over are the whole groups of the rank's q heads,
+    the one kv head they share, or else each q head's own (gathered, group
+    1).  Where q is split, each rank's K/V gradient is its q heads' part:
+    the local K/V carry ``Partial`` gradients."""
+    sub = next(x for x in (q, k, v) if isinstance(x, DTensor)).device_mesh
+    hq, kh = q.shape[2], k.shape[2]
+    g, n = hq // kh, sub.size()
+    heads = (Shard(2),) if n > 1 and hq % n == 0 else (Replicate(),)
+    q = on_model_mesh(q, sub).redistribute(sub, heads)
+    grads = (Partial(),) if heads[0] != Replicate() else None
+    kl, vl = (on_model_mesh(x, sub).redistribute(sub, (Replicate(),))
+              .to_local(grad_placements=grads) for x in (k, v))
+    if grads is not None:
+        lo = sub.get_local_rank() * (hq // n)
+        hi = lo + hq // n
+        if (hi - lo) % g == 0:                    # whole groups
+            kl, vl = (x[:, :, lo // g:hi // g] for x in (kl, vl))
+        elif lo // g == (hi - 1) // g:            # one group's heads
+            kl, vl = (x[:, :, lo // g:lo // g + 1] for x in (kl, vl))
+        else:                                     # each q head's own
+            idx = torch.arange(lo, hi, device=kl.device) // g
+            kl, vl = (x.index_select(2, idx) for x in (kl, vl))
+    out = kops.flash_attention(*(x.transpose(1, 2).to(dt)
+                                 for x in (q.to_local(), kl, vl)),
+                               causal=causal)
+    return DTensor.from_local(out.transpose(1, 2).to(q.dtype), sub, heads,
+                              run_check=False)
+
+
 def _attend_chunk(qc, kr, vr, start: int, seg_c, kv_seg, causal: bool,
                   offset: int, scale: float, dt) -> torch.Tensor:
     """One query chunk ``qc`` (B, c, Hq, D) of the plain route over the
@@ -81,8 +127,10 @@ def _attend_chunk(qc, kr, vr, start: int, seg_c, kv_seg, causal: bool,
     sk = kr.shape[1]
     # operands in the model type, products accumulated in f32 and then
     # rounded to it, as the reference's einsum does
+    qc = constrain(qc, "batch", None, "act_heads", None)
     logits = torch.einsum("bchd,bshd->bhcs", qc.to(dt), kr.to(dt))
     logits = logits.float() * scale
+    logits = constrain(logits, "batch", "act_heads", "seq", None)
     valid = torch.ones(b, 1, c, sk, dtype=torch.bool, device=qc.device)
     if causal:
         kpos = torch.arange(sk, device=qc.device)
@@ -92,7 +140,9 @@ def _attend_chunk(qc, kr, vr, start: int, seg_c, kv_seg, causal: bool,
         valid = valid & (seg_c[:, None, :, None] == kv_seg[:, None, None, :])
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
+    probs = constrain(probs, "batch", "act_heads", "seq", None)
     out = torch.einsum("bhcs,bshd->bchd", probs.to(vr.dtype), vr)
+    out = constrain(out, "batch", None, "act_heads", None)
     return out.to(qc.dtype)
 
 
@@ -113,11 +163,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     dt = torch.promote_types(q.dtype, k_cache.dtype)
     logits = torch.einsum("bokgd,bskd->bkgos", qg.to(dt), k_cache.to(dt))
     logits = logits.float() * scale
+    # kv-sequence split attention (flash-decode): each rank scores its
+    # cache slice; the softmax over the split axis gathers it
+    logits = constrain(logits, "batch", None, None, None, "kv_seq")
     ci = torch.as_tensor(cache_index, device=q.device).reshape(-1)
     valid = (torch.arange(s, device=q.device)[None, :] <= ci[:, None]
              )[:, None, None, None, :]
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
+    probs = constrain(probs, "batch", None, None, None, "kv_seq")
     out = torch.einsum("bkgos,bskd->bokgd", probs.to(v_cache.dtype),
                        v_cache)
     return out.reshape(b, one, hq, d).to(q.dtype)
@@ -155,7 +209,15 @@ def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     as ``dynamic_update_slice`` clamps; a ``(B,)`` tensor writes each row
     at its own position (continuous-batching decode): an index in
     ``[-S, 0)`` counts from the end, and a row whose index lies outside
-    the cache keeps its contents, as the reference's scatter drops it."""
+    the cache keeps its contents, as the reference's scatter drops it.
+
+    A ``DTensor`` cache (on the ``model`` axis: its sequence split by
+    ``kv_seq``, or whole) is written on this rank's own part, which keeps
+    its placements; an in-place write into the ``DTensor`` itself does
+    not."""
+    if isinstance(k_cache, DTensor):
+        _update_local(k_cache, v_cache, k_new, v_new, cache_index)
+        return k_cache, v_cache
     s = k_cache.shape[1]
     if isinstance(cache_index, int):
         i = min(max(cache_index, 0), s - 1)
@@ -163,13 +225,44 @@ def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
         v_cache[:, i] = _to_cache_type(v_new[:, 0], v_cache.dtype)
         return k_cache, v_cache
     ci = cache_index.to(k_cache.device).long()
-    ci = torch.where(ci < 0, ci + s, ci)
-    keep = ((ci >= 0) & (ci < s))[:, None, None]
-    ci = ci.clamp(0, s - 1)
-    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
-    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+    _write_rows((k_cache, v_cache), (k_new, v_new),
+                torch.where(ci < 0, ci + s, ci), 0)
+    return k_cache, v_cache
+
+
+def _write_rows(caches, news, ci: torch.Tensor, lo: int) -> None:
+    """Each row's new K/V (``news``, each ``(B, 1, K, D)``) at its
+    position ``ci`` of the whole sequence, written into ``caches`` (each
+    ``(B, part, K, D)``, positions ``lo`` onward) where the position falls
+    in it; a row whose position lies outside keeps its contents."""
+    part = caches[0].shape[1]
+    keep = ((ci >= lo) & (ci < lo + part))[:, None, None]
+    ci = (ci - lo).clamp(0, part - 1)
+    rows = torch.arange(caches[0].shape[0], device=caches[0].device)
+    for cache, new in zip(caches, news):
         new = _to_cache_type(new[:, 0], cache.dtype)
         if cache.dtype == torch.float8_e4m3fn:     # select and scatter bytes
             cache, new = cache.view(torch.uint8), new.view(torch.uint8)
         cache[rows, ci] = torch.where(keep, new, cache[rows, ci])
-    return k_cache, v_cache
+
+
+def _update_local(k_cache: DTensor, v_cache: DTensor, k_new, v_new,
+                  cache_index) -> None:
+    """:func:`update_cache` on this rank's part of a ``DTensor`` cache
+    whose sequence (dim 1) is split over its mesh or whole: the index is
+    resolved on the whole sequence, then written where it falls in the
+    part; a row whose position lies on another rank keeps its part."""
+    (p,), sub = k_cache.placements, k_cache.device_mesh
+    if isinstance(p, Shard) and p.dim != 1:
+        raise ValueError(f"a cache split on dim {p.dim}: only its "
+                         "sequence (dim 1) may be split")
+    s = k_cache.shape[1]
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    lo = sub.get_local_rank() * kl.shape[1] if isinstance(p, Shard) else 0
+    if isinstance(cache_index, int):
+        ci = torch.full((kl.shape[0],), min(max(cache_index, 0), s - 1),
+                        dtype=torch.long, device=kl.device)
+    else:
+        ci = cache_index.to(kl.device).long()
+        ci = torch.where(ci < 0, ci + s, ci)
+    _write_rows((kl, vl), (gather(k_new), gather(v_new)), ci, lo)

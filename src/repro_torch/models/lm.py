@@ -7,7 +7,7 @@ frames, a decoder with cross attention to it).
 One :class:`LM` per config exposes
 
   * ``abstract_params()`` / ``init_params(generator, device)`` (+ logical
-    sharding axes, kept so the trees match the reference's),
+    sharding axes, which place them on a mesh),
   * ``loss(params, batch)``     -> (loss, metrics), the training objective,
   * ``prefill(params, batch)``  -> (last-token logits, cache),
   * ``decode_step(params, cache, tokens, cache_index)``,
@@ -27,6 +27,11 @@ the reference checkpoints its scan body.
 ``decode_step`` updates the cache in place: the KV rows and the recurrent
 (``ssm``, ``conv``) state alike; the cross caches are only read.
 
+On a mesh with a ``model`` axis the reference's sharding constraints
+stand at its sites (``constrain``, and ``constrain_like`` for each layer's
+parameter slice), as ``DTensor`` redistributions
+(:mod:`repro_torch.parallel.axes`); outside one they are no-ops.
+
 Prefill projects the image embeddings or the encoder output to the cross
 K/V once, into the stacked caches it returns, and the cross layers read
 them there; the reference projects them twice, in the layer and again for
@@ -39,11 +44,15 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..core.machine import resolve_device
+from ..parallel.axes import (constrain, merge_heads, on_model_mesh, settled,
+                             unflatten)
 from .attention import chunked_attention, decode_attention, update_cache
 from .common import (DTYPES, ParamDef, abstract_tree, activation_fn,
                      axes_tree, chunked_cross_entropy, materialize_tree,
@@ -53,6 +62,16 @@ from .ssm import mamba_block
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 POSITION_TABLE = 8192          # encdec token positions are clipped into it
+
+
+def constrain_like(params, axes, skip_leading: int = 1):
+    """Each leaf of one layer's parameter slice placed by its logical axes
+    (the stacked leaf's, ``skip_leading`` of them dropped), as the
+    reference re-asserts them inside its layer scan."""
+    if isinstance(params, dict):
+        return {k: constrain_like(v, axes[k], skip_leading)
+                for k, v in params.items()}
+    return constrain(params, *axes[skip_leading:])
 
 
 # ---------------------------------------------------------------------------
@@ -187,23 +206,22 @@ def build_param_defs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _proj_q(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    b, s, _ = x.shape
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    return q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    return unflatten(q, -1, (cfg.num_heads, cfg.resolved_head_dim))
 
 
 def _proj_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor):
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
-    return (_proj_q(cfg, p, x), k.reshape(b, s, cfg.num_kv_heads, hd),
-            v.reshape(b, s, cfg.num_kv_heads, hd))
+    kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    q = constrain(_proj_q(cfg, p, x), "batch", None, "act_heads", None)
+    k = constrain(unflatten(k, -1, kv), "batch", None, None, None)
+    return q, k, unflatten(v, -1, kv)
 
 
 def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
@@ -218,6 +236,8 @@ def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
         k = rope(k, positions, cfg.rope_theta)
     if mode == "decode":
         ck, cv = update_cache(*cache_kv, k, v, cache_index)
+        ck = constrain(ck, "batch", "kv_seq", None, None)
+        cv = constrain(cv, "batch", "kv_seq", None, None)
         out = decode_attention(q, ck, cv, cache_index)
         side = (ck, cv)
     else:
@@ -225,23 +245,27 @@ def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
                                 segment_ids=segment_ids,
                                 chunk=cfg.attn_chunk)
         side = (k, v)
-    b, s = h.shape[:2]
-    h = h + out.reshape(b, s, -1) @ p["wo"]
-    return h, side
+    h = h + merge_heads(out) @ p["wo"]
+    return constrain(h, "batch", "seq", None), side
 
 
 def _cross_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
                      cached_kv: Tuple[torch.Tensor, torch.Tensor],
-                     gated: bool = False) -> torch.Tensor:
+                     gated: bool = False, decode: bool = False
+                     ) -> torch.Tensor:
     """Non-causal attention of ``h`` over another sequence (image
     embeddings, the encoder output) whose K/V ``cached_kv`` (each ``(B, T,
     K, D)``) ``_cross_kv_from`` projected.  A gated layer scales its output
-    by ``tanh(gate)``."""
+    by ``tanh(gate)``.  Outside ``decode`` q and K are placed as the
+    reference's projection places them (it reads K/V from the cache
+    unplaced in decode)."""
     x = rmsnorm(h, p["norm"], cfg.norm_eps)
     q, (k, v) = _proj_q(cfg, p, x), cached_kv
+    if not decode:
+        q = constrain(q, "batch", None, "act_heads", None)
+        k = constrain(k, "batch", None, None, None)
     out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    b, s = h.shape[:2]
-    delta = out.reshape(b, s, -1) @ p["wo"]
+    delta = merge_heads(out) @ p["wo"]
     if gated:
         delta = delta * torch.tanh(p["gate"]).to(delta.dtype)
     return h + delta
@@ -257,9 +281,8 @@ def _cross_kv_from(cfg: ModelConfig, p_stack: Dict, src: torch.Tensor
     if "bk" in p_stack:
         k = k + p_stack["bk"][:, None, None, :]
         v = v + p_stack["bv"][:, None, None, :]
-    lc, b, t, _ = k.shape
-    return (k.reshape(lc, b, t, cfg.num_kv_heads, hd),
-            v.reshape(lc, b, t, cfg.num_kv_heads, hd))
+    return (unflatten(k, -1, (cfg.num_kv_heads, hd)),
+            unflatten(v, -1, (cfg.num_kv_heads, hd)))
 
 
 @functools.lru_cache(maxsize=8)
@@ -273,7 +296,8 @@ def _mlp(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
     u = activation_fn(cfg.activation)(x @ p["wi"])
     if "wg" in p:
         u = u * (x @ p["wg"])
-    return h + u @ p["wo"]
+    u = constrain(u, "batch", None, "mlp")
+    return constrain(h + u @ p["wo"], "batch", "seq", None)
 
 
 def _layer(tree, i: int):
@@ -283,9 +307,27 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _mamba_out(p: Dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """A Mamba2 layer in training: its output, no recurrent state."""
-    return mamba_block(p, h, cfg)[0]
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a ``DTensor`` table whose vocab is split over the
+    ``model`` axis through ``F.embedding``, each rank's rows of its own
+    vocab summed (a whole table keeps the index, whose backward adds the
+    gradients of repeated tokens in another order than the embedding's
+    on the card)."""
+    if isinstance(table, DTensor) and any(p.is_shard()
+                                          for p in table.placements):
+        return settled(F.embedding(tokens, table))
+    return table[tokens]
+
+
+def _write_state(dst: torch.Tensor, new: torch.Tensor) -> None:
+    """``dst.copy_(new)`` in place, for a ``DTensor`` on this rank's part
+    of ``dst`` (``new`` placed like it first)."""
+    if isinstance(dst, DTensor):
+        new = on_model_mesh(new, dst.device_mesh).redistribute(
+            dst.device_mesh, dst.placements)
+        dst.to_local().copy_(new.to_local())
+    else:
+        dst.copy_(new)
 
 
 # remat="dots": the matrix products' outputs are kept, the rest recomputed
@@ -312,6 +354,7 @@ class LM:
 
     def __post_init__(self):
         self.defs = build_param_defs(self.cfg)
+        self._axes = axes_tree(self.defs)
 
     # ---- parameters ----
     def abstract_params(self):
@@ -329,13 +372,13 @@ class LM:
     # ---- embedding ----
     def _embed(self, params, tokens: torch.Tensor,
                positions=None) -> torch.Tensor:
-        h = params["embed"][tokens]
+        h = _lookup(params["embed"], tokens)
         if self.cfg.family == "encdec" and positions is not None:
             table = _position_table(POSITION_TABLE, self.cfg.d_model,
-                                    h.device)
+                                    tokens.device)
             h = h + table[positions.clamp(0, POSITION_TABLE - 1).long()
                           ].to(h.dtype)
-        return h
+        return constrain(h, "batch", "seq", None)
 
     # ---- backbones ----
     def _remat(self, fn, *args):
@@ -362,16 +405,18 @@ class LM:
         attention, then the MLP or the MoE.  Returns (h, the layer's aux
         loss, (k, v))."""
         cfg = self.cfg
+        p = constrain_like(p, self._axes["blocks"])
         if cross is not None:
-            h = _cross_attention(cfg, cross[0], h, cached_kv=cross[1],
-                                 gated=True)
+            h = _cross_attention(
+                cfg, constrain_like(cross[0], self._axes["cross"]), h,
+                cached_kv=cross[1], gated=True, decode=mode == "decode")
         h, kv = _self_attention(cfg, p["attn"], h, positions, segment_ids,
                                 mode, cache_kv=cache_kv,
                                 cache_index=cache_index)
         if "moe" in p:
             x = rmsnorm(h, p["moe"]["norm"], cfg.norm_eps)
             out, aux = moe_ffn(p["moe"], x, cfg)
-            return h + out, aux, kv
+            return constrain(h + out, "batch", "seq", None), aux, kv
         return _mlp(cfg, p["mlp"], h), None, kv
 
     def _transformer_stack(self, params, h, positions, segment_ids, mode,
@@ -422,16 +467,23 @@ class LM:
         keeps no state (checkpointed by :meth:`_remat`)."""
         p = _layer(params["blocks"], i)
         if mode == "train":
-            return self._remat(_mamba_out, p, h, self.cfg)
+            return self._remat(self._mamba_train, p, h)
+        p = constrain_like(p, self._axes["blocks"])
         if mode == "decode":
             h, ns = mamba_block(p, h, self.cfg, state={
                 "ssm": cache["ssm"][i], "conv": cache["conv"][i]})
-            cache["ssm"][i].copy_(ns["ssm"])
-            cache["conv"][i].copy_(ns["conv"])
+            _write_state(cache["ssm"][i], ns["ssm"])
+            _write_state(cache["conv"][i], ns["conv"])
         else:
             h, ns = mamba_block(p, h, self.cfg)
             states.append(ns)
-        return h
+        return constrain(h, "batch", "seq", None)
+
+    def _mamba_train(self, p, h):
+        """A Mamba2 layer in training: its output, no recurrent state."""
+        p = constrain_like(p, self._axes["blocks"])
+        return constrain(mamba_block(p, h, self.cfg)[0], "batch", "seq",
+                         None)
 
     @staticmethod
     def _stacked_states(states) -> Dict:
@@ -457,7 +509,9 @@ class LM:
         every = cfg.attn_every
         states, ks, vs = [], [], []
         for gi in range(cfg.num_layers // every):
-            sp = _layer(params["shared"], gi % cfg.num_shared_blocks)
+            sp = constrain_like(
+                _layer(params["shared"], gi % cfg.num_shared_blocks),
+                self._axes["shared"])
             cache_kv = ((cache["shared_k"][gi], cache["shared_v"][gi])
                         if mode == "decode" else None)
             h, (k, v) = _self_attention(cfg, sp["attn"], h, positions,
@@ -483,8 +537,10 @@ class LM:
         cfg = self.cfg
         table = _position_table(cfg.num_frames, cfg.d_model, frames.device)
         h = frames + table[None, :frames.shape[1]].to(frames.dtype)
+        h = constrain(h, "batch", "seq", None)
         for i in range(cfg.encoder_layers):
-            p = _layer(params["enc_blocks"], i)
+            p = constrain_like(_layer(params["enc_blocks"], i),
+                               self._axes["enc_blocks"])
             h, _ = _self_attention(cfg, p["attn"], h, None, None, "encode",
                                    causal=False)
             h = _mlp(cfg, p["mlp"], h)
@@ -496,9 +552,11 @@ class LM:
         attention over the encoder output's K/V ``cross_kv``, MLP.
         Returns (h, (k, v))."""
         cfg = self.cfg
+        p = constrain_like(p, self._axes["blocks"])
         h, kv = _self_attention(cfg, p["attn"], h, positions, None, mode,
                                 cache_kv=cache_kv, cache_index=cache_index)
-        h = _cross_attention(cfg, p["cross"], h, cached_kv=cross_kv)
+        h = _cross_attention(cfg, p["cross"], h, cached_kv=cross_kv,
+                             decode=mode == "decode")
         return _mlp(cfg, p["mlp"], h), kv
 
     def _encdec_stack(self, params, h, positions, mode, cross_kv=None,
@@ -561,7 +619,8 @@ class LM:
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cross_kv is not None and mode == "prefill":
             new_cache["cross_k"], new_cache["cross_v"] = cross_kv
-        return rmsnorm(h, params["final_norm"], cfg.norm_eps), aux, new_cache
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        return constrain(h, "batch", "seq", None), aux, new_cache
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """The training objective: the mean masked cross-entropy of the
@@ -618,7 +677,8 @@ class LM:
         h, _, cache = self._backbone(params, tokens, positions, None,
                                      "decode", cache=cache,
                                      cache_index=cache_index)
-        return h[:, -1] @ params["lm_head"], cache
+        logits = constrain(h[:, -1] @ params["lm_head"], "batch", "act_vocab")
+        return logits, cache
 
     # ---- cache declaration ----
     def cache_defs(self, batch: int, seq: int) -> Dict:

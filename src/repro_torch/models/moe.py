@@ -3,10 +3,11 @@ capacity.
 
 Tokens are split into groups of ``cfg.moe_group_size``; per group a
 (g, E, c) dispatch/combine pair routes tokens to experts via einsum so the
-expert matmuls stay dense.  The reference shards the experts over its
-mesh (expert parallelism); the port's mesh has no model axis yet, so its
-sharding constraints are left out, and on a data mesh the load-balance
-statistics are averaged over the batch's ranks.
+expert matmuls stay dense.  Expert weights carry the ``expert`` logical
+axis, split over the ``model`` mesh axis (expert parallelism); the
+dispatched tokens and the experts' outputs are placed by ``act_expert`` at
+the reference's sites, and on a data mesh the load-balance statistics are
+averaged over the batch's ranks.
 
 Supports: top-1 (llama4-scout) and top-2 (arctic), a llama4-style shared
 expert, an arctic-style parallel dense residual, and a load-balance aux
@@ -20,7 +21,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.axes import batch_mean
+from ..parallel.axes import batch_mean, constrain, whole_reshape
 from .common import activation_fn
 
 
@@ -43,11 +44,11 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg
     t = b * s
     g = min(cfg.moe_group_size, t)
     pad = -t % g
-    xt = x.reshape(t, d)
+    xt = whole_reshape(x, t, d)     # the groups run along the sequence
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
     ng = xt.shape[0] // g
-    xg = xt.reshape(ng, g, d)
+    xg = constrain(xt.reshape(ng, g, d), "batch", None, None)
 
     logits = (xg @ params["router"]).float()                # (G,g,E)
     probs = torch.softmax(logits, dim=-1)
@@ -87,12 +88,14 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg
     aux = e * torch.sum(frac * mean_prob)
 
     xd = torch.einsum("GgEc,Ggd->GEcd", dispatch, xg)
+    xd = constrain(xd, None, "act_expert", None, None)
     h = act(torch.einsum("GEcd,Edf->GEcf", xd, params["wi"]))
     h = h * torch.einsum("GEcd,Edf->GEcf", xd, params["wg"])
     y = torch.einsum("GEcf,Efd->GEcd", h, params["wo"])
+    y = constrain(y, None, "act_expert", None, None)
     out = torch.einsum("GgEc,GEcd->Ggd", combine.to(y.dtype), y)
 
-    out = out.reshape(-1, d)[:t].reshape(b, s, d)
+    out = whole_reshape(whole_reshape(out, -1, d)[:t], b, s, d)
 
     if cfg.moe_shared_expert or cfg.moe_dense_residual:
         p = params["shared" if cfg.moe_shared_expert else "dense"]

@@ -21,7 +21,9 @@ from .common import rmsnorm
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """(..., L) -> (..., L, L); [i, j] = sum_{k=j+1..i} x_k, -inf for i<j."""
     cs = x.shape[-1]
-    xc = torch.cumsum(x, dim=-1)
+    # a non-negative dim: DTensor's cumsum takes dim=-1 on a tensor split
+    # along its last dim as pointwise and sums each rank's part alone
+    xc = torch.cumsum(x, dim=x.dim() - 1)
     diff = xc[..., :, None] - xc[..., None, :]
     mask = torch.ones(cs, cs, dtype=torch.bool, device=x.device).tril()
     return torch.where(mask, diff, float("-inf"))

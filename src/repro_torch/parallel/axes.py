@@ -8,6 +8,13 @@ reference's ``PartitionSpec`` entries, and :func:`placements_for` turns a
 spec into ``DTensor`` placements.  Outside a :func:`sharding_context` every
 constraint is a no-op, so the same model code runs on one device.
 
+The ``model`` mesh axis is carried by ``DTensor``s on the 1-D sub-mesh
+``mesh["model"]`` (:func:`model_mesh`): :func:`constrain` redistributes an
+activation to the ``model`` entry of its spec, the reference's
+``with_sharding_constraint``.  The batch axes are not: each rank holds its
+own rows as plain tensors (the ``model`` ranks of one batch group hold the
+same ones), and the sums over them are explicit (below).
+
 The ``batch_sum`` family stands in for what one SPMD program over the
 whole batch gives the reference: inside a :func:`batch_reduction` it sums a
 rank's term over the ranks that hold the other rows, and passes the
@@ -25,6 +32,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 # Logical axis -> tuple of mesh axes.  'pod' only exists on the multi-pod
 # mesh; missing mesh axes are dropped at resolution time.
@@ -46,12 +54,6 @@ DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
     "act_vocab": ("model",),
     "act_expert": ("model",),
 }
-
-MODEL_AXIS_NOT_PORTED = (
-    "a 'model' mesh axis above 1 is not ported yet (ROADMAP.md, queue A, "
-    "next item: tensor parallelism through DTensor at the reference's "
-    "constrain sites, --model N)")
-
 
 @dataclasses.dataclass
 class ShardingCtx:
@@ -81,6 +83,16 @@ def sharding_context(mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
         yield _TLS.ctx
     finally:
         _TLS.ctx = prev
+
+
+@contextlib.contextmanager
+def step_context(ctx: ShardingCtx):
+    """What a step over ``ctx.mesh`` runs its model in: ``ctx`` bound (so
+    :func:`constrain` places), and ``DTensor``'s implicit replication of
+    plain tensors, which are the rows and constants that every ``model``
+    rank of a batch group holds alike."""
+    with sharding_context(ctx.mesh, ctx.rules), implicit_replication():
+        yield
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -157,16 +169,119 @@ def placements_for(spec: Sequence, mesh) -> Tuple:
     return tuple(placements)
 
 
+def model_mesh(mesh):
+    """The 1-D sub-mesh of ``mesh``'s ``model`` axis (``None`` where the
+    mesh has none), made once per mesh."""
+    if "model" not in mesh_shape(mesh):
+        return None
+    sub = getattr(mesh, "_repro_model_mesh", None)
+    if sub is None:
+        sub = mesh["model"]
+        mesh._repro_model_mesh = sub
+    return sub
+
+
+def model_placement(spec: Sequence, sub) -> Tuple:
+    """The placements on the ``model`` sub-mesh ``sub`` of ``spec``:
+    ``(Shard(d),)`` where the spec names ``model`` for dim ``d``, else
+    ``(Replicate(),)``, which it also is on a sub-mesh of one rank (where
+    both hold the whole tensor, and DTensor refuses some views of a
+    ``Shard``); the batch axes are left to the rows each rank holds."""
+    if sub.size() == 1:
+        return (Replicate(),)
+    for dim, part in enumerate(spec):
+        if part == "model" or (isinstance(part, tuple) and "model" in part):
+            return (Shard(dim),)
+    return (Replicate(),)
+
+
+def on_model_mesh(x: torch.Tensor, sub) -> DTensor:
+    """``x`` as a DTensor on the ``model`` sub-mesh ``sub``: a plain tensor
+    (which every ``model`` rank of the batch group holds alike) as
+    replicated."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, sub, (Replicate(),), run_check=False)
+
+
 def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """The reference's ``with_sharding_constraint`` by logical names: a
-    no-op outside a context, and on a mesh without a ``model`` axis above
-    1, where activations are split by the batch alone."""
+    no-op outside a context and on a mesh without a ``model`` axis;
+    otherwise ``x`` (made a DTensor on the ``model`` sub-mesh, replicated,
+    where it is a plain tensor) redistributed to the ``model`` entry of
+    :func:`spec_for` on the whole mesh.  At a ``model`` extent of 1 it
+    still runs, and moves nothing."""
     ctx = current_ctx()
     if ctx is None:
         return x
-    if mesh_shape(ctx.mesh).get("model", 1) > 1:
-        raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+    sub = model_mesh(ctx.mesh)
+    if sub is None:
+        return x
+    want = model_placement(spec_for(logical, x.shape, ctx.mesh, ctx.rules),
+                           sub)
+    x = on_model_mesh(x, sub)
+    return x if tuple(x.placements) == want else x.redistribute(sub, want)
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: Sequence[int]
+              ) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)``.  A DTensor split along ``dim`` into
+    parts that the first of ``sizes`` does not split into (14 heads on a
+    4-way ``model`` axis) is made whole along it first, as GSPMD moves
+    it."""
+    dim %= x.dim()
+    if isinstance(x, DTensor) and sizes[0] % x.device_mesh.size() and any(
+            isinstance(p, Shard) and p.dim == dim for p in x.placements):
+        x = x.redistribute(x.device_mesh, tuple(
+            Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in x.placements))
+    return x.unflatten(dim, sizes)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``(..., heads, D) -> (..., heads * D)``.  For a DTensor whose heads
+    do not split evenly over its mesh, the gradient is pinned to ``x``'s
+    placements before the view's backward, which could not split a
+    gradient that arrives split along ``heads * D`` back into heads."""
+    y = x.flatten(-2)
+    if not isinstance(x, DTensor):
+        return y
+    if x.shape[-2] % x.device_mesh.size():
+        y = y.redistribute(y.device_mesh, y.placements)
+    if all(p.is_replicate() for p in y.placements):
+        # DTensor derives the view's strides anew, and on a size-1 dim (a
+        # decode step's one position) they can differ from its local
+        # tensor's: ATen's matmul then takes a batched product where the
+        # plain tensor takes one mm, and rounds otherwise.  A replicated
+        # DTensor's local tensor is the whole one: its strides are restored.
+        local = y.to_local()
+        y = DTensor.from_local(local, y.device_mesh, y.placements,
+                               run_check=False, shape=local.shape,
+                               stride=local.stride())
+    return y
+
+
+def settled(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with a pending sum carried out: a DTensor's ``Partial``
+    placements (a gather or an embedding over a vocab split on the
+    ``model`` axis leaves each rank its own entries) made ``Replicate``,
+    before an op that is not linear."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x.redistribute(x.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in x.placements))
     return x
+
+
+def whole_reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(*shape)``.  A DTensor is replicated on its mesh first,
+    and its gradient made whole before the reshape's backward: DTensor
+    cannot follow a reshape that merges a split dim into one before it,
+    nor split a split dim into sizes the mesh does not divide."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    mesh, whole = x.device_mesh, (Replicate(),) * x.device_mesh.ndim
+    y = x.redistribute(mesh, whole).reshape(*shape)
+    return y.redistribute(mesh, whole)
 
 
 def named_sharding(logical: Sequence[Optional[str]], shape: Sequence[int],
@@ -289,10 +404,15 @@ def batch_reduction(groups: Sequence, count: int):
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the batch's ranks (``x`` outside a
-    :func:`batch_reduction`)."""
+    :func:`batch_reduction`).  A DTensor on the ``model`` sub-mesh is
+    made whole first: the ``model`` ranks hold the same rows, so the sum
+    runs over the batch's ranks only, never over them."""
+    x = gather(x)
     return x if _BATCH is None else sum_over_ranks(x, _BATCH[0])
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean over the batch's ranks of a mean over equal parts."""
+    """The mean over the batch's ranks of a mean over equal parts (a
+    DTensor made whole first, as in :func:`batch_sum`)."""
+    x = gather(x)
     return x if _BATCH is None else sum_over_ranks(x, _BATCH[0]) / _BATCH[1]

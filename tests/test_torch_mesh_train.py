@@ -20,6 +20,7 @@ Every process group lives in subprocesses with their own timeouts.
 """
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -317,13 +318,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _torchrun(argv):
-    """The entry point on 2 gloo ranks under ``torch.distributed.run`` at a
-    free port; returns the ranks' stdout."""
+def _torchrun(argv, model=1):
+    """The entry point on ``2 * model`` gloo ranks (``--data 2 --model
+    model``) under ``torch.distributed.run`` at a free port; returns the
+    ranks' stdout."""
     launch = [sys.executable, "-m", "torch.distributed.run",
-              "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
-              "--master-port", str(_free_port()),
-              "-m", "repro_torch.launch.train", "--data", "2"] + argv
+              "--nproc-per-node", str(2 * model), "--master-addr",
+              "127.0.0.1", "--master-port", str(_free_port()),
+              "-m", "repro_torch.launch.train", "--data", "2",
+              "--model", str(model)] + argv
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     out = subprocess.run(launch, capture_output=True, text=True,
@@ -342,9 +345,11 @@ def _state(ckpt, step):
 def test_entry_point_under_torchrun_resumes_across_mesh_sizes(tmp_path,
                                                               capsys):
     """--data 2 for 4 steps, resumed to 6 on --data 1; --data 1 for 2
-    steps, resumed to 4 on --data 2: every step's data position and state
-    are those of a straight --data 1 run (sum-order tolerance)."""
+    steps, resumed to 4 on --data 2, and the same step 2 resumed to 4 on
+    --data 2 --model 2: every step's data position and state are those of
+    a straight --data 1 run (sum-order tolerance)."""
     straight, a, b = tmp_path / "straight", tmp_path / "a", tmp_path / "b"
+    c = tmp_path / "c"
     base = ["--reduced", "--batch", "4", "--seq", "32", "--device", "cpu",
             "--ckpt-every", "2"]
     train_mod.main(base + ["--steps", "6", "--ckpt-dir", str(straight)])
@@ -352,14 +357,17 @@ def test_entry_point_under_torchrun_resumes_across_mesh_sizes(tmp_path,
     assert "restored" not in out and "'final_step': 4.0" in out
     train_mod.main(base + ["--steps", "6", "--ckpt-dir", str(a)])
     train_mod.main(base + ["--steps", "2", "--ckpt-dir", str(b)])
+    shutil.copytree(b, c)
     out = _torchrun(base + ["--steps", "4", "--ckpt-dir", str(b)])
+    assert "[train] restored step 2" in out and "'final_step': 4.0" in out
+    out = _torchrun(base + ["--steps", "4", "--ckpt-dir", str(c)], model=2)
     assert "[train] restored step 2" in out and "'final_step': 4.0" in out
     printed = capsys.readouterr().out
     assert "[train] restored step 4" in printed
     model = LM(get_config("qwen2-0.5b", reduced=True))
     initial = {"params/" + k: v.float().numpy() for k, v in tree_leaves(
         model.init_params(torch.Generator().manual_seed(0), device="cpu"))}
-    for ckpt, step in ((a, 4), (a, 6), (b, 4)):
+    for ckpt, step in ((a, 4), (a, 6), (b, 4), (c, 4)):
         meta, leaves = _state(ckpt, step)
         want_meta, want = _state(straight, step)
         assert meta == want_meta and sorted(leaves) == sorted(want)

@@ -106,14 +106,43 @@ def test_sharding_context_is_per_thread_and_nests():
     assert seen == [None] and axes.current_ctx() is None
 
 
-def test_constrain_is_a_no_op_without_a_model_axis():
+_CONSTRAIN_PLACES = """
+import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel import axes
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+mesh = make_mesh({"data": 2, "model": 2})
+x = torch.ones(4, 8)
+with axes.sharding_context(mesh):
+    y = axes.constrain(x, "batch", "mlp")
+    assert isinstance(y, DTensor) and y.device_mesh.mesh_dim_names == (
+        "model",) and y.placements == (Shard(1),) and y.shape == (4, 8)
+    assert y.to_local().shape == (4, 4)
+    z = axes.constrain(y, "batch", None)        # gathered back
+    assert z.placements == (Replicate(),) and z.to_local().shape == (4, 8)
+    w = axes.constrain(torch.ones(4, 7), "batch", "mlp")    # 7 stays whole
+    assert w.placements == (Replicate(),)
+dist.destroy_process_group()
+print("OK")
+"""
+
+
+@pytest.mark.parametrize("case", ["outside", "placed"])
+def test_constrain_is_a_no_op_without_a_model_axis(case):
+    """Outside a context, and on a mesh without a ``model`` axis, the
+    tensor itself; on a ``(data 2, model 2)`` mesh (the ``fake`` group) a
+    DTensor on the ``model`` sub-mesh placed by the spec's ``model``
+    entry."""
     x = torch.ones(4, 8)
-    assert axes.constrain(x, "batch", "embed") is x
-    with axes.sharding_context(FakeMesh({"data": 4, "model": 1})):
+    if case == "outside":
         assert axes.constrain(x, "batch", "embed") is x
-    with axes.sharding_context(FakeMesh({"data": 2, "model": 2})):
-        with pytest.raises(NotImplementedError, match="queue A"):
-            axes.constrain(x, "batch", "embed")
+        with axes.sharding_context(FakeMesh({"data": 4})):
+            assert axes.constrain(x, "batch", "mlp") is x
+    else:
+        assert run_script(_CONSTRAIN_PLACES, timeout=120).strip() == "OK"
 
 
 def test_placements_for_splits_a_dim_major_to_minor():

@@ -173,8 +173,8 @@ def test_entry_point_runs_on_the_cpu_when_asked(capsys, tmp_path):
 
 
 def test_entry_point_refuses_a_mesh_and_defaults_to_cuda():
-    with pytest.raises(NotImplementedError, match="'model' mesh axis.*"
-                       "queue A, next item"):
+    with pytest.raises(RuntimeError, match="--model 2 needs 2 ranks.*"
+                       "torchrun --nproc-per-node 2"):
         train_mod.main(["--reduced", "--model", "2", "--device", "cpu"])
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         train_mod.main(["--reduced", "--data", "2", "--device", "cpu"])
