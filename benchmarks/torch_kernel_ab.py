@@ -8,9 +8,10 @@ contiguous run, gemm's replicating row walk), ``int8_matmul`` /
 ``bitplane_matmul`` (8 and 4 planes) at qwen2-0.5b's MLP shape (x 4096x896
 @ w 896x4864), each beside its PyTorch library call (the gather and the
 scatter also with their device time alone: calls queued behind a sleeping
-kernel), and ``flash_attention_bwd`` at ``chip_smoke.py``'s training
-shapes (bf16 and fp32, device time), for every source tree given, in the
-order given.  Each tree runs in a process of its own
+kernel), ``flash_attention_bwd`` at ``chip_smoke.py``'s training
+shapes (bf16 and fp32, device time), and the host cost of the flash route
+(:func:`measure_flash_route`), for every source tree given, in the order
+given.  Each tree runs in a process of its own
 (both are the package ``repro_torch``) and builds its kernels into its own
 ``build/``.  Needs a CUDA device.
 
@@ -27,6 +28,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 BATCH, LANES, IMAGE = 1024, 8192, 50176
@@ -42,6 +44,11 @@ FLASH_BWD_SHAPES = {"whisper_encoder": (4, 8, 8, 1500, 1500, 64, False),
                     "whisper_cross": (4, 8, 8, 384, 1500, 64, False),
                     "vision_cross": (4, 32, 8, 1024, 1024, 128, False),
                     "qwen2_causal": (4, 14, 2, 1024, 1024, 64, True)}
+# qwen2-0.5b's flash forward at one query row (a decode step's) and at its
+# prefill; whisper-base's steps at chip_smoke.py's training cell
+FLASH_FWD_SHAPES = {"qwen2_decode": (4, 14, 2, 1, 1024, 64),
+                    "qwen2_prefill": (4, 14, 2, 1024, 1024, 64)}
+STEP_BATCH, WHISPER_TEXT = 4, 384
 
 
 def time_ms(fn, iters: int) -> float:
@@ -103,12 +110,108 @@ def measure_flash_bwd() -> dict:
     return out
 
 
+def wall_ms(fn, iters: int) -> float:
+    """The least wall time of ``iters`` calls of ``fn``, the card
+    synchronised after each: what a caller waits for one call, host and
+    device, with as little of the other tenants' load on the host as the
+    run saw."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times) * 1e3
+
+
+def host_us(fn, iters: int) -> float:
+    """The host's µs a call of ``fn``: ``iters`` calls queued behind a
+    sleeping kernel, so that the device never makes the host wait; the
+    least of 5 rounds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        torch.cuda._sleep(50_000_000)       # ~30 ms, longer than the calls
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / iters * 1e6
+
+
+def measure_flash_route() -> dict:
+    """What the flash route costs a caller, host time included: the bf16
+    forward at ``FLASH_FWD_SHAPES`` called back to back (``time_ms``;
+    at one query row the host's work a call sets the pace) beside its
+    device time, and the host's µs a call of ``flash_attention`` beside
+    those of the bare launch ``_forward`` (the difference: what the route
+    adds to the launch on the host); whisper-base as published, bf16
+    weights from a seed: one
+    decode step (4 rows, cache of 384 text tokens and 1500 frames) and one
+    training step (4 x 384 text tokens over 4 x 1500 frames, AdamW), each
+    ``wall_ms``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_train_batches
+    from repro_torch.kernels.flash_attention import _forward, flash_attention
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for name, (b, h, hk, sq, sk, d) in FLASH_FWD_SHAPES.items():
+        q = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        call = (lambda: flash_attention(q, k, v, causal=True))
+        out[f"flash_attention {name} bf16"] = time_ms(call, 200)
+        out[f"flash_attention {name} bf16 device"] = device_ms(call, 200)
+        out[f"flash_attention {name} bf16 host_us"] = host_us(call, 100)
+        out[f"_forward {name} bf16 host_us"] = host_us(
+            lambda: _forward(q, k, v, True, d ** -0.5, False), 100)
+    cfg = get_config("whisper-base")
+    model = LM(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    frames = torch.randn(STEP_BATCH, cfg.num_frames, cfg.d_model,
+                         generator=gen, device="cuda").bfloat16()
+    batch = next(make_train_batches(DataConfig(cfg.vocab_size, WHISPER_TEXT,
+                                               STEP_BATCH, seed=0)))
+    batch = {**{k: torch.from_numpy(x).cuda() for k, x in batch.items()
+                if k != "next_doc"}, "frames": frames}
+    with torch.no_grad():
+        logits, cache = make_prefill_step(model)(params, {
+            "tokens": batch["tokens"], "positions": batch["positions"],
+            "frames": frames})
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        decode = make_decode_step(model)
+        out["whisper-base decode step"] = wall_ms(
+            lambda: decode(params, cache, tok, WHISPER_TEXT - 1), 50)
+    train = make_train_step(model, AdamWConfig())
+    state = adamw_init(params)
+    out["whisper-base train step"] = wall_ms(
+        lambda: train(params, state, batch), 20)
+    return out
+
+
 def measure() -> dict:
     """Every time, from the ``repro_torch`` first on ``sys.path``."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return {**measure_mve(gen), **measure_gemm(gen), **measure_flash_bwd()}
+    return {**measure_mve(gen), **measure_gemm(gen), **measure_flash_bwd(),
+            **measure_flash_route()}
 
 
 def measure_mve(gen) -> dict:

@@ -197,17 +197,36 @@ non-zero:
    profiled on each path; the int8-compressed sync over qwen2-0.5b's
    whole gradient bit-equal to the CPU's; ``make_dp_train_step``; a
    one-stage pipeline; ``train.main`` resumed bit for bit.
+5e. ``dryrun`` — the dry run held against the card: whisper-base's train
+   cell (5d's 4 x 384 text tokens over 4 x 1500 frames) and qwen2-0.5b's
+   prefill (4 x 1024) through ``jitted_cell`` on a ``(data 1, model 1)``
+   NCCL mesh under ``launch/hlo_analysis.CostCounter``, seeded random bf16
+   weights, beside the same cells counted on ``meta`` (a ``fake`` group
+   of one rank, in a subprocess): the flops equal and above 0, the flash
+   launches 5d's and 5's (30 / 18 a train step, 24 a prefill), the
+   results finite; printed: the predicted peak beside
+   ``max_memory_allocated``, ``Roofline.bound_s`` beside the busy time of
+   a profiled call, the share of the bf16 peak, the bytes counted on the
+   card over those on ``meta``.  Meanwhile ``python -m
+   repro_torch.launch.dryrun`` runs qwen2-0.5b's ``train_4k`` on 256
+   ``fake`` ranks with the roofline analysis and on 512 without, each in
+   a subprocess with no card: each record ``ok``, flops, bytes,
+   collective bytes and peak above 0; and, in a third
+   (``benchmarks/torch_model_axis_cells.py``), every architecture's
+   reduced train, prefill and decode cells at ``(data 2, model 4)`` and
+   ``(data 1, model 4)`` on ``fake`` ranks must run under this host's
+   torch (ROADMAP C14, C15).
 7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
-Phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5c, 5d and 6 are the main paths: the
+Phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5c, 5d, 5e and 6 are the main paths: the
 launch counters of the kernels each runs are set to 0 just before it and
 read just after (4b: around the VM's runs alone, before they are compared; 4e:
 around the fault-free serving, not the chaos replays; 4f: around the card
 runs, after the CPU references); a kernel never launched there fails the
 run.  The kernels line's ``launches`` adds 4, 4b, 4d, 4e and 4f for the
-MVE kernels, 5, 5b, 5c and 5d for flash attention, 5c and 5d for its
-backward.  Without a CUDA device, or
+MVE kernels, 5, 5b, 5c, 5d and 5e for flash attention, 5c, 5d and 5e
+for its backward.  Without a CUDA device, or
 without the rest of the checkout beside it, the script exits non-zero and
 prints no result line.
 """
@@ -216,6 +235,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -3200,7 +3220,6 @@ def drive_mesh_entry_point() -> dict:
     mesh path: 4 steps straight; 2 steps, then a resumed run to 4.  The
     resumed run's final checkpoint equals the straight run's bit for
     bit."""
-    import os
     from repro_torch.launch import train as train_mod
 
     meshes, loop = [], train_mod.train_loop
@@ -3304,6 +3323,259 @@ def drive_mesh(flash_attention, flash_attention_bwd) -> dict:
             out["check_seconds"] = seconds
         finally:
             dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the dry run's counts against the card's
+# ---------------------------------------------------------------------------
+
+# (arch, cell) counted on the card and on ``meta``: whisper-base's train
+# cell (the ``mesh`` phase's: flash forward and backward) and qwen2-0.5b's
+# prefill (the ``lm`` phase's: flash forward)
+DRYRUN_CELLS = (("whisper-base", ("dryrun", WHISPER_TEXT, LM_BATCH, "train")),
+                ("qwen2-0.5b", ("dryrun", LM_SEQ, LM_BATCH, "prefill")))
+# the production-mesh proof: qwen2-0.5b's train_4k on 256 ranks with the
+# roofline analysis, then on 512 without (host work: the whole model runs
+# on meta tensors; qwen2-72b's would take minutes)
+DRYRUN_PROOFS = (["--arch", "qwen2-0.5b", "--shape", "train_4k", "--force"],
+                 ["--arch", "qwen2-0.5b", "--shape", "train_4k", "--force",
+                  "--multi-pod", "--no-analysis"])
+DRYRUN_TIMEOUT = 240                 # s, each subprocess (run side by side)
+_META_COUNTS = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel.axes import sharding_context
+
+dryrun.fake_group(1)
+mesh = make_mesh({"data": 1, "model": 1})
+out = {}
+for arch, cell in json.loads(sys.argv[1]):
+    with sharding_context(mesh) as ctx:
+        out[arch] = dryrun.count_cell(get_config(arch), ShapeCell(*cell), ctx)
+print(json.dumps(out))
+"""
+
+
+def _dryrun_batch(specs, vocab: int, gen) -> dict:
+    """A batch of ``specs`` on the card: random tokens and targets, one
+    document, every position counted, frames and image embeddings drawn
+    from ``gen``."""
+    out = {}
+    for name, d in specs.items():
+        if d.dtype.is_floating_point and name != "loss_mask":
+            x = torch.randn(d.shape, generator=gen, device="cuda")
+        elif name in ("tokens", "targets"):
+            x = torch.randint(1, vocab, d.shape, generator=gen,
+                              device="cuda")
+        elif name == "positions":
+            x = torch.arange(d.shape[1], device="cuda").expand(d.shape)
+        else:                                  # loss_mask, segment_ids
+            x = torch.ones(d.shape, device="cuda")
+        out[name] = x.to(d.dtype).contiguous()
+    return out
+
+
+def _start(args, cwd) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, *args], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(proc: subprocess.Popen, what: str) -> str:
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: no result in {DRYRUN_TIMEOUT} s")
+    if proc.returncode:
+        raise AssertionError(f"{what} failed: {out[-3000:]} {err[-3000:]}")
+    return out
+
+
+def drive_dryrun_card(cells, flash_attention, flash_attention_bwd) -> dict:
+    """Each of ``cells`` once through ``jitted_cell`` on a ``(data 1,
+    model 1)`` NCCL mesh of one rank, random bf16 weights from a seeded
+    generator, under the dry run's cost counter; the flash launches of
+    the counted step; the peak of device memory around it; a second call
+    profiled for the device's busy time."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import local_tensors
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.specs import (prefill_batch_specs,
+                                          train_batch_specs)
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.axes import sharding_context
+
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "cpu:gloo,cuda:nccl", rank=0, world_size=1,
+            store=dist.FileStore(str(Path(tmp) / "store"), 1))
+        try:
+            mesh = make_mesh({"data": 1, "model": 1})
+            for arch, spec in cells:
+                cfg, cell = get_config(arch), ShapeCell(*spec)
+                params = LM(cfg).init_params(
+                    torch.Generator(device="cuda").manual_seed(0))
+                gen = torch.Generator(device="cuda").manual_seed(9)
+                if cell.kind == "train":
+                    specs, _ = train_batch_specs(cfg, cell)
+                    args = (params, adamw_init(params),
+                            _dryrun_batch(specs, cfg.vocab_size, gen))
+                else:
+                    specs, _ = prefill_batch_specs(cfg, cell)
+                    args = (params, _dryrun_batch(specs, cfg.vocab_size,
+                                                  gen))
+                with sharding_context(mesh) as ctx:
+                    step, args = dryrun.prepare_cell(cfg, cell, ctx,
+                                                     args=args)
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    before = (flash_attention.launches,
+                              flash_attention_bwd.launches)
+                    counts = dryrun.count_step(step, args)
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated()
+                    launches = (flash_attention.launches - before[0],
+                                flash_attention_bwd.launches - before[1])
+                    result = step(*args)
+                    finite = all(bool(torch.isfinite(x).all())
+                                 for x in local_tensors(result)
+                                 if x.is_floating_point())
+                    profile = device_profile(lambda: step(*args))
+                out[arch] = {"cell": list(spec), "counts": counts,
+                             "flash_launches": launches, "finite": finite,
+                             "memory_before_step": base,
+                             "max_memory_allocated": peak,
+                             "profiled_step": profile}
+                del params, args, step, result
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def check_dryrun(card, meta, proofs) -> dict:
+    """Phase 5e's gates: the card's flops equal the ``meta`` count's and
+    neither is 0; the flash launches of the counted step are the ``mesh``
+    and ``lm`` phases' (whisper 30 / 18 a train step, qwen2 24 a
+    prefill); every result finite; each production-mesh record ``ok``,
+    its flops, bytes and collective bytes and its peak above 0.  Prints,
+    ungated, the predicted peak beside the card's, the roofline bound
+    beside the busy time, the measured share of the bf16 peak and the
+    bytes counted on the card over those counted on ``meta``."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import hlo_analysis
+
+    out = {}
+    for arch, spec in DRYRUN_CELLS:
+        cfg, cell = get_config(arch), ShapeCell(*spec)
+        got, want = card[arch]["counts"], meta[arch]
+        if got["flops"] != want["flops"] or got["flops"] <= 0:
+            raise AssertionError(f"{arch} {cell.kind}: the card counted "
+                                 f"{got['flops']} flops, meta "
+                                 f"{want['flops']}")
+        launches = card[arch]["flash_launches"]
+        rule = (flash_per_train_step(cfg) if cell.kind == "train"
+                else (flash_launches(cfg)[0], 0))
+        if tuple(launches) != tuple(rule):
+            raise AssertionError(f"{arch} {cell.kind}: flash launches "
+                                 f"{launches}, not {rule}")
+        if not card[arch]["finite"]:
+            raise AssertionError(f"{arch} {cell.kind}: non-finite results")
+        rl = hlo_analysis.Roofline(
+            flops_per_device=want["flops"], bytes_per_device=want["bytes"],
+            collective_bytes_per_device=want["collectives"]["total"],
+            chips=1, model_flops_total=hlo_analysis.model_flops(cfg, cell))
+        busy_s = card[arch]["profiled_step"]["device_busy_ms"] / 1e3
+        mem = want["memory"]
+        out[arch] = {
+            "cell": spec, "flops": want["flops"], "flops_equal": True,
+            "flash_launches": launches,
+            "bytes_card_over_meta": got["bytes"] / want["bytes"],
+            "collectives_card": got["collectives"],
+            "collectives_meta": want["collectives"],
+            "peak_predicted_bytes": mem["argument_bytes"] +
+            want["peak_bytes"],
+            "step_peak_predicted_bytes": want["peak_bytes"],
+            "max_memory_allocated": card[arch]["max_memory_allocated"],
+            "step_peak_measured_bytes": card[arch]["max_memory_allocated"]
+            - card[arch]["memory_before_step"],
+            "memory_meta": mem, "memory_card": got["memory"],
+            "bound_s": rl.bound_s, "dominant": rl.dominant,
+            "busy_s": busy_s, "busy_over_bound": busy_s / rl.bound_s,
+            "model_flops": rl.model_flops_total,
+            "bf16_peak_share": rl.model_flops_total / (
+                busy_s * hlo_analysis.PEAK_FLOPS),
+            "profiled_step": card[arch]["profiled_step"]}
+    for name, rec in proofs.items():
+        raw = rec.get("cost_raw", {})
+        if rec.get("status") != "ok" or not (
+                raw.get("flops", 0) > 0 and raw.get("bytes", 0) > 0
+                and raw.get("collectives", {}).get("total", 0) > 0
+                and rec["memory"]["peak_bytes_per_device"] > 0):
+            raise AssertionError(f"dry run {name}: {json.dumps(rec)[:3000]}")
+        out[name] = {k: rec[k] for k in (
+            "status", "chips", "compile_s", "memory", "cost_raw",
+            "collectives", "roofline", "total_s") if k in rec}
+    return out
+
+
+def drive_dryrun(flash_attention, flash_attention_bwd) -> dict:
+    """Phase 5e: the ``meta`` counts of ``DRYRUN_CELLS`` (a ``fake`` group
+    of one rank) and the two production-mesh runs of ``DRYRUN_PROOFS``
+    (``python -m repro_torch.launch.dryrun``, 256 and 512 ``fake`` ranks)
+    start in subprocesses that see no card; meanwhile the same cells run on
+    the card under the counter; then :func:`check_dryrun`."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [_start(["-c", _META_COUNTS, json.dumps(DRYRUN_CELLS)], tmp),
+                 _start([str(ROOT / "benchmarks" /
+                             "torch_model_axis_cells.py")], tmp)]
+        procs += [_start(["-m", "repro_torch.launch.dryrun", *args], tmp)
+                  for args in DRYRUN_PROOFS]
+        try:
+            card = drive_dryrun_card(DRYRUN_CELLS, flash_attention,
+                                     flash_attention_bwd)
+            card_s = time.perf_counter() - t0
+            meta = json.loads(_finish(procs[0], "meta count").splitlines()[-1])
+            cells = json.loads(_finish(procs[1], "the model-axis cells")
+                               .splitlines()[-1])
+            printed = [_finish(p, f"dryrun {' '.join(args)}").strip()
+                       for p, args in zip(procs[2:], DRYRUN_PROOFS)]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        records = {}
+        for args in DRYRUN_PROOFS:
+            mesh = "2x16x16" if "--multi-pod" in args else "16x16"
+            name = f"{args[1]}__{args[3]}__pod{mesh}.json"
+            records[f"{args[1]} {args[3]} {mesh}"] = json.loads(
+                (Path(tmp) / "results" / "dryrun_torch" / name).read_text())
+    out = check_dryrun(card, meta, records)
+    out["model_axis_cells"] = {"torch": cells["torch"],
+                               "ran": len(cells["cells"])}
+    out["printed"] = printed
+    out["check_seconds"] = {"card": card_s,
+                            "all": time.perf_counter() - t0}
     return out
 
 
@@ -3523,6 +3795,16 @@ def main() -> int:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     emit("mesh", seconds=time.perf_counter() - t0, launches=mesh_counts,
          **mesh)
+    t0 = time.perf_counter()
+    restore = _no_plain_version_on_cuda()
+    try:
+        dry, dry_counts = drive(
+            "dryrun", ("flash_attention", "flash_attention_bwd"),
+            drive_dryrun, flash_attention, flash_attention_bwd)
+    finally:
+        restore()
+    emit("dryrun", seconds=time.perf_counter() - t0, launches=dry_counts,
+         **dry)
     quant, quant_counts = drive("quantized", ("int8_matmul",
                                               "bitplane_matmul"),
                                 drive_quantized, ops, ref)
@@ -3534,9 +3816,11 @@ def main() -> int:
         "flash_attention": (lm_counts["flash_attention"]
                             + fam_counts["flash_attention"]
                             + train_counts["flash_attention"]
-                            + mesh_counts["flash_attention"]),
+                            + mesh_counts["flash_attention"]
+                            + dry_counts["flash_attention"]),
         "flash_attention_bwd": (train_counts["flash_attention_bwd"]
-                                + mesh_counts["flash_attention_bwd"]),
+                                + mesh_counts["flash_attention_bwd"]
+                                + dry_counts["flash_attention_bwd"]),
         "int8_matmul": quant_counts["int8_matmul"],
         "bitplane_matmul": quant_counts["bitplane_matmul"]})
 

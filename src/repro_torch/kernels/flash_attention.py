@@ -66,6 +66,10 @@ from typing import Optional, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
+from torch.utils.flop_counter import (register_flop_formula,
+                                     sdpa_backward_flop_count,
+                                     sdpa_flop_count)
+
 from . import _build
 from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
                   flash_attention_ref)
@@ -136,22 +140,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, scale: float, with_lse: bool
-             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the forward kernel on CUDA tensors: the output and,
-    when ``with_lse``, each row's log-sum-exp (fp32, ``(B, H, Sq)``)."""
+    when ``with_lse``, each row's log-sum-exp (fp32, ``(B, H, Sq)``; else an
+    empty tensor)."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     out = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device)
-    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    lse = torch.empty(_lse_shape(q, with_lse), dtype=torch.float32,
+                      device=q.device)
     if out.numel() == 0:
         return out, lse
     with torch.cuda.device(q.device):
         code = _entry("flash_attention", "flash_attention_launch",
                       _ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            0 if lse is None else lse.data_ptr(), _DTYPES[q.dtype], d, b, h,
+            lse.data_ptr() if with_lse else 0, _DTYPES[q.dtype], d, b, h,
             hk, sq, sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(bool(causal)), scale,
             torch.cuda.current_stream().cuda_stream)
@@ -160,21 +165,83 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _lse_shape(q: torch.Tensor, with_lse: bool) -> Tuple[int, ...]:
+    return tuple(q.shape[:3]) if with_lse else (0,)
+
+
+# The kernels as operators of their own, so that PyTorch's dispatch sees
+# them (a cost counter prices them by their flop formulas below, and a
+# ``meta`` tensor gets their outputs' shapes): the CUDA implementation
+# launches the kernels, the CPU one is the plain version, the fake one
+# (``meta`` and fake tensors) makes the outputs' shapes and types and
+# nothing else.  Each returns new tensors; autograd stays with
+# :class:`FlashAttentionFn`, so the operators have no autograd kernel of
+# their own (``torch.library.custom_op`` would add a Python one, and its
+# host time, to every call).
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float scale, bool with_lse) -> (Tensor, Tensor)")
+_LIB.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+            "Tensor dout, bool causal, float scale) -> (Tensor, Tensor, "
+            "Tensor)")
+#: ``(out, lse)`` of the forward kernel (``lse`` empty unless
+#: ``with_lse``).
+flash_fwd = torch.ops.repro_torch.flash_fwd.default
+#: ``(dq, dk, dv)`` of the backward kernels (the checks of
+#: :func:`flash_attention_bwd` made).
+flash_bwd = torch.ops.repro_torch.flash_bwd.default
+
+
+def _flash_fwd_cpu(q, k, v, causal, scale, with_lse):
+    if with_lse:
+        return flash_attention_lse_ref(q, k, v, causal=causal, scale=scale)
+    return (flash_attention_ref(q, k, v, causal=causal, scale=scale),
+            q.new_empty((0,), dtype=_lse_type(q)))
+
+
+def _flash_fwd_fake(q, k, v, causal, scale, with_lse):
+    return (q.new_empty(q.shape),
+            q.new_empty(_lse_shape(q, with_lse), dtype=_lse_type(q)))
+
+
+_LIB.impl("flash_fwd", _forward, "CUDA")
+_LIB.impl("flash_fwd", _flash_fwd_cpu, "CPU")
+torch.library.register_fake("repro_torch::flash_fwd", _flash_fwd_fake,
+                            lib=_LIB)
+
+
+def _lse_type(q: torch.Tensor) -> torch.dtype:
+    """fp32 (float64 for float64 inputs, which only the plain version
+    takes)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def _kv_as_q_heads(q_shape, k_shape) -> Tuple[int, ...]:
+    """A k/v shape at the q heads: torch's flop convention counts GQA
+    there."""
+    return (k_shape[0], q_shape[1], k_shape[2], k_shape[3])
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_fwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
+                     **kwargs) -> int:
+    """``scaled_dot_product_attention``'s count: ``Q K^T`` and ``P V``, no
+    discount for the causal mask."""
+    kv = _kv_as_q_heads(q_shape, k_shape)
+    return sdpa_flop_count(q_shape, kv, kv)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """The flash route with its gradient.  Forward: the forward kernel with
-    ``lse`` (the plain ``flash_attention_lse_ref`` on a CPU tensor); it
-    saves q, k, v, the output and ``lse``.  Backward:
+    ``lse`` (``flash_fwd``; the plain ``flash_attention_lse_ref`` on a CPU
+    tensor); it saves q, k, v, the output and ``lse``.  Backward:
     :func:`flash_attention_bwd`.  Safe under non-reentrant
     ``torch.utils.checkpoint``: its recompute runs the forward again and
     saves afresh."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        if q.is_cuda:
-            out, lse = _forward(q, k, v, causal, scale, with_lse=True)
-        else:
-            out, lse = flash_attention_lse_ref(q, k, v, causal=causal,
-                                               scale=scale)
+        out, lse = flash_fwd(q, k, v, causal, scale, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -208,9 +275,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, bool(causal), scale)
-    if not q.is_cuda:
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    return _forward(q, k, v, causal, scale, with_lse=False)[0]
+    return flash_fwd(q, k, v, bool(causal), scale, False)[0]
 
 
 #: Number of times the forward kernel was launched (CUDA tensors only).
@@ -248,15 +313,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`."""
     scale = _check(q, k, v, scale, float64_on_cpu=True)
     b, h, sq, d = q.shape
-    hk, sk = k.shape[1], k.shape[2]
     if o.shape != q.shape or dout.shape != q.shape or \
             lse.shape != (b, h, sq):
         raise ValueError(f"o {tuple(o.shape)}, dout {tuple(dout.shape)}, "
                          f"lse {tuple(lse.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    if not q.is_cuda:
-        return flash_attention_bwd_ref(q, k, v, o, lse, dout, causal=causal,
-                                       scale=scale)
+    return flash_bwd(q, k, v, o, lse, dout, bool(causal), scale)
+
+
+def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+              causal: bool, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One call of the backward kernels on CUDA tensors."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
     if o.dtype != q.dtype or dout.dtype != q.dtype or \
             lse.dtype != torch.float32:
         raise TypeError(f"o {o.dtype}, dout {dout.dtype}, lse {lse.dtype}: "
@@ -291,6 +362,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def _flash_bwd_cpu(q, k, v, o, lse, dout, causal, scale):
+    return flash_attention_bwd_ref(q, k, v, o, lse, dout, causal=causal,
+                                   scale=scale)
+
+
+def _flash_bwd_fake(q, k, v, o, lse, dout, causal, scale):
+    return q.new_empty(q.shape), q.new_empty(k.shape), q.new_empty(k.shape)
+
+
+_LIB.impl("flash_bwd", _backward, "CUDA")
+_LIB.impl("flash_bwd", _flash_bwd_cpu, "CPU")
+torch.library.register_fake("repro_torch::flash_bwd", _flash_bwd_fake,
+                            lib=_LIB)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape,
+                     dout_shape, *args, out_shape=None, **kwargs) -> int:
+    """``scaled_dot_product_attention``'s backward count (the recomputed
+    ``Q K^T``, ``dO V^T``, ``P^T dO``, ``dS K``, ``dS^T Q``), no causal
+    discount."""
+    kv = _kv_as_q_heads(q_shape, k_shape)
+    return sdpa_backward_flop_count(dout_shape, q_shape, kv, kv)
 
 
 #: Number of calls that launched the backward kernels (CUDA tensors only;

@@ -335,7 +335,12 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
     ``train``: ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``prefill``: ``step(params, batch) -> (logits, cache)``;
     ``decode``: ``step(params, cache, tokens, cache_index) -> (logits,
-    cache)``, the cache placed by the cache's logical axes."""
+    cache)``, the cache placed by the cache's logical axes.
+
+    ``step.arg_shardings``: the placements of the abstract arguments, a
+    tree parallel to them: parameters (and optimizer state, and a decode
+    cache) placed as the step takes them; ``None`` for a leaf every rank
+    holds whole (the batch, the tokens, the cache index)."""
     model = LM(cfg)
     p_abs = model.abstract_params()
     logits_shard = named_sharding(
@@ -354,9 +359,11 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
                              p_abs)
         opt_abs = {"m": m_abs, "v": m_abs,
                    "step": ShapeDtype((), torch.int32)}
-        step = _train_step(model, opt_cfg,
-                           state_shardings(model, opt_cfg, ctx),
+        shard = state_shardings(model, opt_cfg, ctx)
+        step = _train_step(model, opt_cfg, shard,
                            shardings_for(baxes, specs, ctx), cell, ctx)
+        step.arg_shardings = (shard["params"], shard["opt"],
+                              {k: None for k in specs})
         return step, (p_abs, opt_abs, specs)
 
     p_shard = shardings_for(model.param_axes(), p_abs, ctx)
@@ -376,6 +383,7 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
                     {k: _rows(x, b_shard[k]) for k, x in batch.items()})
                 return (_results(logits, logits_shard),
                         _results(cache, c_shard))
+        prefill_step.arg_shardings = (p_shard, {k: None for k in specs})
         return prefill_step, (p_abs, specs)
 
     if cell.kind == "decode":
@@ -395,6 +403,7 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
                     _rows(tokens, t_shard), cache_index)
                 return (_results(logits, logits_shard),
                         _results(cache, c_shard))
+        decode_step.arg_shardings = (p_shard, c_shard, None, None)
         return decode_step, (p_abs, c_abs, tok["tokens"],
                              ShapeDtype((), torch.int32))
 

@@ -27,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from ..kernels.flash_attention import HEAD_DIMS
-from ..parallel.axes import constrain, gather, on_model_mesh, unflatten
+from ..parallel.axes import (constrain, einsum, gather, on_model_mesh,
+                             unflatten)
 
 NEG_INF = -1e30
 
@@ -128,7 +129,7 @@ def _attend_chunk(qc, kr, vr, start: int, seg_c, kv_seg, causal: bool,
     # operands in the model type, products accumulated in f32 and then
     # rounded to it, as the reference's einsum does
     qc = constrain(qc, "batch", None, "act_heads", None)
-    logits = torch.einsum("bchd,bshd->bhcs", qc.to(dt), kr.to(dt))
+    logits = einsum("bchd,bshd->bhcs", qc.to(dt), kr.to(dt))
     logits = logits.float() * scale
     logits = constrain(logits, "batch", "act_heads", "seq", None)
     valid = torch.ones(b, 1, c, sk, dtype=torch.bool, device=qc.device)
@@ -141,7 +142,7 @@ def _attend_chunk(qc, kr, vr, start: int, seg_c, kv_seg, causal: bool,
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     probs = constrain(probs, "batch", "act_heads", "seq", None)
-    out = torch.einsum("bhcs,bshd->bchd", probs.to(vr.dtype), vr)
+    out = einsum("bhcs,bshd->bchd", probs.to(vr.dtype), vr)
     out = constrain(out, "batch", None, "act_heads", None)
     return out.to(qc.dtype)
 
@@ -161,7 +162,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qg = _grouped(q, kh)                                   # (B,1,K,G,D)
     # the einsum in the operands' (promoted) type, then f32, then the scale
     dt = torch.promote_types(q.dtype, k_cache.dtype)
-    logits = torch.einsum("bokgd,bskd->bkgos", qg.to(dt), k_cache.to(dt))
+    logits = einsum("bokgd,bskd->bkgos", qg.to(dt), k_cache.to(dt))
     logits = logits.float() * scale
     # kv-sequence split attention (flash-decode): each rank scores its
     # cache slice; the softmax over the split axis gathers it
@@ -172,7 +173,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     probs = constrain(probs, "batch", None, None, None, "kv_seq")
-    out = torch.einsum("bkgos,bskd->bokgd", probs.to(v_cache.dtype),
+    out = einsum("bkgos,bskd->bokgd", probs.to(v_cache.dtype),
                        v_cache)
     return out.reshape(b, one, hq, d).to(q.dtype)
 

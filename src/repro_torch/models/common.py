@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.axes import batch_sum, constrain, settled
+from ..parallel.axes import batch_sum, constrain, matmul, settled
 from ..trees import (tree_leaves, tree_map, tree_unflatten,  # noqa: F401
                      value_and_grad)
 
@@ -150,7 +150,8 @@ def _ce_chunk(h: torch.Tensor, lm_head: torch.Tensor, t: torch.Tensor,
     """The masked CE sum of one sequence chunk: logits in the model type,
     then read as fp32 with the padded vocab entries at ``-1e30``."""
     h = constrain(h, "batch", "seq", None)
-    logits = constrain(h @ lm_head, "batch", None, "act_vocab").float()
+    logits = constrain(matmul(h, lm_head), "batch", None,
+                       "act_vocab").float()
     v = logits.shape[-1]
     vocab_mask = torch.arange(v, device=logits.device) < vocab_size
     logits = torch.where(vocab_mask, logits, -1e30)

@@ -51,8 +51,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..core.machine import resolve_device
-from ..parallel.axes import (constrain, merge_heads, on_model_mesh, settled,
-                             unflatten)
+from ..parallel.axes import (constrain, einsum, matmul, merge_heads,
+                             on_model_mesh, settled, unflatten)
 from .attention import chunked_attention, decode_attention, update_cache
 from .common import (DTYPES, ParamDef, abstract_tree, activation_fn,
                      axes_tree, chunked_cross_entropy, materialize_tree,
@@ -206,15 +206,15 @@ def build_param_defs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _proj_q(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    q = x @ p["wq"]
+    q = matmul(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
     return unflatten(q, -1, (cfg.num_heads, cfg.resolved_head_dim))
 
 
 def _proj_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor):
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
     if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
@@ -245,7 +245,7 @@ def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
                                 segment_ids=segment_ids,
                                 chunk=cfg.attn_chunk)
         side = (k, v)
-    h = h + merge_heads(out) @ p["wo"]
+    h = h + matmul(merge_heads(out), p["wo"])
     return constrain(h, "batch", "seq", None), side
 
 
@@ -265,7 +265,7 @@ def _cross_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
         q = constrain(q, "batch", None, "act_heads", None)
         k = constrain(k, "batch", None, None, None)
     out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    delta = merge_heads(out) @ p["wo"]
+    delta = matmul(merge_heads(out), p["wo"])
     if gated:
         delta = delta * torch.tanh(p["gate"]).to(delta.dtype)
     return h + delta
@@ -276,8 +276,8 @@ def _cross_kv_from(cfg: ModelConfig, p_stack: Dict, src: torch.Tensor
     """The stacked cross K/V caches of every layer of ``p_stack`` over
     ``src`` (B, T, d): each (L, B, T, K, D)."""
     hd = cfg.resolved_head_dim
-    k = torch.einsum("btd,ldh->lbth", src, p_stack["wk"])
-    v = torch.einsum("btd,ldh->lbth", src, p_stack["wv"])
+    k = einsum("btd,ldh->lbth", src, p_stack["wk"])
+    v = einsum("btd,ldh->lbth", src, p_stack["wv"])
     if "bk" in p_stack:
         k = k + p_stack["bk"][:, None, None, :]
         v = v + p_stack["bv"][:, None, None, :]
@@ -293,11 +293,11 @@ def _position_table(length: int, d: int, device: torch.device
 
 def _mlp(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(h, p["norm"], cfg.norm_eps)
-    u = activation_fn(cfg.activation)(x @ p["wi"])
+    u = activation_fn(cfg.activation)(matmul(x, p["wi"]))
     if "wg" in p:
-        u = u * (x @ p["wg"])
+        u = u * matmul(x, p["wg"])
     u = constrain(u, "batch", None, "mlp")
-    return constrain(h + u @ p["wo"], "batch", "seq", None)
+    return constrain(h + matmul(u, p["wo"]), "batch", "seq", None)
 
 
 def _layer(tree, i: int):

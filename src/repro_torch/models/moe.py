@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.axes import batch_mean, constrain, whole_reshape
+from ..parallel.axes import batch_mean, constrain, matmul, whole_reshape
 from .common import activation_fn
 
 
@@ -50,7 +50,7 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg
     ng = xt.shape[0] // g
     xg = constrain(xt.reshape(ng, g, d), "batch", None, None)
 
-    logits = (xg @ params["router"]).float()                # (G,g,E)
+    logits = matmul(xg, params["router"]).float()                # (G,g,E)
     probs = torch.softmax(logits, dim=-1)
 
     capacity = max(int(math.ceil(k * g / e * cfg.capacity_factor)), 4)
@@ -99,6 +99,6 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg
 
     if cfg.moe_shared_expert or cfg.moe_dense_residual:
         p = params["shared" if cfg.moe_shared_expert else "dense"]
-        hh = act(x @ p["wi"]) * (x @ p["wg"])
-        out = out + hh @ p["wo"]
+        hh = act(matmul(x, p["wi"])) * matmul(x, p["wg"])
+        out = out + matmul(hh, p["wo"])
     return out, aux

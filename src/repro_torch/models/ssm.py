@@ -14,7 +14,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..parallel.axes import cumsum, grad_as_forward, matmul, unflatten
 from .common import rmsnorm
 
 
@@ -23,7 +25,7 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     cs = x.shape[-1]
     # a non-negative dim: DTensor's cumsum takes dim=-1 on a tensor split
     # along its last dim as pointwise and sums each rank's part alone
-    xc = torch.cumsum(x, dim=x.dim() - 1)
+    xc = cumsum(x, x.dim() - 1)
     diff = xc[..., :, None] - xc[..., None, :]
     mask = torch.ones(cs, cs, dtype=torch.bool, device=x.device).tril()
     return torch.where(mask, diff, float("-inf"))
@@ -48,6 +50,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     hg = h // g
+    if isinstance(x, DTensor) and all(
+            not isinstance(q, Shard) or q.dim < 2 for q in x.placements):
+        # one placement for the four (ROADMAP C14): on a model axis the
+        # causal conv leaves x, b, c split along the batch and dt along the
+        # sequence, and DTensor's einsum over the mixed placements views a
+        # redistributed local tensor with strides that do not fit
+        dt, b, c = (t.redistribute(x.device_mesh, x.placements)
+                    if isinstance(t, DTensor) and t.placements != x.placements
+                    else t for t in (dt, b, c))
     pad = -s % chunk
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
@@ -58,12 +69,17 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     nc = sp // chunk
 
     a = -torch.exp(a_log.float())                           # (H,)
-    da = (dt.float() * a).reshape(bsz, nc, chunk, g, hg)    # log decay
-    xf = (x * dt[..., None]).reshape(bsz, nc, chunk, g, hg, p).float()
-    bc_ = b.reshape(bsz, nc, chunk, g, n).float()
-    cc_ = c.reshape(bsz, nc, chunk, g, n).float()
 
-    da_cum = torch.cumsum(da, dim=2)                        # (B,C,L,G,H)
+    def chunked(t, heads: bool):        # (B,S,...) -> (B,C,L,...)
+        t = unflatten(t, 1, (nc, chunk))
+        return unflatten(t, 3, (g, hg)) if heads else t
+
+    da = chunked(dt.float() * a, True)                      # log decay
+    xf = chunked(x * dt[..., None], True).float()
+    bc_ = chunked(b, False).float()
+    cc_ = chunked(c, False).float()
+
+    da_cum = cumsum(da, 2)                                  # (B,C,L,G,H)
 
     # intra-chunk (diagonal blocks): decay matrix L then dual attention
     lmat = torch.exp(_segsum(da.permute(0, 1, 3, 4, 2)))    # (B,C,G,H,L,S)
@@ -93,7 +109,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     y_off = torch.einsum("bclgn,bcghpn,bclgh->bclghp",
                          cc_, prev_states, state_decay)
 
-    y = (y_diag + y_off).reshape(bsz, sp, h, p)[:, :s]
+    y = grad_as_forward((y_diag + y_off).reshape(bsz, sp, h, p))[:, :s]
     return y.to(x.dtype), prev
 
 
@@ -143,9 +159,19 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv, kernel size K: (B,S,C) x (K,C) -> (B,S,C)."""
     ksize = w.shape[0]
+    if isinstance(u, DTensor) and any(isinstance(p, Shard) and p.dim == 1
+                                      for p in u.placements):
+        # whole along the sequence, the shifts' gradients too: torch
+        # releases before 2.13 pad a split dim's gradient wrongly
+        u = u.redistribute(u.device_mesh, tuple(
+            Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in u.placements))
     out = u * w[-1]
     for i in range(1, ksize):
-        shifted = F.pad(u, (0, 0, i, 0))[:, :u.shape[1]]
+        # i zeros in front, i positions off the end (a pad, not a slice:
+        # torch 2.11's DTensor gives the slice's gradient a wrong shape)
+        j = min(i, u.shape[1])
+        shifted = grad_as_forward(F.pad(u, (0, 0, j, -j)))
         out = out + shifted * w[ksize - 1 - i]
     return out + bias
 
@@ -176,9 +202,10 @@ def mamba_block(params: Dict, x: torch.Tensor, cfg,
     bsz, s, _ = x.shape
 
     hidden = rmsnorm(x, params["in_norm"], cfg.norm_eps)
-    z, xin = torch.chunk(hidden @ params["w_zx"], 2, dim=-1)  # (B,S,din)
-    bc = hidden @ params["w_bc"]                              # (B,S,2gn)
-    dt_raw = hidden @ params["w_dt"]                          # (B,S,H)
+    z, xin = torch.chunk(matmul(hidden, params["w_zx"]), 2,
+                         dim=-1)                              # (B,S,din)
+    bc = matmul(hidden, params["w_bc"])                       # (B,S,2gn)
+    dt_raw = matmul(hidden, params["w_dt"])                   # (B,S,H)
     dt = _softplus(dt_raw.float() + params["dt_bias"].float())
 
     conv_in = torch.cat([xin, bc], dim=-1)                    # (B,S,conv)
@@ -212,4 +239,4 @@ def mamba_block(params: Dict, x: torch.Tensor, cfg,
     y = y + params["d_skip"].to(y.dtype)[:, None] * xc.reshape(bsz, s, h, p)
     y = y.reshape(bsz, s, d_in) * F.silu(z)
     y = rmsnorm(y, params["gate_norm"], cfg.norm_eps)
-    return x + y @ params["w_out"], new_state
+    return x + matmul(y, params["w_out"]), new_state

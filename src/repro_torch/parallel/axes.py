@@ -31,7 +31,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 # Logical axis -> tuple of mesh axes.  'pod' only exists on the multi-pod
@@ -282,6 +282,156 @@ def whole_reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
     mesh, whole = x.device_mesh, (Replicate(),) * x.device_mesh.ndim
     y = x.redistribute(mesh, whole).reshape(*shape)
     return y.redistribute(mesh, whole)
+
+
+class _GradAsForward(torch.autograd.Function):
+    """The identity; its backward hands the gradient on placed as the
+    forward's tensor was (a pending sum's gradient whole)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and \
+                tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad
+
+
+def grad_as_forward(y: torch.Tensor) -> torch.Tensor:
+    """``y``; on a mesh of more than one rank, its gradient is placed as
+    ``y`` is before the op that made ``y`` takes it (torch releases before
+    2.13 refuse to split or fold a dim of a gradient split otherwise)."""
+    if _split_mesh(y) is None:
+        return y
+    return _GradAsForward.apply(y)
+
+
+class _Cumsum(torch.autograd.Function):
+    """``torch.cumsum`` whose backward (the gradient's sum from the end)
+    runs on the rank's part: the dim it sums along is not split."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        ctx.dim, ctx.placements = dim, x.placements
+        return torch.cumsum(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != tuple(ctx.placements):
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        d = ctx.dim
+        local = grad.to_local().flip(d).cumsum(d).flip(d)
+        return DTensor.from_local(local, grad.device_mesh, grad.placements,
+                                  run_check=False, shape=grad.shape,
+                                  stride=grad.stride()), None
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum(x, dim)`` (``dim`` non-negative: DTensor's cumsum with
+    a negative dim on a split dim sums each rank's part alone).  For a
+    DTensor on a mesh of more than one rank that does not split ``dim``,
+    the backward's flips run on the rank's part: torch releases before
+    2.13 have no DTensor rule for ``flip``."""
+    if _split_mesh(x) is None or any(
+            isinstance(p, Shard) and p.dim == dim for p in x.placements):
+        return torch.cumsum(x, dim)
+    return _Cumsum.apply(x, dim)
+
+
+def _split_mesh(*tensors):
+    """The mesh of the first DTensor among ``tensors`` if it has more than
+    one rank, else ``None``."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            return t.device_mesh if t.device_mesh.size() > 1 else None
+    return None
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for an activation ``x`` ``(..., K)`` and a weight ``w``
+    ``(K, N)``, by the plan DTensor itself takes, spelled out where the
+    torch releases before 2.13 refuse it.  ATen's matmul folds ``x``'s
+    leading dims into one (and unfolds the result's gradient), and those
+    releases cannot fold a dim split over the mesh that is not the first:
+    so with ``x`` split along a dim between its first and its last (the
+    sequence) and ``w`` whole, each rank multiplies its parts (``x``'s
+    placement kept, ``w``'s gradient a pending sum); with ``w`` split,
+    ``x`` is gathered first; and the result's gradient is placed as the
+    result was before the product's backward takes it.  On a mesh of one
+    rank, ``x @ w``."""
+    if x.dim() <= 2 or _split_mesh(x, w) is None:
+        return x @ w
+    middle = isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and 0 < p.dim < x.dim() - 1
+        for p in x.placements)
+    if middle and isinstance(w, DTensor) and all(
+            p.is_replicate() for p in w.placements) and all(
+            isinstance(p, (Shard, Replicate)) for p in x.placements):
+        pending = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                        for p in x.placements)
+        shape = (*x.shape[:-1], w.shape[-1])
+        return DTensor.from_local(
+            x.to_local() @ w.to_local(grad_placements=pending),
+            x.device_mesh, x.placements, run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+    if middle:
+        x = x.redistribute(x.device_mesh, tuple(
+            Replicate() if isinstance(p, Shard) and 0 < p.dim < x.dim() - 1
+            else p for p in x.placements))
+    return grad_as_forward(x @ w)
+
+
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(equation, *operands)``, spelled out as DTensor's own
+    plan where an operand is a DTensor split along some dim: per mesh dim,
+    the letter the largest operand is split along stays split in every
+    operand that has it (the others are gathered), the local einsum runs,
+    and the result is split along that letter (an operand without it
+    takes a pending sum as its gradient).  ATen's einsum folds dims into
+    batched products, and torch releases before 2.13 cannot fold a split
+    dim that is not the first of those it folds: they refuse the view.
+    Plain ``torch.einsum`` where no operand is split, or where the letter
+    is summed over."""
+    split = [i for i, x in enumerate(operands) if isinstance(x, DTensor)
+             and any(isinstance(p, Shard) for p in x.placements)]
+    if not split:
+        return torch.einsum(equation, *operands)
+    inputs, output = equation.replace(" ", "").split("->")
+    subs = inputs.split(",")
+    mesh = operands[split[0]].device_mesh
+    ops = [x if isinstance(x, DTensor) else DTensor.from_local(
+        x, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+        for x in operands]
+    if any(x.device_mesh != mesh
+           or any(p.is_partial() for p in x.placements) for x in ops):
+        return torch.einsum(equation, *operands)
+    big = max(split, key=lambda i: operands[i].numel())
+    letters = [subs[big][p.dim] if isinstance(p, Shard) else None
+               for p in ops[big].placements]
+    if any(c is not None and c not in output for c in letters):
+        return torch.einsum(equation, *operands)
+    placed, grads = [], []
+    for x, sub in zip(ops, subs):
+        want = tuple(Shard(sub.index(c)) if c is not None and c in sub
+                     else Replicate() for c in letters)
+        placed.append(x.redistribute(mesh, want)
+                      if tuple(x.placements) != want else x)
+        grads.append(tuple(Partial() if c is not None and c not in sub
+                           else w for c, w in zip(letters, want)))
+    local = torch.einsum(equation, *(x.to_local(grad_placements=g)
+                                     for x, g in zip(placed, grads)))
+    size = {c: n for x, sub in zip(ops, subs) for c, n in zip(sub, x.shape)}
+    shape = tuple(size[c] for c in output)
+    return DTensor.from_local(
+        local, mesh, tuple(Shard(output.index(c)) if c is not None
+                           else Replicate() for c in letters),
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def named_sharding(logical: Sequence[Optional[str]], shape: Sequence[int],
