@@ -116,6 +116,24 @@ non-zero:
 4c. ``targets`` — each of the 13 registered targets compiles and runs the
    14 patterns on ``cuda``, memory bit-equal to fused; the modeled cycles
    per target and pattern.
+4g. ``claims`` (right after 4c) — the paper's results through the
+   benchmark twins (``benchmarks/torch_paper_claims.py``, ``torch_run``'s
+   sections): the nine paper sections (Table II, Figs. 7-13, Table V) at
+   full size on ``cuda`` — fig9's gemm up to 1024 x 128, fig12b's gemm
+   and spmm at 2048-16384 lanes, fig13's unregistered ``rvv-1d@<scheme>``
+   targets — then the quick ``engine``, ``frontend``, ``targets``,
+   ``timing``, ``opt``, ``kernels`` (the int8 and bit-plane GEMMs at 256^3,
+   fp32 causal flash at 2 x 4 x 256 x 64, beside their plain versions),
+   ``silicon`` and ``resilience`` sections and
+   ``examples/mve_patterns_torch.py``, no CUDA tensor reaching a plain
+   version in a wrapper.  Every paper row equal to the same section run on
+   the CPU in this process (name, value, derived string), ``table2`` and
+   ``fig7`` equal to ``tests/data/golden_traces.json`` (read only), the
+   priced ``targets`` and ``timing`` rows equal to the CPU's, every memory
+   image the target API returns on ``cuda``, the example's table equal to
+   the CPU's.  Prints each section's seconds, the paper's averages,
+   ``fig9/crossover``, ``fig13/*``, ``tableV/total|neon`` and the
+   ``kernels`` rows.
 4d. ``opt``    — the 14 patterns compiled at ``opt_level=None`` and at each
    level up to ``MAX_OPT_LEVEL``, one image and (seed-independent
    programs) a batch of 1024 images on ``cuda``: memory, registers and
@@ -219,14 +237,15 @@ non-zero:
 7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
-Phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5c, 5d, 5e and 6 are the main paths: the
-launch counters of the kernels each runs are set to 0 just before it and
-read just after (4b: around the VM's runs alone, before they are compared; 4e:
-around the fault-free serving, not the chaos replays; 4f: around the card
-runs, after the CPU references); a kernel never launched there fails the
-run.  The kernels line's ``launches`` adds 4, 4b, 4d, 4e and 4f for the
-MVE kernels, 5, 5b, 5c, 5d and 5e for flash attention, 5c, 5d and 5e
-for its backward.  Without a CUDA device, or
+Phases 4, 4b, 4d, 4e, 4f, 4g, 5, 5b, 5c, 5d, 5e and 6 are the main
+paths: the launch counters of the kernels each runs are set to 0 just
+before it and read just after (4b: around the VM's runs alone, before they
+are compared; 4e: around the fault-free serving, not the chaos replays; 4f
+and 4g: around the card runs, after the CPU references); a kernel never
+launched there fails the run.  The kernels line's ``launches`` adds 4, 4b,
+4d, 4e, 4f and 4g for the MVE kernels, 5, 5b, 5c, 5d, 5e and 4g for flash
+attention, 5c, 5d and 5e for its backward, 6 and 4g for the int8 and
+bit-plane GEMMs.  Without a CUDA device, or
 without the rest of the checkout beside it, the script exits non-zero and
 prints no result line.
 """
@@ -1896,6 +1915,126 @@ def drive_targets():
                 raise AssertionError(f"{t} != fused on {pattern}")
             cycles[t][pattern] = art.timeline(state).total_cycles
     return {"targets": list(names), "cycles": cycles}
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the paper's results and the benchmark twins on the card
+# ---------------------------------------------------------------------------
+
+CLAIMS_QUICK = ("engine", "frontend", "targets", "timing", "opt", "kernels",
+                "silicon", "resilience")
+CLAIMS_PRICED = ("targets", "timing")        # rows priced from the trace
+CLAIMS_SHOWN = re.compile(r".*/average|fig9/crossover|fig13/.*|"
+                          r"tableV/(total|neon)")
+GOLDEN = ROOT / "tests" / "data" / "golden_traces.json"
+
+
+def _mve_patterns_example():
+    """``examples/mve_patterns_torch.py`` as a module (examples is not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "mve_patterns_torch", ROOT / "examples" / "mve_patterns_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_example(device) -> list:
+    """The example's printed lines on ``device``."""
+    import contextlib
+    import io
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _mve_patterns_example().main(device)
+    return printed.getvalue().splitlines()
+
+
+def claims_reference() -> dict:
+    """The nine paper sections, the priced quick sections and the example
+    on the CPU, in this process: what the card's rows must equal."""
+    from benchmarks import torch_paper_claims as claims
+    from benchmarks import torch_run
+    return {"paper": {name: fn(device="cpu")
+                      for name, fn in claims.SECTIONS.items()},
+            "priced": {name: torch_run.QUICK_SECTIONS[name]("cpu")
+                       for name in CLAIMS_PRICED},
+            "example": run_example("cpu")}
+
+
+def drive_claims() -> dict:
+    """The nine paper sections at full size, the eight quick sections and
+    the example, all on ``cuda`` with no CUDA tensor reaching a plain
+    version in a wrapper; the device of every memory image the target API
+    returns is recorded."""
+    from benchmarks import torch_paper_claims as claims
+    from benchmarks import torch_run
+    from repro_torch.targets.base import CompiledArtifact
+
+    out = {"paper": {}, "quick": {}, "seconds": {}, "memory_devices": set()}
+    run = CompiledArtifact.run
+
+    def recording(self, memory=None):
+        mem, state = run(self, memory)
+        out["memory_devices"].add(mem.device.type)
+        return mem, state
+
+    restore = _no_plain_version_on_cuda()
+    CompiledArtifact.run = recording
+    try:
+        for name, fn in claims.SECTIONS.items():
+            t0 = time.perf_counter()
+            out["paper"][name] = fn(device="cuda")
+            out["seconds"][name] = time.perf_counter() - t0
+        for name in CLAIMS_QUICK:
+            t0 = time.perf_counter()
+            out["quick"][name] = torch_run.QUICK_SECTIONS.get(
+                name, torch_run.SECTIONS[name])("cuda")
+            out["seconds"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["example"] = run_example("cuda")
+        out["seconds"]["example"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        CompiledArtifact.run = run
+        restore()
+    return out
+
+
+def check_claims(out, want) -> dict:
+    """Every paper row on the card equal to the CPU's (name, value, derived,
+    exact), ``table2`` and ``fig7`` equal to the golden file, the priced
+    quick rows equal to the CPU's, every memory image on ``cuda``, the
+    example's table equal to the CPU's; returns what the phase prints."""
+    for name, rows in out["paper"].items():
+        if rows != want["paper"][name]:
+            bad = [(g, w) for g, w in zip(rows, want["paper"][name])
+                   if g != w]
+            raise AssertionError(f"{name} on cuda != cpu: {bad[:3]}")
+    golden = json.loads(GOLDEN.read_text())
+    for name in ("table2", "fig7"):
+        got = {n: [us, d] for n, us, d in out["paper"][name]}
+        if got != golden[name]:
+            raise AssertionError(f"{name} != {GOLDEN.name}")
+    for name in CLAIMS_PRICED:
+        if out["quick"][name] != want["priced"][name]:
+            raise AssertionError(f"{name}: priced rows on cuda != cpu")
+    if out["memory_devices"] != {"cuda"}:
+        raise AssertionError(f"memory on {out['memory_devices']}")
+    table = out["example"][:15]               # the header and 14 patterns
+    if table != want["example"][:15]:
+        raise AssertionError("the example's table on cuda != cpu")
+    if not out["example"][-1].endswith("kernels: OK"):
+        raise AssertionError("the example's transpose failed")
+    return {
+        "section_seconds": out["seconds"],
+        "paper_rows": [r for rows in out["paper"].values() for r in rows
+                       if CLAIMS_SHOWN.fullmatch(r[0])],
+        "paper_equal_to_cpu": True, "golden_equal": ["table2", "fig7"],
+        "priced_equal_to_cpu": list(CLAIMS_PRICED),
+        "kernels_us": out["quick"]["kernels"],
+        "quick_rows": {name: len(rows) for name, rows in out["quick"].items()},
+        "example_rows": table}
 
 
 # ---------------------------------------------------------------------------
@@ -3727,6 +3866,15 @@ def main() -> int:
     tg = drive_targets()
     emit("targets", seconds=time.perf_counter() - t0, **tg)
     t0 = time.perf_counter()
+    claims_want = claims_reference()
+    claims_out, claims_counts = drive(
+        "claims", mve + ("int8_matmul", "bitplane_matmul", "flash_attention"),
+        drive_claims)
+    claims = check_claims(claims_out, claims_want)
+    del claims_out, claims_want
+    emit("claims", seconds=time.perf_counter() - t0, launches=claims_counts,
+         **claims)
+    t0 = time.perf_counter()
     opt_out, opt_counts = drive("opt", mve, drive_opt)
     opt_checks = check_opt(opt_out)
     del opt_out
@@ -3823,6 +3971,8 @@ def main() -> int:
                                 + dry_counts["flash_attention_bwd"]),
         "int8_matmul": quant_counts["int8_matmul"],
         "bitplane_matmul": quant_counts["bitplane_matmul"]})
+    for name in launches:                   # 4g runs all but the backward
+        launches[name] += claims_counts[name]
 
     # ---- 7. result -------------------------------------------------------
     kernels = []
