@@ -201,7 +201,15 @@ non-zero:
    backward); one step profiled; a float32 copy of the first step at
    batch 1 on the card against the same step on the CPU (loss within
    1e-4, grad norm within 1e-3 relative; the worst gradient leaf
-   printed).  A CUDA tensor reaching a plain flash version fails the run.
+   printed).  qwen2-0.5b's options (ROADMAP queue E item 3), one 8 x 1024
+   batch without segment ids: the loss and every gradient leaf under
+   remat "dots" and "none" bit-equal to "full" (and "full" to itself),
+   48 / 24, 48 / 24 and 24 / 24 flash launches a step; AdamW with int8
+   moments from those gradients, its second update (dequantized and
+   quantized moments) held against the same update on the CPU from the
+   same inputs (``q`` within one step, ``s`` within 1e-5 of its leaf's
+   largest scale).  A CUDA tensor reaching a plain flash version fails
+   the run.
 5d. ``mesh`` — a 1-rank process group (``cpu:gloo,cuda:nccl``) and a
    ``(data 1, model 1)`` mesh on the card, whose ``model`` axis runs every
    ``constrain`` site of the models as a ``DTensor`` redistribution and
@@ -227,13 +235,17 @@ non-zero:
    a profiled call, the share of the bf16 peak, the bytes counted on the
    card over those on ``meta``.  Meanwhile ``python -m
    repro_torch.launch.dryrun`` runs qwen2-0.5b's ``train_4k`` on 256
-   ``fake`` ranks with the roofline analysis and on 512 without, each in
-   a subprocess with no card: each record ``ok``, flops, bytes,
-   collective bytes and peak above 0; and, in a third
-   (``benchmarks/torch_model_axis_cells.py``), every architecture's
-   reduced train, prefill and decode cells at ``(data 2, model 4)`` and
-   ``(data 1, model 4)`` on ``fake`` ranks must run under this host's
-   torch (ROADMAP C14, C15).
+   ``fake`` ranks with the roofline analysis and on 512 without, and
+   llama4-scout's ``decode_32k`` on 256 (its one MoE group spans the 16
+   data ranks), each in a subprocess with no card: each record ``ok``,
+   flops, bytes, collective bytes and peak above 0; in two more
+   (``benchmarks/torch_model_axis_cells.py``, a mesh each), every
+   architecture's reduced train, prefill and decode cells at ``(data 2,
+   model 4)`` and ``(data 1, model 4)``, and a MoE decode whose group
+   spans the data ranks, on ``fake`` ranks must run under this host's
+   torch (ROADMAP C14, C15); in another (``benchmarks/torch_moe_span_bytes.py``), the
+   collective bytes that llama4-scout's gather of its group adds to one
+   layer must be the prediction, 128 tokens x 5120 x 2 bytes.
 7. the card line, the ``{"kernels": [...]}`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -2930,6 +2942,139 @@ def drive_train_whisper(flash_attention, flash_attention_bwd) -> dict:
             "worst_leaf_rel_to_its_max": leaf_err[worst_leaf]}}
 
 
+# qwen2-0.5b's flash launches a step (forward, backward) without segment
+# ids, by remat option: "full" and "dots" recompute each of the 24 layers'
+# attention in the backward, "none" keeps it
+REMAT_FLASH = {"full": (48, 24), "dots": (48, 24), "none": (24, 24)}
+# int8 moments on the card against the same update on the CPU from the
+# same inputs (tests/test_torch_mesh_train.py's tolerances): q within one
+# quantization step, s within INT8_S_TOL of the leaf's largest scale
+INT8_Q_STEPS, INT8_S_TOL = 1, 1e-5
+
+
+def _bits_differ(a: dict, b: dict) -> list:
+    """The paths of the leaves of ``a`` whose bits differ from ``b``'s."""
+    return [k for k, x in _tree_leaves(a)
+            if not torch.equal(bits(x), bits(b[k]))]
+
+
+def _int8_against_cpu(opt, params, grads, state, norm) -> dict:
+    """One AdamW update with int8 moments on the card and on the CPU from
+    the same inputs; the CPU's results are compared on the card."""
+    from repro_torch.optim import adamw_update
+    from repro_torch.trees import tree_map
+
+    cpu = [tree_map(lambda x: x.cpu(), t) for t in (params, grads, state)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, new, _ = adamw_update(opt, params, grads, state, grad_norm=norm)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want_p, want, _ = adamw_update(opt, *cpu, grad_norm=norm.cpu())
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    want = dict(_tree_leaves(tree_map(lambda x: x.cuda(), want)))
+    q_steps, s_rel, q_differ, s_differ, rows = 0, 0.0, 0, 0, 0
+    for k, x in _tree_leaves(new):
+        w = want[k]
+        if k.endswith("/q"):
+            d = (x.int() - w.int()).abs()
+            q_steps = max(q_steps, int(d.max()))
+            q_differ += int((d > 0).sum())
+        elif k.endswith("/s"):
+            s_rel = max(s_rel, float((x - w).abs().max()
+                                     / w.abs().max().clamp_min(1e-30)))
+            s_differ += int((x != w).sum())
+            rows += w.numel()
+    return {"q_max_steps": q_steps, "q_entries_differing": q_differ,
+            "q_entries": 2 * sum(x.numel() for _, x in _tree_leaves(params)),
+            "s_max_rel_to_leaf_max": s_rel, "s_entries_differing": s_differ,
+            "s_entries": rows, "params_leaves_differing": _bits_differ(
+                p, dict(_tree_leaves(tree_map(lambda x: x.cuda(), want_p)))),
+            "card_ms": card_ms, "cpu_s": cpu_s}
+
+
+def drive_train_options(flash_attention, flash_attention_bwd) -> dict:
+    """qwen2-0.5b as published (bf16) on one ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` batch of the pipeline without its segment ids (so self
+    attention takes the flash route): the loss and every gradient leaf
+    under ``remat`` "full" (twice: the step is deterministic), "dots" and
+    "none", each bit-equal to the first "full" run, and each option's
+    flash launches a step against ``REMAT_FLASH`` (a second call of each
+    timed).  Then AdamW with int8 moments from those gradients: one update
+    on the card from zero moments, and the next from its state on the card
+    and on the CPU from the same inputs (parameters, state, gradients and
+    their norm): ``q`` within ``INT8_Q_STEPS``, ``s`` within
+    ``INT8_S_TOL`` of its leaf's largest scale; how many entries differ at
+    all is recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_train_batches
+    from repro_torch.models import LM
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   global_norm)
+    from repro_torch.trees import value_and_grad
+
+    cfg = get_config("qwen2-0.5b")
+    params = LM(cfg).init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    host = next(make_train_batches(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                              TRAIN_BATCH, seed=0)))
+    batch = {k: torch.from_numpy(x).cuda() for k, x in host.items()
+             if k not in ("next_doc", "segment_ids")}
+    remat, full = {}, None
+    for name, option in (("full", "full"), ("full again", "full"),
+                         ("dots", "dots"), ("none", "none")):
+        model = LM(dataclasses.replace(cfg, remat=option))
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        (loss, _), grads = value_and_grad(model.loss, params, batch)
+        launches = (flash_attention.launches - before[0],
+                    flash_attention_bwd.launches - before[1])
+        if full is None:
+            full = (loss, grads, dict(_tree_leaves(grads)))
+        differ = _bits_differ(grads, full[2])
+        loss_equal = bool(torch.equal(bits(loss), bits(full[0])))
+        del grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value_and_grad(model.loss, params, batch)
+        torch.cuda.synchronize()
+        remat[name] = {"flash_launches": launches,
+                       "predicted": REMAT_FLASH[option], "loss":
+                       float(loss), "loss_bit_equal": loss_equal,
+                       "leaves_differing": differ,
+                       "step_ms": (time.perf_counter() - t0) * 1e3,
+                       "max_memory_allocated":
+                       torch.cuda.max_memory_allocated()}
+    for name, r in remat.items():
+        if tuple(r["flash_launches"]) != r["predicted"]:
+            raise AssertionError(f"qwen2-0.5b remat {name}: flash launches "
+                                 f"{r['flash_launches']}, not "
+                                 f"{r['predicted']}")
+        if not r["loss_bit_equal"] or r["leaves_differing"]:
+            raise AssertionError(f"qwen2-0.5b remat {name} differs from "
+                                 f"\"full\": {r}")
+
+    grads = full[1]
+    del full
+    norm = global_norm(grads)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS,
+                      state_format="int8")
+    p, state, _ = adamw_update(opt, params, grads, adamw_init(params, "int8"),
+                               grad_norm=norm)
+    int8 = _int8_against_cpu(opt, p, grads, state, norm)
+    del params, p, state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if int8["q_max_steps"] > INT8_Q_STEPS or \
+            int8["s_max_rel_to_leaf_max"] > INT8_S_TOL:
+        raise AssertionError(f"qwen2-0.5b int8 moments, card vs CPU: {int8}")
+    return {"config": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "segment_ids": False, "remat": remat, "int8_update_2": int8,
+            "int8_tolerance": {"q_steps": INT8_Q_STEPS, "s": INT8_S_TOL}}
+
+
 # ---------------------------------------------------------------------------
 # phase 5d: the mesh (its data and model axes at one rank)
 # ---------------------------------------------------------------------------
@@ -3476,10 +3621,19 @@ DRYRUN_CELLS = (("whisper-base", ("dryrun", WHISPER_TEXT, LM_BATCH, "train")),
                 ("qwen2-0.5b", ("dryrun", LM_SEQ, LM_BATCH, "prefill")))
 # the production-mesh proof: qwen2-0.5b's train_4k on 256 ranks with the
 # roofline analysis, then on 512 without (host work: the whole model runs
-# on meta tensors; qwen2-72b's would take minutes)
+# on meta tensors; qwen2-72b's would take minutes); llama4-scout's
+# decode_32k on 256, whose one MoE group of 128 tokens spans the 16 data
+# ranks (8 tokens a rank)
 DRYRUN_PROOFS = (["--arch", "qwen2-0.5b", "--shape", "train_4k", "--force"],
                  ["--arch", "qwen2-0.5b", "--shape", "train_4k", "--force",
-                  "--multi-pod", "--no-analysis"])
+                  "--multi-pod", "--no-analysis"],
+                 ["--arch", "llama4-scout-17b-a16e", "--shape", "decode_32k",
+                  "--force"])
+# what the gather of that group adds to one layer's collective bytes,
+# against its prediction (the script exits 1 where they differ)
+MOE_SPAN_BYTES = ["--arch", "llama4-scout-17b-a16e"]
+# benchmarks/torch_model_axis_cells.py's meshes, one subprocess each
+CELL_MESHES = ("2x4", "1x4")
 DRYRUN_TIMEOUT = 240                 # s, each subprocess (run side by side)
 _META_COUNTS = """
 import json, sys
@@ -3676,7 +3830,8 @@ def check_dryrun(card, meta, proofs) -> dict:
 
 def drive_dryrun(flash_attention, flash_attention_bwd) -> dict:
     """Phase 5e: the ``meta`` counts of ``DRYRUN_CELLS`` (a ``fake`` group
-    of one rank) and the two production-mesh runs of ``DRYRUN_PROOFS``
+    of one rank), the model-axis cells, the MoE gather's bytes
+    (``MOE_SPAN_BYTES``) and the production-mesh runs of ``DRYRUN_PROOFS``
     (``python -m repro_torch.launch.dryrun``, 256 and 512 ``fake`` ranks)
     start in subprocesses that see no card; meanwhile the same cells run on
     the card under the counter; then :func:`check_dryrun`."""
@@ -3684,9 +3839,11 @@ def drive_dryrun(flash_attention, flash_attention_bwd) -> dict:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        cells_py = str(ROOT / "benchmarks" / "torch_model_axis_cells.py")
         procs = [_start(["-c", _META_COUNTS, json.dumps(DRYRUN_CELLS)], tmp),
-                 _start([str(ROOT / "benchmarks" /
-                             "torch_model_axis_cells.py")], tmp)]
+                 _start([str(ROOT / "benchmarks" / "torch_moe_span_bytes.py"),
+                         *MOE_SPAN_BYTES], tmp)]
+        procs += [_start([cells_py, "--mesh", m], tmp) for m in CELL_MESHES]
         procs += [_start(["-m", "repro_torch.launch.dryrun", *args], tmp)
                   for args in DRYRUN_PROOFS]
         try:
@@ -3694,10 +3851,14 @@ def drive_dryrun(flash_attention, flash_attention_bwd) -> dict:
                                      flash_attention_bwd)
             card_s = time.perf_counter() - t0
             meta = json.loads(_finish(procs[0], "meta count").splitlines()[-1])
-            cells = json.loads(_finish(procs[1], "the model-axis cells")
-                               .splitlines()[-1])
+            span = json.loads(_finish(procs[1], "the MoE gather's bytes")
+                              .splitlines()[-1])
+            cells = [json.loads(_finish(p, f"the model-axis cells at {m}")
+                                .splitlines()[-1])
+                     for p, m in zip(procs[2:], CELL_MESHES)]
             printed = [_finish(p, f"dryrun {' '.join(args)}").strip()
-                       for p, args in zip(procs[2:], DRYRUN_PROOFS)]
+                       for p, args in zip(procs[2 + len(CELL_MESHES):],
+                                          DRYRUN_PROOFS)]
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -3710,8 +3871,9 @@ def drive_dryrun(flash_attention, flash_attention_bwd) -> dict:
             records[f"{args[1]} {args[3]} {mesh}"] = json.loads(
                 (Path(tmp) / "results" / "dryrun_torch" / name).read_text())
     out = check_dryrun(card, meta, records)
-    out["model_axis_cells"] = {"torch": cells["torch"],
-                               "ran": len(cells["cells"])}
+    out["model_axis_cells"] = {"torch": cells[0]["torch"],
+                               "ran": sum(len(c["cells"]) for c in cells)}
+    out["moe_span_bytes"] = span
     out["printed"] = printed
     out["check_seconds"] = {"card": card_s,
                             "all": time.perf_counter() - t0}
@@ -3926,7 +4088,9 @@ def main() -> int:
                 "qwen2-0.5b": drive_train_qwen2(flash_attention,
                                                 flash_attention_bwd),
                 "whisper-base": drive_train_whisper(flash_attention,
-                                                    flash_attention_bwd)})
+                                                    flash_attention_bwd),
+                "qwen2-0.5b options": drive_train_options(
+                    flash_attention, flash_attention_bwd)})
     finally:
         restore()
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)

@@ -29,9 +29,9 @@ from ..models.specs import (decode_specs, prefill_batch_specs,
 from ..optim import AdamWConfig, adamw_update
 from ..optim.adamw import _scale_shape
 from ..parallel.axes import (NamedPlacement, ShardingCtx, all_reduce,
-                             batch_reduction, local_shard, mesh_shape,
-                             model_mesh, named_sharding, on_model_mesh,
-                             shard_groups, step_context)
+                             batch_reduction, batch_split, local_shard,
+                             mesh_shape, model_mesh, named_sharding,
+                             on_model_mesh, shard_groups, step_context)
 
 
 def shardings_for(axes, shapes, ctx: ShardingCtx):
@@ -213,21 +213,12 @@ def _rows(x: torch.Tensor, where: NamedPlacement, micro: int = 1
     return local_shard(y, where.mesh, split).reshape(-1, *x.shape[1:])
 
 
-def _batch_ranks(where: NamedPlacement, cfg: ModelConfig, rows: int,
-                 seq: int, micro: int = 1):
-    """The groups that split the batch's rows and their rank count; checks
-    that each rank's rows of each microbatch hold whole MoE groups, so that
-    every group of ``moe_group_size`` tokens lies on one rank, as in the
-    reference's one program."""
+def _batch_ranks(where: NamedPlacement):
+    """The groups of the mesh dims that split the batch's rows (major to
+    minor) and their rank count.  A MoE group of the reference may span
+    them: ``models.moe`` forms the groups over the whole batch."""
     groups = shard_groups(where.mesh, where.placements, 0)
-    count = math.prod(dist.get_world_size(g) for g in groups)
-    tokens = rows // (micro * count) * seq
-    if (cfg.family == "moe" and count > 1
-            and tokens % cfg.moe_group_size):
-        raise ValueError(
-            f"{tokens} tokens per rank and microbatch do not hold whole MoE "
-            f"groups of {cfg.moe_group_size}: a group would span ranks")
-    return groups, count
+    return groups, math.prod(dist.get_world_size(g) for g in groups)
 
 
 def _reduce_grad(g: torch.Tensor, where: NamedPlacement, batch_dims
@@ -284,8 +275,7 @@ def _train_step(model: LM, opt_cfg: AdamWConfig, shardings, b_shard,
     p_shard, opt_shard = shardings["params"], shardings["opt"]
     ga = max(cfg.grad_accum, 1)
     b_where = b_shard["tokens"]
-    groups, count = _batch_ranks(b_where, cfg, cell.global_batch,
-                                 cell.seq_len, ga)
+    groups, count = _batch_ranks(b_where)
     batch_dims = {i for i, p in enumerate(b_where.placements)
                   if isinstance(p, Shard)}
     row_max = None
@@ -298,7 +288,8 @@ def _train_step(model: LM, opt_cfg: AdamWConfig, shardings, b_shard,
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
         mine = {k: _rows(x, b_shard[k], ga) for k, x in batch.items()}
-        with step_context(ctx), batch_reduction(groups, count):
+        with step_context(ctx), batch_split(groups), \
+                batch_reduction(groups, count):
             used = tree_map(_step_param, params, p_shard)
             (loss, metrics), grads = _loss_and_grads(model, used, mine)
             del used
@@ -322,13 +313,15 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
     :func:`state_shardings`' placements, or tensors every rank holds whole,
     and the whole batch.  The step runs on this rank's rows of the batch
     (``batch`` -> ``("pod", "data")``) with the loss's sums and the MoE
-    statistics taken over every rank's rows.  Each parameter is gathered
-    over every axis but ``model`` and enters as a ``DTensor`` on the
-    ``model`` sub-mesh with its ``model`` placement; the activations are
-    redistributed at the reference's ``constrain`` sites, and the flash
-    kernels run on each rank's own heads.  Each gradient, taken to this
-    rank's ``model`` part, is reduce-scattered over the batch's ranks to
-    this rank's shard, and each rank applies AdamW to its own shard (the
+    statistics taken over every rank's rows, and a MoE layer's groups
+    formed over the whole batch's tokens (a group may span ranks: its
+    tokens are gathered to the ranks that hold some).  Each parameter is
+    gathered over every axis but ``model`` and enters as a ``DTensor`` on
+    the ``model`` sub-mesh with its ``model`` placement; the activations
+    are redistributed at the reference's ``constrain`` sites, and the
+    flash kernels run on each rank's own heads.  Each gradient, taken to
+    this rank's ``model`` part, is reduce-scattered over the batch's ranks
+    to this rank's shard, and each rank applies AdamW to its own shard (the
     gradient's norm from the shards' squares).  Outputs are DTensors
     (metrics: tensors, the same on every rank).
 
@@ -373,11 +366,10 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
         cache_defs = model.cache_defs(cell.global_batch, cell.seq_len)
         c_shard = shardings_for(axes_tree(cache_defs),
                                 abstract_tree(cache_defs), ctx)
-        _batch_ranks(b_shard["tokens"], cfg, cell.global_batch,
-                     cell.seq_len)
+        groups, _ = _batch_ranks(b_shard["tokens"])
 
         def prefill_step(params, batch):
-            with step_context(ctx):
+            with step_context(ctx), batch_split(groups):
                 logits, cache = model.prefill(
                     tree_map(_step_param, params, p_shard),
                     {k: _rows(x, b_shard[k]) for k, x in batch.items()})
@@ -390,12 +382,12 @@ def jitted_cell(cfg: ModelConfig, cell: ShapeCell, ctx: ShardingCtx,
         c_abs, c_axes, tok, tok_axes = decode_specs(cfg, cell)
         c_shard = shardings_for(c_axes, c_abs, ctx)
         t_shard = shardings_for(tok_axes, tok, ctx)["tokens"]
-        _batch_ranks(t_shard, cfg, cell.global_batch, 1)
+        groups, _ = _batch_ranks(t_shard)
 
         def decode_step(params, cache, tokens, cache_index):
             if torch.is_tensor(cache_index) and cache_index.dim():
                 cache_index = _rows(cache_index, t_shard)  # (B,) index
-            with step_context(ctx):
+            with step_context(ctx), batch_split(groups):
                 logits, cache = model.decode_step(
                     tree_map(_step_param, params, p_shard),
                     tree_map(lambda x, w: _on_model(_own(x, w), w), cache,

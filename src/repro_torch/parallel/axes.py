@@ -566,3 +566,80 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     DTensor made whole first, as in :func:`batch_sum`)."""
     x = gather(x)
     return x if _BATCH is None else sum_over_ranks(x, _BATCH[0]) / _BATCH[1]
+
+
+# ---------------------------------------------------------------------------
+# The batch's rows over its ranks
+# ---------------------------------------------------------------------------
+
+# The groups of the mesh dims that split the batch's rows in a step over a
+# mesh, major to minor (``()`` outside one).  Held for the process, as
+# ``_BATCH`` is: a checkpointed layer's recompute reads it too.
+_ROWS: Tuple = ()
+
+
+@contextlib.contextmanager
+def batch_split(groups: Sequence):
+    """Within it, on every thread, the batch's rows are split over
+    ``groups`` (the mesh dims' process groups, major to minor): rank ``r``
+    of them (:func:`batch_rank`) holds the ``r``-th equal run of the rows.
+    A MoE layer routes its groups of tokens over the whole batch's."""
+    global _ROWS
+    prev, _ROWS = _ROWS, tuple(groups)
+    try:
+        yield
+    finally:
+        _ROWS = prev
+
+
+def batch_rank() -> Tuple[int, int]:
+    """``(this rank's index, the rank count)`` over the batch's ranks
+    (``(0, 1)`` outside a :func:`batch_split`)."""
+    index, count = 0, 1
+    for g in _ROWS:
+        n = dist.get_world_size(g)
+        index, count = index * n + dist.get_rank(g), count * n
+    return index, count
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: the rows of every rank of ``groups``, in the batch's order
+    (gathered over the minor dim first).  Backward: each rank's gradient
+    for the rows summed and this rank's own rows kept (reduce-scattered
+    over the major dim first)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        for g in reversed(groups):
+            out = x.new_empty((dist.get_world_size(g) * x.shape[0],)
+                              + tuple(x.shape[1:]))
+            dist.all_gather_into_tensor(out, x.contiguous(), group=g)
+            x = out
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        for g in ctx.groups:
+            part = grad.new_empty((grad.shape[0] // dist.get_world_size(g),)
+                                  + tuple(grad.shape[1:]))
+            dist.reduce_scatter_tensor(part, grad, group=g)
+            grad = part
+        return grad, None
+
+
+def gather_batch_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (this rank's rows along dim 0) with every batch rank's rows,
+    in the batch's order; its gradient goes back as the sum over the ranks
+    of their gradients for this rank's rows.  A DTensor on the ``model``
+    sub-mesh (whole along dim 0: the ``model`` ranks of a batch group hold
+    the same rows) gathers its local tensor and keeps its placements."""
+    groups = tuple(g for g in _ROWS if dist.get_world_size(g) > 1)
+    if not groups:
+        return x
+    if isinstance(x, DTensor):
+        return DTensor.from_local(_GatherRows.apply(x.to_local(), groups),
+                                  x.device_mesh, x.placements,
+                                  run_check=False)
+    return _GatherRows.apply(x, groups)
