@@ -8,8 +8,10 @@ contiguous run, gemm's replicating row walk), ``int8_matmul`` /
 ``bitplane_matmul`` (8 and 4 planes) at qwen2-0.5b's MLP shape (x 4096x896
 @ w 896x4864), each beside its PyTorch library call (the gather and the
 scatter also with their device time alone: calls queued behind a sleeping
-kernel), ``flash_attention_bwd`` at ``chip_smoke.py``'s training
-shapes (bf16 and fp32, device time), and the host cost of the flash route
+kernel), ``flash_attention`` at qwen2-0.5b's prefill and
+``chip_smoke.py``'s family shapes and ``flash_attention_bwd`` at its
+training shapes (bf16 and fp32, device time), and the host cost of the
+flash route
 (:func:`measure_flash_route`), for every source tree given, in the order
 given.  Each tree runs in a process of its own
 (both are the package ``repro_torch``) and builds its kernels into its own
@@ -44,6 +46,16 @@ FLASH_BWD_SHAPES = {"whisper_encoder": (4, 8, 8, 1500, 1500, 64, False),
                     "whisper_cross": (4, 8, 8, 384, 1500, 64, False),
                     "vision_cross": (4, 32, 8, 1024, 1024, 128, False),
                     "qwen2_causal": (4, 14, 2, 1024, 1024, 64, True)}
+# the flash forward's device time in bf16 and fp32: qwen2-0.5b's prefill
+# and chip_smoke.py::FAMILY_SHAPES, (B, H, Hkv, Sq, Sk, D, causal)
+FLASH_FWD_TIMED = {"qwen2_prefill": (4, 14, 2, 1024, 1024, 64, True),
+                   "vision_self": (4, 32, 8, 1024, 1024, 128, True),
+                   "vision_cross": (4, 32, 8, 1024, 1024, 128, False),
+                   "whisper_encoder": (4, 8, 8, 1500, 1500, 64, False),
+                   "whisper_self": (4, 8, 8, 384, 384, 64, True),
+                   "whisper_cross": (4, 8, 8, 384, 1500, 64, False),
+                   "vision_decode_cross": (4, 32, 8, 1, 1024, 128, False),
+                   "whisper_decode_cross": (4, 8, 8, 1, 1500, 64, False)}
 # qwen2-0.5b's flash forward at one query row (a decode step's) and at its
 # prefill; whisper-base's steps at chip_smoke.py's training cell
 FLASH_FWD_SHAPES = {"qwen2_decode": (4, 14, 2, 1, 1024, 64),
@@ -84,6 +96,27 @@ def device_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def measure_flash_fwd() -> dict:
+    """The flash forward's device time at ``FLASH_FWD_TIMED``, bf16 and
+    fp32."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for name, (b, h, hk, sq, sk, d, causal) in FLASH_FWD_TIMED.items():
+        for dtype, label in ((torch.bfloat16, "bf16"),
+                             (torch.float32, "fp32")):
+            q = torch.randn(b, h, sq, d, generator=gen, device="cuda"
+                            ).to(dtype)
+            k, v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda")
+                    .to(dtype) for _ in range(2))
+            out[f"flash_attention {name} {label} device"] = device_ms(
+                lambda: flash_attention(q, k, v, causal=causal), 20)
+    return out
 
 
 def measure_flash_bwd() -> dict:
@@ -210,8 +243,8 @@ def measure() -> dict:
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return {**measure_mve(gen), **measure_gemm(gen), **measure_flash_bwd(),
-            **measure_flash_route()}
+    return {**measure_mve(gen), **measure_gemm(gen), **measure_flash_fwd(),
+            **measure_flash_bwd(), **measure_flash_route()}
 
 
 def measure_mve(gen) -> dict:

@@ -53,7 +53,7 @@ non-zero:
    work; the gather at the ``transpose`` pattern's load walk and at a
    contiguous and a replicating walk, the scatter at the pattern's store
    walk and at one walk of each other route, the float32 flash kernel
-   beside the bf16 one (its bound at the fp32 CUDA-core peak), and each
+   beside the bf16 one (its bound at ``FP32_WORK_FLOPS``), and each
    of ``FAMILY_SHAPES`` in bf16 and fp32 beside
    ``scaled_dot_product_attention`` and its bound.  ``float_ops`` (the MVE
    float arithmetic and
@@ -207,9 +207,8 @@ non-zero:
    48 / 24, 48 / 24 and 24 / 24 flash launches a step; AdamW with int8
    moments from those gradients, its second update (dequantized and
    quantized moments) held against the same update on the CPU from the
-   same inputs (``q`` within one step, ``s`` within 1e-5 of its leaf's
-   largest scale).  A CUDA tensor reaching a plain flash version fails
-   the run.
+   same inputs: ``q`` and ``s`` bit-equal.  A CUDA tensor reaching a
+   plain flash version fails the run.
 5d. ``mesh`` — a 1-rank process group (``cpu:gloo,cuda:nccl``) and a
    ``(data 1, model 1)`` mesh on the card, whose ``model`` axis runs every
    ``constrain`` site of the models as a ``DTensor`` redistribution and
@@ -284,6 +283,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device-memory rate (data sheet)
 BF16_FLOPS = 989e12            # dense tensor-core peaks (data sheet)
 INT8_OPS = 1979e12
 FP32_FLOPS = 67e12             # float32 outside the tensor cores (data sheet)
+TF32_FLOPS = 495e12            # dense TF32 tensor cores (data sheet)
+# float32-accurate work: the lesser time of one product on the CUDA cores
+# and three TF32 products on the tensor cores (3xTF32), 165 TFLOP/s
+FP32_WORK_FLOPS = max(FP32_FLOPS, TF32_FLOPS / 3)
 KERNELS = {                    # name: (CUDA source, the TPU kernel replaced)
     "mdgather": ("mdgather", "src/repro/kernels/mdgather.py:33"),
     "mdscatter": ("mdscatter", "src/repro/kernels/mdscatter.py:24"),
@@ -322,18 +325,22 @@ def card_line() -> str:
 # the kernels that must run on the tensor cores (a substring of their
 # mangled names: bitplane_gemm_kernel<true> is int8_matmul's instance,
 # <false> bitplane_matmul's), and the SASS mnemonic of their matrix
-# instructions
+# instructions (the float32 flash kernels': HMMA.1688.F32.TF32)
 TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": "HMMA",
                        "flash_bwd_dkdv_mma_kernel": "HMMA",
                        "flash_bwd_dq_mma_kernel": "HMMA",
+                       "flash_fwd_tf32_kernel": "TF32",
+                       "flash_bwd_dkdv_tf32_kernel": "TF32",
+                       "flash_bwd_dq_tf32_kernel": "TF32",
                        "bitplane_gemm_kernelILb1E": "IMMA",
                        "bitplane_gemm_kernelILb0E": "IMMA"}
 
 
 def sass_mma_counts(build, libs) -> dict:
-    """HMMA / IMMA instructions per kernel in the built libraries' SASS
-    (``cuobjdump --dump-sass``, beside ``nvcc`` in the CUDA toolkit); fails
-    if a kernel of ``TENSOR_CORE_KERNELS`` has none of its mnemonic."""
+    """HMMA / IMMA instructions (and the TF32 ones among the HMMA) per
+    kernel in the built libraries' SASS (``cuobjdump --dump-sass``, beside
+    ``nvcc`` in the CUDA toolkit); fails if a kernel of
+    ``TENSOR_CORE_KERNELS`` has none of its mnemonic."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     counts = {}
     for path in libs.values():
@@ -343,6 +350,7 @@ def sass_mma_counts(build, libs) -> dict:
         for block in sass.split("Function : ")[1:]:
             fn = block.split(None, 1)[0]
             counts[fn] = {op: block.count(op) for op in ("HMMA", "IMMA")}
+            counts[fn]["TF32"] = block.count(".TF32")
     for kernel, op in TENSOR_CORE_KERNELS.items():
         mine = {fn: c for fn, c in counts.items() if kernel in fn}
         if not mine or not all(c[op] for c in mine.values()):
@@ -835,8 +843,9 @@ WRAP_SHAPE = (16, 131104, 16)       # 16384 * K > 2**31: int32 sums wrap
 def flash_bound(b, h, hk, sq, sk, d, elem, causal=True, peak=BF16_FLOPS):
     """Least time for one attention call: the larger of its operations (two
     products over the visible (q, k) pairs, at ``peak``: the bf16
-    tensor-core peak, or ``FP32_FLOPS`` for the float32 kernel, which runs
-    on the CUDA cores by design) and its bytes (q, k, v read once, o
+    tensor-core peak, or ``FP32_WORK_FLOPS`` for float32: three TF32
+    products on the tensor cores or one on the CUDA cores, the faster) and
+    its bytes (q, k, v read once, o
     written once; k/v have ``hk`` heads) over the memory rate."""
     rows = np.arange(sq) + (sk - sq)
     pairs = int(np.clip(rows + 1, 0, sk).sum()) if causal else sq * sk
@@ -966,8 +975,8 @@ def time_family_shapes(ref, flash_attention, gen) -> dict:
     """The flash kernel at each of ``FAMILY_SHAPES``: bf16 (``ms``, and
     ``device_ms`` queued behind a sleep, so the device's own time shows
     under a one-row call's host overhead) and float32, each beside
-    ``scaled_dot_product_attention`` with ``enable_gqa`` (timed only; in
-    bf16 back to back and, ``library_device_ms``, behind a sleep) and its
+    ``scaled_dot_product_attention`` with ``enable_gqa`` (timed only;
+    back to back and, ``library_device_ms``, behind a sleep) and its
     bound; the plain version in bf16."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
@@ -978,7 +987,7 @@ def time_family_shapes(ref, flash_attention, gen) -> dict:
         q16, k16, v16 = (x.bfloat16() for x in (q, k, v))
         bound, by = flash_bound(b, h, hk, sq, sk, d, 2, causal=causal)
         bound32, by32 = flash_bound(b, h, hk, sq, sk, d, 4, causal=causal,
-                                    peak=FP32_FLOPS)
+                                    peak=FP32_WORK_FLOPS)
         out[name] = dict(
             shape=f"q ({b}, {h}, {sq}, {d}), k/v ({b}, {hk}, {sk}, {d})",
             causal=causal,
@@ -995,8 +1004,12 @@ def time_family_shapes(ref, flash_attention, gen) -> dict:
                 q16, k16, v16, causal=causal), 5),
             ms_fp32=time_ms(lambda: flash_attention(q, k, v, causal=causal),
                             10),
+            device_ms_fp32=device_ms(lambda: flash_attention(
+                q, k, v, causal=causal), 10),
             library_ms_fp32=time_ms(lambda: sdpa(q, k, v, is_causal=causal,
                                                  enable_gqa=True), 10),
+            library_device_ms_fp32=device_ms(lambda: sdpa(
+                q, k, v, is_causal=causal, enable_gqa=True), 10),
             bound_ms_fp32=bound32, bound_by_fp32=by32)
     return out
 
@@ -1019,7 +1032,9 @@ def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
     rows = {"flash_attention": dict(
         ms=time_ms(lambda: flash_attention(q, k, v), 50),
         ms_fp32=time_ms(lambda: flash_attention(q32, k32, v32), 10),
-        bound_ms_fp32=flash_bound(b, h, hk, s, s, d, 4, peak=FP32_FLOPS)[0],
+        device_ms_fp32=device_ms(lambda: flash_attention(q32, k32, v32), 10),
+        bound_ms_fp32=flash_bound(b, h, hk, s, s, d, 4,
+                                  peak=FP32_WORK_FLOPS)[0],
         library_ms_fp32=time_ms(lambda: sdpa(q32, k32, v32, is_causal=True,
                                              enable_gqa=True), 10),
         ms_d128=time_ms(lambda: flash_attention(q128, k128, v128), 50),
@@ -1035,9 +1050,9 @@ def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
         bound_ms=bound, bound_by=by,
         cases=time_family_shapes(ref, flash_attention, gen),
         timed_at=f"bf16 q ({b}, {h}, {s}, {d}), k/v ({b}, {hk}, {s}, {d}), "
-                 "causal (ms, the tensor-core kernel); the same in float32 "
-                 "(ms_fp32, the CUDA-core kernel; its bound at the fp32 "
-                 "CUDA-core peak) and in bf16 at D = 128 (ms_d128); cases: "
+                 "causal (ms); the same in float32 (ms_fp32, 3xTF32; its "
+                 "bound at FP32_WORK_FLOPS) and in bf16 at D = 128 "
+                 "(ms_d128); cases: "
                  "the vlm and encdec FAMILY_SHAPES")}
     m, kk, n = MLP_SHAPE
     x, w = randint8((m, kk), gen), randint8((kk, n), gen)
@@ -1121,10 +1136,10 @@ def _bwd_inputs(shape, dtype, gen):
 def check_flash_bwd(ref, flash_attention_bwd):
     """The forward kernel's ``lse`` and the backward kernels' dq, dk, dv
     against the plain versions on the card, in fp32 and bf16, at
-    ``FLASH_BWD_SWEEP`` and ``TRAIN_SHAPES``; bf16 (the tensor-core
-    kernels) both ways of the GQA sum, in the dK/dV block and split over
-    blocks (``flash_attention.gqa_split`` forced each way; a shape whose
-    q heads do not share a kv head has one way).  Returns (cases, the
+    ``FLASH_BWD_SWEEP`` and ``TRAIN_SHAPES``; both ways of the GQA sum, in
+    the dK/dV block and split over blocks (``flash_attention.gqa_split``
+    forced each way; a shape whose q heads do not share a kv head has one
+    way).  Returns (cases, the
     largest |difference|, the largest |lse difference|, the split each
     case took unforced)."""
     from unittest import mock
@@ -1152,8 +1167,7 @@ def check_flash_bwd(ref, flash_attention_bwd):
             lse_err = float((lse - want_lse)[seen].abs().max())
             want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                causal=causal)
-            ways = ((None,) if dtype == torch.float32 or h == hk
-                    else (False, True))
+            ways = (None,) if h == hk else (False, True)
             for split in ways:
                 with mock.patch.object(
                         fa, "gqa_split",
@@ -1187,9 +1201,9 @@ def time_flash_bwd(ref, flash_attention_bwd) -> dict:
     ``enable_gqa`` on the same inputs (timed only; the port never calls
     it).  The row's own numbers are whisper-base's encoder, the largest
     call of the training path that runs the kernels.  Where q heads share
-    a kv head, bf16 is also timed with ``gqa_split`` forced each way
-    (``device_ms_in_block``, ``device_ms_split``): the evidence for the
-    wrapper's rule."""
+    a kv head, both types are also timed with ``gqa_split`` forced each
+    way (``device_ms_in_block``, ``device_ms_split``, ``device_ms_fp32_*``):
+    the evidence for the wrapper's rule."""
     from unittest import mock
 
     from repro_torch.kernels import flash_attention as fa
@@ -1204,9 +1218,12 @@ def time_flash_bwd(ref, flash_attention_bwd) -> dict:
                                                       gen)
         qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
         so = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
+        q32s, k32s, v32s = (x.detach().requires_grad_()
+                            for x in (q32, k32, v32))
+        so32 = sdpa(q32s, k32s, v32s, is_causal=causal, enable_gqa=True)
         bound, by = flash_bwd_bound(*shape[:6], 2, causal)
         bound32, by32 = flash_bwd_bound(*shape[:6], 4, causal,
-                                        peak=FP32_FLOPS)
+                                        peak=FP32_WORK_FLOPS)
         cases[name] = dict(
             shape=f"q ({b}, {h}, {sq}, {d}), k/v ({b}, {hk}, {sk}, {d})",
             causal=causal, gqa_split=fa.gqa_split(
@@ -1227,6 +1244,10 @@ def time_flash_bwd(ref, flash_attention_bwd) -> dict:
                 so, (qs, ks, vs), do, retain_graph=True), 10),
             ms_fp32=time_ms(lambda: flash_attention_bwd(
                 q32, k32, v32, o32, lse32, do32, causal=causal), 3),
+            device_ms_fp32=device_ms(lambda: flash_attention_bwd(
+                q32, k32, v32, o32, lse32, do32, causal=causal), 5),
+            library_ms_fp32=device_ms(lambda: torch.autograd.grad(
+                so32, (q32s, k32s, v32s), do32, retain_graph=True), 5),
             bound_ms_fp32=bound32, bound_by_fp32=by32)
         ways = () if h == hk else (("in_block", False), ("split", True))
         for way, split in ways:
@@ -1235,14 +1256,18 @@ def time_flash_bwd(ref, flash_attention_bwd) -> dict:
                 cases[name][f"device_ms_{way}"] = device_ms(
                     lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                                 causal=causal), 10)
-        del qs, ks, vs, so
+                cases[name][f"device_ms_fp32_{way}"] = device_ms(
+                    lambda: flash_attention_bwd(q32, k32, v32, o32, lse32,
+                                                do32, causal=causal), 5)
+        del qs, ks, vs, so, q32s, k32s, v32s, so32
     row = {key: cases["whisper_encoder"][key] for key in (
         "ms", "device_ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
     row.update(library="the backward of torch.nn.functional.scaled_dot_"
                        "product_attention (enable_gqa)", cases=cases,
                timed_at="bf16 whisper_encoder (ms); cases: TRAIN_SHAPES in "
-                        "bf16 and fp32 (ms_fp32, its bound at the fp32 "
-                        "CUDA-core peak)")
+                        "bf16 and fp32 (ms_fp32, device_ms_fp32: 3xTF32; "
+                        "its bound at FP32_WORK_FLOPS; library_ms_fp32: "
+                        "SDPA's fp32 backward)")
     return row
 
 
@@ -2946,10 +2971,6 @@ def drive_train_whisper(flash_attention, flash_attention_bwd) -> dict:
 # ids, by remat option: "full" and "dots" recompute each of the 24 layers'
 # attention in the backward, "none" keeps it
 REMAT_FLASH = {"full": (48, 24), "dots": (48, 24), "none": (24, 24)}
-# int8 moments on the card against the same update on the CPU from the
-# same inputs (tests/test_torch_mesh_train.py's tolerances): q within one
-# quantization step, s within INT8_S_TOL of the leaf's largest scale
-INT8_Q_STEPS, INT8_S_TOL = 1, 1e-5
 
 
 def _bits_differ(a: dict, b: dict) -> list:
@@ -3005,9 +3026,8 @@ def drive_train_options(flash_attention, flash_attention_bwd) -> dict:
     timed).  Then AdamW with int8 moments from those gradients: one update
     on the card from zero moments, and the next from its state on the card
     and on the CPU from the same inputs (parameters, state, gradients and
-    their norm): ``q`` within ``INT8_Q_STEPS``, ``s`` within
-    ``INT8_S_TOL`` of its leaf's largest scale; how many entries differ at
-    all is recorded."""
+    their norm): ``q`` and ``s`` bit-equal (both devices multiply by
+    float32(1/127), as the reference's compiled step does)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, make_train_batches
     from repro_torch.models import LM
@@ -3067,12 +3087,11 @@ def drive_train_options(flash_attention, flash_attention_bwd) -> dict:
     del params, p, state, grads
     gc.collect()
     torch.cuda.empty_cache()
-    if int8["q_max_steps"] > INT8_Q_STEPS or \
-            int8["s_max_rel_to_leaf_max"] > INT8_S_TOL:
+    if int8["q_entries_differing"] or int8["s_entries_differing"]:
         raise AssertionError(f"qwen2-0.5b int8 moments, card vs CPU: {int8}")
     return {"config": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "segment_ids": False, "remat": remat, "int8_update_2": int8,
-            "int8_tolerance": {"q_steps": INT8_Q_STEPS, "s": INT8_S_TOL}}
+            "int8_tolerance": "q and s bit-equal"}
 
 
 # ---------------------------------------------------------------------------
@@ -3944,11 +3963,17 @@ def main() -> int:
 
     def drive(path, needs, fn, *args):
         """Run one main path with every launch counter at 0 just before it
-        and read just after; each kernel in ``needs`` must have launched."""
+        and read just after (the flash wrappers' float32 launches also
+        as "<name> fp32"); each kernel in ``needs`` must have launched."""
         for w in wrappers.values():
             w.launches = 0
+            if hasattr(w, "launches_fp32"):
+                w.launches_fp32 = 0
         out = fn(*args)
         counts = {name: w.launches for name, w in wrappers.items()}
+        counts.update({f"{name} fp32": w.launches_fp32
+                       for name, w in wrappers.items()
+                       if hasattr(w, "launches_fp32")})
         for name in needs:
             if counts[name] <= 0:
                 raise AssertionError(f"the {path} path never launched {name}")
@@ -3961,16 +3986,19 @@ def main() -> int:
         _build.load(name)
     logs = {name: ptxas_usage((_build.BUILD_DIR / f"{name}.log").read_text())
             for name in libs}
-    bwd_usage = {kernel: check_no_spills(logs["flash_attention_bwd"], kernel)
-                 for kernel in ("flash_bwd_delta_kernel",
-                                "flash_bwd_dkdv_mma_kernel",
-                                "flash_bwd_gqa_sum_kernel",
-                                "flash_bwd_dq_mma_kernel",
-                                "flash_bwd_dkdv_kernel",
-                                "flash_bwd_dq_kernel")}
+    flash_usage = {kernel: check_no_spills(logs[source], kernel)
+                 for source, kernel in (
+                     ("flash_attention", "flash_fwd_mma_kernel"),
+                     ("flash_attention", "flash_fwd_tf32_kernel"),
+                     ("flash_attention_bwd", "flash_bwd_delta_kernel"),
+                     ("flash_attention_bwd", "flash_bwd_dkdv_mma_kernel"),
+                     ("flash_attention_bwd", "flash_bwd_gqa_sum_kernel"),
+                     ("flash_attention_bwd", "flash_bwd_dq_mma_kernel"),
+                     ("flash_attention_bwd", "flash_bwd_dkdv_tf32_kernel"),
+                     ("flash_attention_bwd", "flash_bwd_dq_tf32_kernel"))}
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(str(p.relative_to(ROOT)) for p in libs.values()),
-         ptxas=logs, flash_bwd_no_spills=bwd_usage,
+         ptxas=logs, flash_no_spills=flash_usage,
          sass_mma=sass_mma_counts(_build, libs))
 
     # ---- 3. kernels ------------------------------------------------------
@@ -4137,6 +4165,9 @@ def main() -> int:
         "bitplane_matmul": quant_counts["bitplane_matmul"]})
     for name in launches:                   # 4g runs all but the backward
         launches[name] += claims_counts[name]
+    fp32 = {name: sum(c[f"{name} fp32"] for c in (
+        lm_counts, fam_counts, train_counts, mesh_counts, dry_counts,
+        claims_counts)) for name in ("flash_attention", "flash_attention_bwd")}
 
     # ---- 7. result -------------------------------------------------------
     kernels = []
@@ -4147,6 +4178,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": worst[name], **t})
+        if name in fp32:
+            kernels[-1]["launches_fp32"] = fp32[name]
     emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,10 +19,12 @@
 //
 // Which dtype takes which kernel:
 //   bfloat16 -> flash_fwd_mma_kernel, on the tensor cores (mma.sync);
-//   float32  -> flash_fwd_simt_kernel, on the fp32 CUDA cores.  TF32 keeps
-//               about 10 mantissa bits, so a tensor-core product could not
-//               hold the fp32 comparison (3e-5); the fp32 path serves only
-//               the float32 decode-vs-prefill check, not bf16 serving.
+//   float32  -> flash_fwd_tf32_kernel, on the tensor cores too, each
+//               product as three TF32 ones (3xTF32, below).  One TF32
+//               product keeps about 10 mantissa bits and could not hold the
+//               fp32 comparison (3e-5); three do.  The fp32 path serves the
+//               float32 checks (decode against prefill, the flash checks,
+//               the runner's kernels section), not bf16 serving.
 //
 // flash_fwd_mma_kernel (FlashAttention-2 shape):
 //   grid   (ceil(Sq / 64), B * H), the q tiles in reverse so the longest
@@ -54,12 +56,34 @@
 //          tiles past the block's diagonal are skipped by the loop bound,
 //          and a warp skips a tile that lies wholly past its own rows.
 //   Needs 16-byte-aligned rows (base pointers and strides); the wrapper
-//   makes an operand that is not so contiguous before the launch.
+//   makes an operand that is not so contiguous before the launch (both
+//   dtypes).
 //
-// flash_fwd_simt_kernel (float32): one thread per q row (64 per block)
-// holding its fp32 accumulator, m and l in registers; q scaled in fp32 as
-// the TPU kernel does, rows padded to D + 4 floats; K/V tiles of 32 rows
-// converted to fp32 in shared memory and read as broadcasts.
+// flash_fwd_tf32_kernel (float32), the same shape: 64-row q tiles, 4 warps
+// of 16 rows, K/V tiles (64 rows; 32 at D = 128, so that two blocks fit an
+// SM) staged by cp.async in two stages, masks only on edge tiles, the
+// softmax over the fp32 C fragment with quad shuffles.  What differs:
+//   products  mma.sync m16n8k8 .tf32, three a k step: lo*hi, hi*lo, hi*hi,
+//             where hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi)
+//             (mma_sync.cuh); lo*lo, 2^-22 of the product, is left out.
+//             At the fp32 tolerances this is fp32 arithmetic
+//             (tests/test_torch_tf32_numerics.py emulates it);
+//   operands  ldmatrix moves 16-bit elements, so every fragment is loaded
+//             with 32-bit ld.shared from fp32 tiles padded to D + 4 floats
+//             (conflict-free for both load patterns) and split in
+//             registers where it is used; q stays in shared memory, scaled
+//             in fp32 before its split as the TPU kernel scales it (its hi
+//             and lo fragments in registers would spill at D = 128);
+//   P V       the C fragment of m16n8k8 is not its A fragment (columns 2t,
+//             2t + 1 where A wants t, t + 4): the k steps of P V are
+//             numbered so that they are (key 2t is k step t, key 2t + 1 k
+//             step t + 4; V's rows are read in the same order), P is split
+//             into hi and lo in registers, and no shuffle moves it;
+//   exp       expf, not exp2f of a rescaled logit, for fp32 accuracy.
+// Bound: the products at 3 x 495 TFLOP/s TF32 or 67 TFLOP/s on the CUDA
+// cores, whichever is faster (the TF32 route: 165 TFLOP/s of fp32 work;
+// qwen2-0.5b's prefill 7.5 GFLOP -> 45.6 us, over its 33.6 MB of fp32
+// bytes, 10.0 us).
 //
 // Both kernels also write the log-sum-exp of each row's scaled logits,
 // lse = m + log(l) in fp32 ((B, H, Sq), -inf on a row that saw no key),
@@ -302,130 +326,197 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
 
-#define FA_BQ 64            // q rows per block = threads per block
-#define FA_BK 32            // kv rows per shared-memory tile
+#define FT_ROWS 64                  // q rows per block
+#define FT_THREADS 128              // 4 warps x 16 q rows
+
+// kv rows per tile: 32 at D = 128 keeps its shared memory at 99 KB (two
+// blocks an SM)
+template <int D>
+__host__ __device__ constexpr int ft_kv_rows() { return D == 64 ? 64 : 32; }
 
 template <int D>
-constexpr size_t fa_smem_bytes() {
-    return (size_t)(FA_BQ * (D + 4) + 2 * FA_BK * D) * sizeof(float);
+constexpr size_t ft_smem_bytes() {  // q tile + two stages of k and v
+    return (size_t)(FT_ROWS + 4 * ft_kv_rows<D>()) * (D + 4) * sizeof(float);
 }
 
 template <int D>
-__global__ void __launch_bounds__(FA_BQ)
-flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+__global__ void __launch_bounds__(FT_THREADS)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
                       float* __restrict__ lse, FaShape s) {
-    extern __shared__ float4 fa_smem[];
-    constexpr int QS = D + 4;
-    float* q_s = reinterpret_cast<float*>(fa_smem);   // FA_BQ x QS
-    float* k_s = q_s + FA_BQ * QS;                     // FA_BK x D
-    float* v_s = k_s + FA_BK * D;                      // FA_BK x D
+    extern __shared__ float4 ft_smem[];
+    constexpr int LD = D + 4, BK = ft_kv_rows<D>(), TILE = BK * LD;
+    float* q_s = reinterpret_cast<float*>(ft_smem);     // FT_ROWS x LD
+    float* k_s = q_s + FT_ROWS * LD;                     // two stages
+    float* v_s = k_s + 2 * TILE;                         // two stages
 
-    const int t = threadIdx.x;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
     const long long bh = blockIdx.y;
-    const long long b = bh / s.heads;
-    const long long h = bh % s.heads;
+    const long long b = bh / s.heads, h = bh % s.heads;
     const long long hk = h / s.kv_group;
-    const long long q0 = (long long)blockIdx.x * FA_BQ;
+    const long long q0 = (long long)(gridDim.x - 1 - blockIdx.x) * FT_ROWS;
     const float* qb = q + b * s.q_sb + h * s.q_sh;
     const float* kb = k + b * s.k_sb + hk * s.k_sh;
     const float* vb = v + b * s.v_sb + hk * s.v_sh;
 
-    // the q tile, scaled in fp32 as the TPU kernel does; rows past Sq are 0
-    for (int i = t; i < FA_BQ * D; i += FA_BQ) {
-        const int r = i / D, c = i % D;
-        const long long row = q0 + r;
-        q_s[r * QS + c] = row < s.sq ? qb[row * s.q_ss + c] * s.scale : 0.f;
-    }
-
-    const long long nk = (s.sk + FA_BK - 1) / FA_BK;
+    const long long nk = (s.sk + BK - 1) / BK;
     long long upper = nk;
     if (s.causal) {
-        const long long last = q0 + FA_BQ - 1 + s.offset;
-        upper = last < 0 ? 0 : (last / FA_BK + 1 < nk ? last / FA_BK + 1 : nk);
+        const long long last =
+            (q0 + FT_ROWS < s.sq ? q0 + FT_ROWS : s.sq) - 1 + s.offset;
+        upper = last < 0 ? 0 : (last / BK + 1 < nk ? last / BK + 1 : nk);
     }
 
-    const long long qrow = q0 + t;
-    const long long qpos = qrow + s.offset;
-    const float4* q4 = reinterpret_cast<const float4*>(q_s + t * QS);
-    float acc[D];
+    // group 0: the q tile; group 1: kv tile 0
+    cp_async_rows_f32<FT_ROWS, D, FT_THREADS>(q_s, qb, s.q_ss, q0, s.sq, tid);
+    cp_async_commit();
+    if (upper > 0) {
+        cp_async_rows_f32<BK, D, FT_THREADS>(k_s, kb, s.k_ss, 0, s.sk, tid);
+        cp_async_rows_f32<BK, D, FT_THREADS>(v_s, vb, s.v_ss, 0, s.sk, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // q scaled in fp32, as the TPU kernel does, before its split
+    for (int i = tid; i < FT_ROWS * D; i += FT_THREADS)
+        q_s[(i / D) * LD + i % D] *= s.scale;
+    __syncthreads();
+
+    const long long qw0 = q0 + warp * 16;       // the warp's first q row
+    const long long pos0 = qw0 + g + s.offset;  // causal position, row g
+    const float* q_w = q_s + (warp * 16 + g) * LD + t;
+    float o[D / 8][4];
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = 0.f;
-    float m = FA_NEG_INF, l = 0.f;
+    for (int n = 0; n < D / 8; ++n)
+        o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
 
     for (long long j = 0; j < upper; ++j) {
-        const long long k0 = j * FA_BK;
-        __syncthreads();          // q tile staged / previous kv tile consumed
-        for (int i = t; i < FA_BK * D; i += FA_BQ) {
-            const int r = i / D, c = i % D;
-            const long long key = k0 + r;
-            const bool in = key < s.sk;
-            k_s[i] = in ? kb[key * s.k_ss + c] : 0.f;
-            v_s[i] = in ? vb[key * s.v_ss + c] : 0.f;
+        const int st = (int)(j & 1);
+        if (j + 1 < upper) {
+            const long long next = (j + 1) * BK;
+            cp_async_rows_f32<BK, D, FT_THREADS>(k_s + (st ^ 1) * TILE, kb,
+                                                 s.k_ss, next, s.sk, tid);
+            cp_async_rows_f32<BK, D, FT_THREADS>(v_s + (st ^ 1) * TILE, vb,
+                                                 s.v_ss, next, s.sk, tid);
         }
+        cp_async_commit();
+        cp_async_wait<1>();                     // tile j has landed
         __syncthreads();
 
-        // logits of this row against the tile's keys
-        float sc[FA_BK];
+        const long long k0 = j * BK;
+        if (!s.causal || k0 <= qw0 + 15 + s.offset) {
+            // S = Q K^T for the warp's 16 rows x BK keys
+            float sc[BK / 8][4];
 #pragma unroll
-        for (int kk = 0; kk < FA_BK; ++kk) sc[kk] = 0.f;
-#pragma unroll 4
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-            const float4 qd = q4[d4];
+            for (int n = 0; n < BK / 8; ++n)
+                sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+            const float* k_t = k_s + st * TILE + g * LD + t;
 #pragma unroll
-            for (int kk = 0; kk < FA_BK; ++kk) {
-                const float4 kd =
-                    reinterpret_cast<const float4*>(k_s + kk * D)[d4];
-                sc[kk] += qd.x * kd.x + qd.y * kd.y + qd.z * kd.z +
-                          qd.w * kd.w;
+            for (int kk = 0; kk < D / 8; ++kk) {
+                uint32_t ah[4], al[4];
+                tf32_a_frag<LD>(ah, al, q_w + kk * 8);
+#pragma unroll
+                for (int n = 0; n < BK / 8; ++n) {
+                    uint32_t bh0, bh1, bl0, bl1;
+                    tf32_b_frag_rows(bh0, bh1, bl0, bl1,
+                                     k_t + n * 8 * LD + kk * 8);
+                    mma_3xtf32(sc[n], ah, al, bh0, bh1, bl0, bl1);
+                }
             }
-        }
 
-        // mask (padded kv rows always; the causal diagonal), online softmax
-        float tile_max = FA_NEG_INF;
+            // mask where the tile crosses the diagonal or Sk
+            const bool edge = (s.causal && k0 + BK - 1 > qw0 + s.offset)
+                              || k0 + BK > s.sk;
+            float tmax[2] = {FA_NEG_INF, FA_NEG_INF};
 #pragma unroll
-        for (int kk = 0; kk < FA_BK; ++kk) {
-            const long long key = k0 + kk;
-            const bool valid = key < s.sk && (!s.causal || qpos >= key);
-            sc[kk] = valid ? sc[kk] : FA_NEG_INF;
-            tile_max = fmaxf(tile_max, sc[kk]);
-        }
-        const float m_new = fmaxf(m, tile_max);
-        const float alpha = expf(m - m_new);
-        float psum = 0.f;
+            for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-        for (int kk = 0; kk < FA_BK; ++kk) {
-            sc[kk] = sc[kk] > FA_NEG_INF / 2 ? expf(sc[kk] - m_new) : 0.f;
-            psum += sc[kk];
-        }
-        l = l * alpha + psum;
+                for (int e = 0; e < 4; ++e) {
+                    float x = sc[n][e];
+                    if (edge) {
+                        const long long key = k0 + n * 8 + 2 * t + (e & 1);
+                        const long long pos = pos0 + (e >> 1) * 8;
+                        const bool valid =
+                            key < s.sk && (!s.causal || pos >= key);
+                        x = valid ? x : FA_NEG_INF;
+                    }
+                    sc[n][e] = x;
+                    tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+                }
+            }
+            float alpha[2];
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] *= alpha;
+            for (int i = 0; i < 2; ++i) {
+                tmax[i] = fmaxf(tmax[i],
+                                __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+                tmax[i] = fmaxf(tmax[i],
+                                __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+                const float m_new = fmaxf(m[i], tmax[i]);
+                alpha[i] = expf(m[i] - m_new);
+                m[i] = m_new;
+                l[i] *= alpha[i];
+            }
 #pragma unroll
-        for (int kk = 0; kk < FA_BK; ++kk) {
-            const float p = sc[kk];
-            const float4* v4 = reinterpret_cast<const float4*>(v_s + kk * D);
+            for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-            for (int d4 = 0; d4 < D / 4; ++d4) {
-                const float4 vd = v4[d4];
-                acc[4 * d4 + 0] += p * vd.x;
-                acc[4 * d4 + 1] += p * vd.y;
-                acc[4 * d4 + 2] += p * vd.z;
-                acc[4 * d4 + 3] += p * vd.w;
+                for (int e = 0; e < 4; ++e) {
+                    const float x = sc[n][e];
+                    const float p =
+                        x > FA_NEG_INF / 2 ? expf(x - m[e >> 1]) : 0.f;
+                    sc[n][e] = p;
+                    l[e >> 1] += p;
+                }
+            }
+#pragma unroll
+            for (int n = 0; n < D / 8; ++n) {
+                o[n][0] *= alpha[0];
+                o[n][1] *= alpha[0];
+                o[n][2] *= alpha[1];
+                o[n][3] *= alpha[1];
+            }
+
+            // O += P V: P split from the C fragment in the permuted k
+            // order (mma_sync.cuh), V's rows 2t, 2t + 1 of each 8
+            const float* v_t = v_s + st * TILE + 2 * t * LD + g;
+#pragma unroll
+            for (int kk = 0; kk < BK / 8; ++kk) {
+                uint32_t ph[4], pl[4];
+                tf32_a_from_c(ph, pl, sc[kk]);
+#pragma unroll
+                for (int dn = 0; dn < D / 8; ++dn) {
+                    uint32_t bh0, bh1, bl0, bl1;
+                    tf32_b_frag_perm<LD>(bh0, bh1, bl0, bl1,
+                                         v_t + kk * 8 * LD + dn * 8);
+                    mma_3xtf32(o[dn], ph, pl, bh0, bh1, bl0, bl1);
+                }
             }
         }
-        m = m_new;
+        __syncthreads();             // stage st is free for tile j + 2
     }
 
-    if (qrow < s.sq) {
-        if (lse != nullptr) lse[bh * s.sq + qrow] = fa_lse(m, l);
-        const float lf = l == 0.f ? 1.f : l;       // rows that saw no key
-        float* o = out + (bh * s.sq + qrow) * D;
 #pragma unroll
-        for (int d = 0; d < D; ++d) o[d] = acc[d] / lf;
+    for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        const long long row = qw0 + g + 8 * i;
+        if (lse != nullptr && t == 0 && row < s.sq)
+            lse[bh * s.sq + row] = fa_lse(m[i], l[i]);
+        if (l[i] == 0.f) l[i] = 1.f;            // rows that saw no key
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const long long row = qw0 + g + 8 * i;
+        if (row >= s.sq) continue;
+        float* orow = out + (bh * s.sq + row) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<float2*>(orow + n * 8) =
+                make_float2(o[n][2 * i] / l[i], o[n][2 * i + 1] / l[i]);
     }
 }
 
@@ -450,8 +541,8 @@ static int launch(Kernel kernel, size_t smem, int rows, int threads,
 // q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D), each given by element strides of
 // its first three dimensions (the last is dense); out: (B, H, Sq, D)
 // contiguous, of q's type; lse: (B, H, Sq) fp32 contiguous, or null to
-// skip it.  dtype 0 = float32, 1 = bfloat16 (whose base
-// pointers and strides must be 16-byte aligned); head_dim 64 or 128.  The
+// skip it.  dtype 0 = float32, 1 = bfloat16 (base pointers and strides
+// 16-byte aligned in both: cp.async); head_dim 64 or 128.  The
 // caller guarantees B*H, Sq > 0 and H % Hkv == 0.  Returns the CUDA error
 // code of the first failing call (0 = success), or -1 for a type or head
 // dimension no kernel is instantiated for.
@@ -477,11 +568,11 @@ extern "C" int flash_attention_launch(
     cudaStream_t st = (cudaStream_t)stream;
     float* l = (float*)lse;
     if (dtype == 0 && head_dim == 64)
-        return launch<float>(flash_fwd_simt_kernel<64>, fa_smem_bytes<64>(),
-                             FA_BQ, FA_BQ, q, k, v, out, l, s, bh, st);
+        return launch<float>(flash_fwd_tf32_kernel<64>, ft_smem_bytes<64>(),
+                             FT_ROWS, FT_THREADS, q, k, v, out, l, s, bh, st);
     if (dtype == 0 && head_dim == 128)
-        return launch<float>(flash_fwd_simt_kernel<128>, fa_smem_bytes<128>(),
-                             FA_BQ, FA_BQ, q, k, v, out, l, s, bh, st);
+        return launch<float>(flash_fwd_tf32_kernel<128>, ft_smem_bytes<128>(),
+                             FT_ROWS, FT_THREADS, q, k, v, out, l, s, bh, st);
     if (dtype == 1 && head_dim == 64)
         return launch<__nv_bfloat16>(flash_fwd_mma_kernel<64>,
                                      fm_smem_bytes<64>(), FM_ROWS, FM_THREADS,

@@ -62,39 +62,46 @@
 // allocates; flash_bwd_gqa_sum_kernel then sums them: one launch more,
 // 2 * 4 * B * H * Sk * D bytes more (29 MB at qwen2, about 9 us).
 //
-// float32, on the fp32 CUDA cores (TF32 keeps about 10 mantissa bits, too
-// few for the fp32 comparison, 1e-4):
-//   flash_bwd_delta_kernel  as above;
-//   flash_bwd_dkdv_kernel   one block per (batch, kv head, 64-row K tile),
-//        the G q heads summed inside; a thread owns 32 of a row's D
-//        columns (the float4 chunks c * D/32 + part), so a row is D/32
-//        threads that sum their partial dot products with __shfl_xor_sync,
-//        and keeps its K, V columns and dK, dV sums in registers; q and dO
-//        tiles of 32 rows sit in shared memory in fp32;
-//   flash_bwd_dq_kernel     one block per (batch, q head, 64-row q tile),
-//        over K and V tiles of 32 rows in shared memory.
+// float32, on the tensor cores too, each product as three TF32 ones
+// (3xTF32: lo*hi, hi*lo, hi*hi of mma.sync m16n8k8, hi and lo split by
+// cvt.rna.tf32.f32, as flash_attention.cu's flash_fwd_tf32_kernel; one
+// TF32 product, about 10 mantissa bits, could not hold the fp32
+// comparison, 1e-4):
+//   flash_bwd_delta_kernel      as above;
+//   flash_bwd_dkdv_tf32_kernel  flash_bwd_dkdv_mma_kernel's design on fp32
+//        tiles padded to D + 4 floats, every fragment loaded with 32-bit
+//        ld.shared (ldmatrix moves 16-bit elements) and split where it is
+//        used; P^T and dS^T stay in fp32 and are split from the C fragment
+//        into the A fragment of dV += P^T dO and dK += dS^T Q in the
+//        permuted k order of mma_sync.cuh (q rows 2t, 2t + 1 of each 8 are
+//        k steps t, t + 4; dO and Q read in that order), so no shuffle
+//        moves them; q rows 32 at a time; at D = 128, where dK and dV
+//        together would hold 128 fp32 registers a thread and spill, dV
+//        and dK are two launches (S^T computed in both); the same GQA sum,
+//        in the block or split (flash_bwd_gqa_sum_kernel<float>);
+//   flash_bwd_dq_tf32_kernel    flash_bwd_dq_mma_kernel's design likewise,
+//        K/V tiles of 64 rows (32 at D = 128).
+//   Shared memory: dK/dV six padded fp32 tiles of 64 rows (105 KB at D =
+//   64, 204 KB at D = 128), dQ two of 64 rows and four of the K/V tile
+//   (104 KB, 135 KB).  Sums in fp32 and expf, as the plain version.
 //
 // Every kernel sums in a fixed order with no atomics, so a training step
 // is deterministic; dQ has its own kernel that recomputes S and dP.
 //
 // Bound on this card: the five 2 * D products per visible (q, k) pair
-// (S and dP, dV, dK, dQ: 10 * D operations) at the bf16 tensor-core peak,
-// against q, k, v, o, dO, lse read once and dq, dk, dv written once;
-// operations lead at the training shapes (whisper's encoder, 4 x 8 x 1500
-// x 64: 46 GFLOP -> 47 us at 989 TFLOP/s, 31 MB -> 9 us).  The kernels
-// here compute S and dP in both the dK/dV and the dQ kernel: 14 * D
-// operations a pair, 1.4 times the bound's.  Their times are in PERF.md.
+// (S and dP, dV, dK, dQ: 10 * D operations) at the bf16 tensor-core peak
+// (fp32: 3 x 495 TFLOP/s TF32 or 67 TFLOP/s on the CUDA cores, whichever
+// is faster: 165 TFLOP/s of fp32 work), against q, k, v, o, dO, lse read
+// once and dq, dk, dv written once; operations lead at the training
+// shapes (whisper's encoder, 4 x 8 x 1500 x 64: 46 GFLOP -> 47 us at 989
+// TFLOP/s, 31 MB -> 9 us; in fp32 0.28 ms).  The kernels here compute S
+// and dP in both the dK/dV and the dQ kernel: 14 * D operations a pair,
+// 1.4 times the bound's.  Their times are in PERF.md.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_sync.cuh"
-
-#define FB_COLS 32          // columns of a row held by one thread
-#define FB_KROWS 64         // K rows per dK/dV block (one per thread group)
-#define FB_QTILE 32         // q rows per shared tile of the dK/dV kernel
-#define FB_QROWS 64         // q rows per dQ block
-#define FB_KTILE 32         // K rows per shared tile of the dQ kernel
 
 struct FbShape {
     long long heads, kv_heads, kv_group;    // H, Hkv, H / Hkv
@@ -110,52 +117,6 @@ struct FbShape {
 __device__ __forceinline__ float fb_load(const float* p) { return *p; }
 __device__ __forceinline__ float fb_load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
-}
-__device__ __forceinline__ void fb_store(float* p, float x) { *p = x; }
-
-// the column of a thread's e-th element: float4 chunk (e / 4) * parts + part
-template <int D>
-__device__ __forceinline__ int fb_col(int e, int part) {
-    return ((e >> 2) * (D / FB_COLS) + part) * 4 + (e & 3);
-}
-
-// the sum of a partial dot product over the D / 32 lanes of one row
-template <int D>
-__device__ __forceinline__ float fb_row_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    if (D / FB_COLS == 4) x += __shfl_xor_sync(0xffffffffu, x, 2);
-    return x;
-}
-
-// partial dot products of one shared-memory row (fp32, read as float4)
-// with the thread's 32 columns a[] and b[] of two other rows
-template <int D>
-__device__ __forceinline__ float fb_dot(const float* row, const float* a,
-                                        int part) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < FB_COLS / 4; ++c) {
-        const float4 x = r4[c * (D / FB_COLS) + part];
-        acc += x.x * a[4 * c] + x.y * a[4 * c + 1] + x.z * a[4 * c + 2] +
-               x.w * a[4 * c + 3];
-    }
-    return acc;
-}
-
-// acc[] += w * the thread's 32 columns of a shared-memory row
-template <int D>
-__device__ __forceinline__ void fb_axpy(float* acc, float w, const float* row,
-                                        int part) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-    for (int c = 0; c < FB_COLS / 4; ++c) {
-        const float4 x = r4[c * (D / FB_COLS) + part];
-        acc[4 * c] += w * x.x;
-        acc[4 * c + 1] += w * x.y;
-        acc[4 * c + 2] += w * x.z;
-        acc[4 * c + 3] += w * x.w;
-    }
 }
 
 // D = rowsum(dO * O) for each of the B * H * Sq rows, one warp a row
@@ -178,167 +139,6 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     for (int off = 16; off; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (lane == 0) delta[r] = acc;
-}
-
-template <int D>
-__global__ void __launch_bounds__(FB_KROWS * (D / FB_COLS))
-flash_bwd_dkdv_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, FbShape s) {
-    constexpr int P = D / FB_COLS, THREADS = FB_KROWS * P;
-    __shared__ __align__(16) float q_s[FB_QTILE * D];
-    __shared__ __align__(16) float do_s[FB_QTILE * D];
-    __shared__ float lse_s[FB_QTILE], dl_s[FB_QTILE];
-
-    const int tid = threadIdx.x, part = tid % P;
-    const long long bk = blockIdx.y;                 // b * Hkv + kv head
-    const long long b = bk / s.kv_heads, hk = bk % s.kv_heads;
-    const long long k0 = (long long)blockIdx.x * FB_KROWS;
-    const long long key = k0 + tid / P;
-    const bool key_in = key < s.sk;
-
-    float kr[FB_COLS], vr[FB_COLS], dkr[FB_COLS], dvr[FB_COLS];
-    const long long kr0 = key_in ? key : 0;
-    const float* krow = k + b * s.k_sb + hk * s.k_sh + kr0 * s.k_ss;
-    const float* vrow = v + b * s.v_sb + hk * s.v_sh + kr0 * s.v_ss;
-#pragma unroll
-    for (int e = 0; e < FB_COLS; ++e) {
-        const int c = fb_col<D>(e, part);
-        kr[e] = key_in ? fb_load(krow + c) : 0.f;
-        vr[e] = key_in ? fb_load(vrow + c) : 0.f;
-        dkr[e] = dvr[e] = 0.f;
-    }
-
-    // the first q tile with a row that sees key k0
-    long long i_first = 0;
-    if (s.causal && k0 - s.offset > 0)
-        i_first = (k0 - s.offset) / FB_QTILE * FB_QTILE;
-
-    for (long long gi = 0; gi < s.kv_group; ++gi) {
-        const long long h = hk * s.kv_group + gi;
-        const long long bh = b * s.heads + h;
-        const float* qb = q + b * s.q_sb + h * s.q_sh;
-        const float* db = dout + b * s.do_sb + h * s.do_sh;
-        for (long long i0 = i_first; i0 < s.sq; i0 += FB_QTILE) {
-            __syncthreads();                     // the last tile is consumed
-            for (int idx = tid; idx < FB_QTILE * D; idx += THREADS) {
-                const long long i = i0 + idx / D;
-                const int c = idx % D;
-                const bool in = i < s.sq;
-                q_s[idx] = in ? fb_load(qb + i * s.q_ss + c) : 0.f;
-                do_s[idx] = in ? fb_load(db + i * s.do_ss + c) : 0.f;
-            }
-            if (tid < FB_QTILE) {
-                const long long i = i0 + tid;
-                lse_s[tid] = i < s.sq ? lse[bh * s.sq + i] : 0.f;
-                dl_s[tid] = i < s.sq ? delta[bh * s.sq + i] : 0.f;
-            }
-            __syncthreads();
-            const int rows = (int)(s.sq - i0 < FB_QTILE ? s.sq - i0
-                                                        : FB_QTILE);
-            for (int r = 0; r < rows; ++r) {
-                const float* qrow = q_s + r * D;
-                const float* drow = do_s + r * D;
-                const float sc = fb_row_sum<D>(fb_dot<D>(qrow, kr, part));
-                const float dp = fb_row_sum<D>(fb_dot<D>(drow, vr, part));
-                const bool valid =
-                    key_in && (!s.causal || i0 + r + s.offset >= key);
-                const float p = valid ? expf(sc * s.scale - lse_s[r]) : 0.f;
-                const float ds = p * (dp - dl_s[r]);
-                fb_axpy<D>(dvr, p, drow, part);
-                fb_axpy<D>(dkr, ds, qrow, part);
-            }
-        }
-    }
-
-    if (!key_in) return;
-    float* dkrow = dk + (bk * s.sk + key) * D;
-    float* dvrow = dv + (bk * s.sk + key) * D;
-#pragma unroll
-    for (int e = 0; e < FB_COLS; ++e) {
-        const int c = fb_col<D>(e, part);
-        fb_store(dkrow + c, dkr[e] * s.scale);
-        fb_store(dvrow + c, dvr[e]);
-    }
-}
-
-template <int D>
-__global__ void __launch_bounds__(FB_QROWS * (D / FB_COLS))
-flash_bwd_dq_kernel(const float* __restrict__ q,
-                    const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    FbShape s) {
-    constexpr int P = D / FB_COLS, THREADS = FB_QROWS * P;
-    __shared__ __align__(16) float k_s[FB_KTILE * D];
-    __shared__ __align__(16) float v_s[FB_KTILE * D];
-
-    const int tid = threadIdx.x, part = tid % P;
-    const long long bh = blockIdx.y;                 // b * H + q head
-    const long long b = bh / s.heads, h = bh % s.heads;
-    const long long hk = h / s.kv_group;
-    const long long q0 = (long long)blockIdx.x * FB_QROWS;
-    const long long i = q0 + tid / P;
-    const bool row_in = i < s.sq;
-
-    float qr[FB_COLS], dr[FB_COLS], dqr[FB_COLS];
-    const float* qrow =
-        q + b * s.q_sb + h * s.q_sh + (row_in ? i : 0) * s.q_ss;
-    const float* drow =
-        dout + b * s.do_sb + h * s.do_sh + (row_in ? i : 0) * s.do_ss;
-#pragma unroll
-    for (int e = 0; e < FB_COLS; ++e) {
-        const int c = fb_col<D>(e, part);
-        qr[e] = row_in ? fb_load(qrow + c) : 0.f;
-        dr[e] = row_in ? fb_load(drow + c) : 0.f;
-        dqr[e] = 0.f;
-    }
-    const float lse_i = row_in ? lse[bh * s.sq + i] : 0.f;
-    const float delta_i = row_in ? delta[bh * s.sq + i] : 0.f;
-    const float* kb = k + b * s.k_sb + hk * s.k_sh;
-    const float* vb = v + b * s.v_sb + hk * s.v_sh;
-
-    const long long nk = (s.sk + FB_KTILE - 1) / FB_KTILE;
-    long long upper = nk;
-    if (s.causal) {
-        const long long last = (q0 + FB_QROWS < s.sq ? q0 + FB_QROWS : s.sq)
-                               - 1 + s.offset;
-        upper = last < 0 ? 0 : (last / FB_KTILE + 1 < nk ? last / FB_KTILE + 1
-                                                         : nk);
-    }
-    for (long long j = 0; j < upper; ++j) {
-        const long long k0 = j * FB_KTILE;
-        __syncthreads();                         // the last tile is consumed
-        for (int idx = tid; idx < FB_KTILE * D; idx += THREADS) {
-            const long long key = k0 + idx / D;
-            const int c = idx % D;
-            const bool in = key < s.sk;
-            k_s[idx] = in ? fb_load(kb + key * s.k_ss + c) : 0.f;
-            v_s[idx] = in ? fb_load(vb + key * s.v_ss + c) : 0.f;
-        }
-        __syncthreads();
-        const int rows = (int)(s.sk - k0 < FB_KTILE ? s.sk - k0 : FB_KTILE);
-        for (int r = 0; r < rows; ++r) {
-            const float* krow = k_s + r * D;
-            const float sc = fb_row_sum<D>(fb_dot<D>(krow, qr, part));
-            const float dp = fb_row_sum<D>(fb_dot<D>(v_s + r * D, dr, part));
-            const bool valid = row_in && (!s.causal || i + s.offset >= k0 + r);
-            const float p = valid ? expf(sc * s.scale - lse_i) : 0.f;
-            fb_axpy<D>(dqr, p * (dp - delta_i), krow, part);
-        }
-    }
-
-    if (!row_in) return;
-    float* dqrow = dq + (bh * s.sq + i) * D;
-#pragma unroll
-    for (int e = 0; e < FB_COLS; ++e)
-        fb_store(dqrow + fb_col<D>(e, part), dqr[e] * s.scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -567,10 +367,12 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
 
 // The GQA split's sum: dk, dv (B, Hkv, Sk, D) = the sum over each kv head's
 // G q heads of part (2, B, H, Sk, D) fp32 (dK partials, then dV), in head
-// order, rounded to bf16.  One thread per 4 neighbouring elements.
+// order, in the inputs' type (bf16 rounds once).  One thread per 4
+// neighbouring elements.
+template <typename TO>
 __global__ void __launch_bounds__(256)
-flash_bwd_gqa_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, long long kv_rows,
+flash_bwd_gqa_sum_kernel(const float* __restrict__ part, TO* __restrict__ dk,
+                         TO* __restrict__ dv, long long kv_rows,
                          long long group, long long row_elems) {
     const long long n4 = kv_rows * row_elems / 4;    // per output
     long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
@@ -590,7 +392,7 @@ flash_bwd_gqa_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
         acc.z += x.z;
         acc.w += x.w;
     }
-    bf16* dst = (which ? dv : dk) + e;
+    TO* dst = (which ? dv : dk) + e;
     fbm_store2(dst, acc.x, acc.y);
     fbm_store2(dst + 2, acc.z, acc.w);
 }
@@ -750,6 +552,375 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// float32: tensor cores, 3xTF32
+// ---------------------------------------------------------------------------
+
+// K/V rows a staged tile of the dQ kernel
+template <int D>
+__host__ __device__ constexpr int ftb_kv_rows() { return D == 64 ? 64 : 32; }
+
+// What a dK/dV launch accumulates: both (D = 64), or one each in two
+// launches (D = 128, where dK and dV together hold 128 fp32 registers a
+// thread and spill; the dV launch computes S^T alone, the dK launch S^T
+// and dP^T again)
+enum { FTB_DK = 1, FTB_DV = 2, FTB_BOTH = 3 };
+
+template <int D>
+constexpr size_t ftb_dkdv_smem_bytes() {  // K, V + two stages of q, dO
+    return (size_t)6 * FBM_ROWS * (D + 4) * sizeof(float) +
+           (size_t)4 * FBM_ROWS * sizeof(float);
+}
+
+template <int D>
+constexpr size_t ftb_dq_smem_bytes() {    // q, dO + two stages of K, V
+    return (size_t)(2 * FBM_ROWS + 4 * ftb_kv_rows<D>()) * (D + 4) *
+           sizeof(float);
+}
+
+// dK and / or dV (WHAT) of one 64-row K tile in float32, as
+// flash_bwd_dkdv_mma_kernel: SPLIT = false sums the G q heads of kv head
+// blockIdx.y % Hkv and writes dk, dv (B, Hkv, Sk, D); SPLIT = true takes q
+// head blockIdx.y % H alone and writes its partials to dk, dv (B, H, Sk,
+// D).
+template <int D, bool SPLIT, int WHAT>
+__global__ void __launch_bounds__(FBM_THREADS)
+flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           FbShape s) {
+    extern __shared__ float4 ftb_smem[];
+    constexpr int LD = D + 4, TILE = FBM_ROWS * LD, QC = 32;
+    constexpr bool DK = WHAT & FTB_DK, DV = WHAT & FTB_DV;
+    float* k_s = reinterpret_cast<float*>(ftb_smem);
+    float* v_s = k_s + TILE;
+    float* q_s = v_s + TILE;                     // two stages
+    float* do_s = q_s + 2 * TILE;                // two stages
+    float* lse_s = do_s + 2 * TILE;              // two stages
+    float* dl_s = lse_s + 2 * FBM_ROWS;          // two stages
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const long long out_heads = SPLIT ? s.heads : s.kv_heads;
+    const long long b = blockIdx.y / out_heads, oh = blockIdx.y % out_heads;
+    const long long hk = SPLIT ? oh / s.kv_group : oh;
+    const long long h_first = SPLIT ? oh : oh * s.kv_group;
+    const long long n_heads = SPLIT ? 1 : s.kv_group;
+    const long long k0 = (long long)blockIdx.x * FBM_ROWS;
+    const long long kw0 = k0 + warp * 16;       // the warp's first key
+
+    long long i_first = 0;
+    if (s.causal && k0 - s.offset > 0)
+        i_first = (k0 - s.offset) / FBM_ROWS * FBM_ROWS;
+    const long long n_tiles = (s.sq - i_first + FBM_ROWS - 1) / FBM_ROWS;
+    const long long steps = n_heads * n_tiles;
+
+    // step j: q head h_first + j / n_tiles, q tile i_first + 64 (j % n_tiles)
+    auto stage = [&](long long j, int st) {
+        const long long h = h_first + j / n_tiles;
+        const long long i0 = i_first + (j % n_tiles) * FBM_ROWS;
+        cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
+            q_s + st * TILE, q + b * s.q_sb + h * s.q_sh, s.q_ss, i0, s.sq,
+            tid);
+        cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
+            do_s + st * TILE, dout + b * s.do_sb + h * s.do_sh, s.do_ss, i0,
+            s.sq, tid);
+        if (tid < FBM_ROWS) {
+            const long long i = i0 + tid;
+            const long long row = (b * s.heads + h) * s.sq + i;
+            lse_s[st * FBM_ROWS + tid] = i < s.sq ? lse[row] : 0.f;
+            dl_s[st * FBM_ROWS + tid] = i < s.sq ? delta[row] : 0.f;
+        }
+    };
+
+    // group 0: the K and V tiles and step 0's q and dO
+    cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
+        k_s, k + b * s.k_sb + hk * s.k_sh, s.k_ss, k0, s.sk, tid);
+    cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
+        v_s, v + b * s.v_sb + hk * s.v_sh, s.v_ss, k0, s.sk, tid);
+    stage(0, 0);
+    cp_async_commit();
+
+    // the warp's 16 keys are the A operand of S^T = K Q^T, dP^T = V dO^T
+    const float* k_w = k_s + (warp * 16 + g) * LD + t;
+    const float* v_w = v_s + (warp * 16 + g) * LD + t;
+
+    float dka[DK ? D / 8 : 1][4], dva[DV ? D / 8 : 1][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            if constexpr (DK) dka[n][e] = 0.f;
+            if constexpr (DV) dva[n][e] = 0.f;
+        }
+
+    for (long long j = 0; j < steps; ++j) {
+        const int st = (int)(j & 1);
+        if (j + 1 < steps) stage(j + 1, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();                     // step j has landed
+        __syncthreads();
+
+        const long long i0 = i_first + (j % n_tiles) * FBM_ROWS;
+        if (!s.causal || i0 + FBM_ROWS - 1 + s.offset >= kw0) {
+            const bool edge = (s.causal && i0 + s.offset < kw0 + 15) ||
+                              i0 + FBM_ROWS > s.sq || kw0 + 16 > s.sk;
+            const float* lse_t = lse_s + st * FBM_ROWS;
+            const float* dl_t = dl_s + st * FBM_ROWS;
+            const float* q_t = q_s + st * TILE;
+            const float* do_t = do_s + st * TILE;
+#pragma unroll
+            for (int qc = 0; qc < FBM_ROWS; qc += QC) {
+                // S^T = K Q^T, dP^T = V dO^T: 16 keys x QC q rows
+                float sc[QC / 8][4], dp[DK ? QC / 8 : 1][4];
+#pragma unroll
+                for (int n = 0; n < QC / 8; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        sc[n][e] = 0.f;
+                        if constexpr (DK) dp[n][e] = 0.f;
+                    }
+                const float* q_c = q_t + (qc + g) * LD + t;
+                const float* do_c = do_t + (qc + g) * LD + t;
+                // not unrolled: loads hoisted across the k steps take the
+                // registers dK and dV need
+#pragma unroll 1
+                for (int kk = 0; kk < D / 8; ++kk) {
+                    uint32_t kh[4], kl[4], vh[4], vl[4];
+                    tf32_a_frag<LD>(kh, kl, k_w + kk * 8);
+                    if constexpr (DK) tf32_a_frag<LD>(vh, vl, v_w + kk * 8);
+#pragma unroll
+                    for (int n = 0; n < QC / 8; ++n) {
+                        const int off = n * 8 * LD + kk * 8;
+                        uint32_t bh0, bh1, bl0, bl1;
+                        tf32_b_frag_rows(bh0, bh1, bl0, bl1, q_c + off);
+                        mma_3xtf32(sc[n], kh, kl, bh0, bh1, bl0, bl1);
+                        if constexpr (DK) {
+                            tf32_b_frag_rows(bh0, bh1, bl0, bl1, do_c + off);
+                            mma_3xtf32(dp[n], vh, vl, bh0, bh1, bl0, bl1);
+                        }
+                    }
+                }
+                // P^T and dS^T: row key, column q row qc + c
+#pragma unroll
+                for (int n = 0; n < QC / 8; ++n) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int c = qc + n * 8 + 2 * t + (e & 1);
+                        float p = expf(sc[n][e] * s.scale - lse_t[c]);
+                        if (edge) {
+                            const long long key = kw0 + g + 8 * (e >> 1);
+                            const long long i = i0 + c;
+                            const bool valid =
+                                key < s.sk && i < s.sq &&
+                                (!s.causal || i + s.offset >= key);
+                            p = valid ? p : 0.f;
+                        }
+                        sc[n][e] = p;
+                        if constexpr (DK) dp[n][e] = p * (dp[n][e] - dl_t[c]);
+                    }
+                }
+                // dV += P^T dO, dK += dS^T Q over these QC q rows (the
+                // permuted k order: q rows 2t, 2t + 1 of each 8)
+                const float* do_p = do_t + (qc + 2 * t) * LD + g;
+                const float* q_p = q_t + (qc + 2 * t) * LD + g;
+#pragma unroll
+                for (int kk = 0; kk < QC / 8; ++kk) {
+                    uint32_t ph[4], pl[4], dh[4], dl[4];
+                    if constexpr (DV) tf32_a_from_c(ph, pl, sc[kk]);
+                    if constexpr (DK) tf32_a_from_c(dh, dl, dp[kk]);
+#pragma unroll
+                    for (int dn = 0; dn < D / 8; ++dn) {
+                        const int off = kk * 8 * LD + dn * 8;
+                        uint32_t bh0, bh1, bl0, bl1;
+                        if constexpr (DV) {
+                            tf32_b_frag_perm<LD>(bh0, bh1, bl0, bl1,
+                                                 do_p + off);
+                            mma_3xtf32(dva[dn], ph, pl, bh0, bh1, bl0, bl1);
+                        }
+                        if constexpr (DK) {
+                            tf32_b_frag_perm<LD>(bh0, bh1, bl0, bl1,
+                                                 q_p + off);
+                            mma_3xtf32(dka[dn], dh, dl, bh0, bh1, bl0, bl1);
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();             // stage st is free for step j + 2
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const long long key = kw0 + g + 8 * i;
+        if (key >= s.sk) continue;
+        const long long row = ((long long)blockIdx.y * s.sk + key) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+            if constexpr (DK)
+                fbm_store2(dk + row + n * 8, dka[n][2 * i] * s.scale,
+                           dka[n][2 * i + 1] * s.scale);
+            if constexpr (DV)
+                fbm_store2(dv + row + n * 8, dva[n][2 * i],
+                           dva[n][2 * i + 1]);
+        }
+    }
+}
+
+// dQ of one 64-row q tile of q head blockIdx.y % H in float32, as
+// flash_bwd_dq_mma_kernel.
+template <int D>
+__global__ void __launch_bounds__(FBM_THREADS)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, FbShape s) {
+    extern __shared__ float4 ftb_smem[];
+    constexpr int LD = D + 4, BK = ftb_kv_rows<D>(), TILE = BK * LD;
+    float* q_s = reinterpret_cast<float*>(ftb_smem);
+    float* do_s = q_s + FBM_ROWS * LD;
+    float* k_s = do_s + FBM_ROWS * LD;          // two stages
+    float* v_s = k_s + 2 * TILE;                // two stages
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const long long bh = blockIdx.y;
+    const long long b = bh / s.heads, h = bh % s.heads;
+    const long long hk = h / s.kv_group;
+    const long long q0 = (long long)(gridDim.x - 1 - blockIdx.x) * FBM_ROWS;
+    const long long qw0 = q0 + warp * 16;       // the warp's first q row
+    const float* kb = k + b * s.k_sb + hk * s.k_sh;
+    const float* vb = v + b * s.v_sb + hk * s.v_sh;
+
+    const long long nk = (s.sk + BK - 1) / BK;
+    long long upper = nk;
+    if (s.causal) {
+        const long long last =
+            (q0 + FBM_ROWS < s.sq ? q0 + FBM_ROWS : s.sq) - 1 + s.offset;
+        upper = last < 0 ? 0 : (last / BK + 1 < nk ? last / BK + 1 : nk);
+    }
+
+    // group 0: the q and dO tiles and K/V tile 0
+    cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
+        q_s, q + b * s.q_sb + h * s.q_sh, s.q_ss, q0, s.sq, tid);
+    cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
+        do_s, dout + b * s.do_sb + h * s.do_sh, s.do_ss, q0, s.sq, tid);
+    if (upper > 0) {
+        cp_async_rows_f32<BK, D, FBM_THREADS>(k_s, kb, s.k_ss, 0, s.sk, tid);
+        cp_async_rows_f32<BK, D, FBM_THREADS>(v_s, vb, s.v_ss, 0, s.sk, tid);
+    }
+    cp_async_commit();
+
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const long long row = qw0 + g + 8 * i;
+        lse_r[i] = row < s.sq ? lse[bh * s.sq + row] : 0.f;
+        dl_r[i] = row < s.sq ? delta[bh * s.sq + row] : 0.f;
+    }
+    const float* q_w = q_s + (warp * 16 + g) * LD + t;
+    const float* do_w = do_s + (warp * 16 + g) * LD + t;
+
+    float dqa[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+        dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+    for (long long j = 0; j < upper; ++j) {
+        const int st = (int)(j & 1);
+        if (j + 1 < upper) {
+            const long long next = (j + 1) * BK;
+            cp_async_rows_f32<BK, D, FBM_THREADS>(k_s + (st ^ 1) * TILE, kb,
+                                                  s.k_ss, next, s.sk, tid);
+            cp_async_rows_f32<BK, D, FBM_THREADS>(v_s + (st ^ 1) * TILE, vb,
+                                                  s.v_ss, next, s.sk, tid);
+        }
+        cp_async_commit();
+        cp_async_wait<1>();                     // tile j has landed
+        __syncthreads();
+
+        const long long k0 = j * BK;
+        if (!s.causal || k0 <= qw0 + 15 + s.offset) {
+            // S = Q K^T, dP = dO V^T: 16 q rows x BK keys
+            float sc[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+            for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+            const float* k_t = k_s + st * TILE + g * LD + t;
+            const float* v_t = v_s + st * TILE + g * LD + t;
+#pragma unroll
+            for (int kk = 0; kk < D / 8; ++kk) {
+                uint32_t qh[4], ql[4], dh[4], dl[4];
+                tf32_a_frag<LD>(qh, ql, q_w + kk * 8);
+                tf32_a_frag<LD>(dh, dl, do_w + kk * 8);
+#pragma unroll
+                for (int n = 0; n < BK / 8; ++n) {
+                    const int off = n * 8 * LD + kk * 8;
+                    uint32_t bh0, bh1, bl0, bl1;
+                    tf32_b_frag_rows(bh0, bh1, bl0, bl1, k_t + off);
+                    mma_3xtf32(sc[n], qh, ql, bh0, bh1, bl0, bl1);
+                    tf32_b_frag_rows(bh0, bh1, bl0, bl1, v_t + off);
+                    mma_3xtf32(dp[n], dh, dl, bh0, bh1, bl0, bl1);
+                }
+            }
+            // dS = P * (dP - D)
+            const bool edge = (s.causal && k0 + BK - 1 > qw0 + s.offset)
+                              || k0 + BK > s.sk || qw0 + 16 > s.sq;
+#pragma unroll
+            for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float p = expf(sc[n][e] * s.scale - lse_r[e >> 1]);
+                    if (edge) {
+                        const long long key = k0 + n * 8 + 2 * t + (e & 1);
+                        const long long row = qw0 + g + 8 * (e >> 1);
+                        const bool valid =
+                            key < s.sk && row < s.sq &&
+                            (!s.causal || row + s.offset >= key);
+                        p = valid ? p : 0.f;
+                    }
+                    dp[n][e] = p * (dp[n][e] - dl_r[e >> 1]);
+                }
+            }
+            // dQ += dS K (the permuted k order: K rows 2t, 2t + 1 of each 8)
+            const float* k_p = k_s + st * TILE + 2 * t * LD + g;
+#pragma unroll
+            for (int kk = 0; kk < BK / 8; ++kk) {
+                uint32_t sh[4], sl[4];
+                tf32_a_from_c(sh, sl, dp[kk]);
+#pragma unroll
+                for (int dn = 0; dn < D / 8; ++dn) {
+                    uint32_t bh0, bh1, bl0, bl1;
+                    tf32_b_frag_perm<LD>(bh0, bh1, bl0, bl1,
+                                         k_p + kk * 8 * LD + dn * 8);
+                    mma_3xtf32(dqa[dn], sh, sl, bh0, bh1, bl0, bl1);
+                }
+            }
+        }
+        __syncthreads();             // stage st is free for tile j + 2
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const long long row = qw0 + g + 8 * i;
+        if (row >= s.sq) continue;
+        float* out = dq + (bh * s.sq + row) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+            fbm_store2(out + n * 8, dqa[n][2 * i] * s.scale,
+                       dqa[n][2 * i + 1] * s.scale);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -761,29 +932,6 @@ static int launch_delta(const void* o, const void* dout, float* delta,
     flash_bwd_delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), 256, 0,
                                    stream>>>((const T*)o, (const T*)dout,
                                              delta, s, rows);
-    return (int)cudaGetLastError();
-}
-
-template <int D>
-static int run_simt(const void* q, const void* k, const void* v,
-                    const void* o, const float* lse, const void* dout,
-                    void* dq, void* dk, void* dv, float* delta,
-                    const FbShape& s, long long batch, cudaStream_t stream) {
-    int err = launch_delta<float, D>(o, dout, delta, s, batch, stream);
-    if (err) return err;
-    constexpr int P = D / FB_COLS;
-    const dim3 kv_grid((unsigned)((s.sk + FB_KROWS - 1) / FB_KROWS),
-                       (unsigned)(batch * s.kv_heads));
-    flash_bwd_dkdv_kernel<D><<<kv_grid, FB_KROWS * P, 0, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)dout, lse, delta, (float*)dk, (float*)dv, s);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    const dim3 q_grid((unsigned)((s.sq + FB_QROWS - 1) / FB_QROWS),
-                      (unsigned)(batch * s.heads));
-    flash_bwd_dq_kernel<D><<<q_grid, FB_QROWS * P, 0, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)dout, lse, delta, (float*)dq, s);
     return (int)cudaGetLastError();
 }
 
@@ -824,9 +972,9 @@ static int run_mma(const void* q, const void* k, const void* v,
         if (err) return err;
         const long long kv_rows = batch * s.kv_heads;
         const long long threads = 2 * kv_rows * s.sk * D / 4;
-        flash_bwd_gqa_sum_kernel<<<(unsigned)((threads + 255) / 256), 256, 0,
-                                   stream>>>(part, (bf16*)dk, (bf16*)dv,
-                                             kv_rows, s.kv_group, s.sk * D);
+        flash_bwd_gqa_sum_kernel<bf16><<<(unsigned)((threads + 255) / 256),
+                                         256, 0, stream>>>(
+            part, (bf16*)dk, (bf16*)dv, kv_rows, s.kv_group, s.sk * D);
         err = (int)cudaGetLastError();
         if (err) return err;
     }
@@ -837,18 +985,77 @@ static int run_mma(const void* q, const void* k, const void* v,
                        (const float*)delta, (bf16*)dq, s);
 }
 
+// the dK/dV launches of one backward in float32 (FTB_BOTH at D = 64, a dV
+// and a dK launch at D = 128)
+template <int D, bool SPLIT>
+static int launch_dkdv_tf32(dim3 grid, cudaStream_t stream, const float* q,
+                            const float* k, const float* v,
+                            const float* dout, const float* lse,
+                            const float* delta, float* dk, float* dv,
+                            const FbShape& s) {
+    const size_t smem = ftb_dkdv_smem_bytes<D>();
+    if constexpr (D == 64) {
+        return launch_smem(flash_bwd_dkdv_tf32_kernel<D, SPLIT, FTB_BOTH>,
+                           grid, smem, stream, q, k, v, dout, lse, delta, dk,
+                           dv, s);
+    } else {
+        const int err = launch_smem(
+            flash_bwd_dkdv_tf32_kernel<D, SPLIT, FTB_DV>, grid, smem, stream,
+            q, k, v, dout, lse, delta, dk, dv, s);
+        if (err) return err;
+        return launch_smem(flash_bwd_dkdv_tf32_kernel<D, SPLIT, FTB_DK>, grid,
+                           smem, stream, q, k, v, dout, lse, delta, dk, dv,
+                           s);
+    }
+}
+
+template <int D>
+static int run_tf32(const void* q, const void* k, const void* v,
+                    const void* o, const float* lse, const void* dout,
+                    void* dq, void* dk, void* dv, float* delta, float* part,
+                    const FbShape& s, long long batch, cudaStream_t stream) {
+    int err = launch_delta<float, D>(o, dout, delta, s, batch, stream);
+    if (err) return err;
+    const float *qf = (const float*)q, *kf = (const float*)k,
+                *vf = (const float*)v, *df = (const float*)dout;
+    const unsigned k_tiles = (unsigned)((s.sk + FBM_ROWS - 1) / FBM_ROWS);
+    if (part == nullptr) {
+        err = launch_dkdv_tf32<D, false>(
+            dim3(k_tiles, (unsigned)(batch * s.kv_heads)), stream, qf, kf, vf,
+            df, lse, delta, (float*)dk, (float*)dv, s);
+        if (err) return err;
+    } else {
+        const long long per = batch * s.heads * s.sk * D;
+        err = launch_dkdv_tf32<D, true>(
+            dim3(k_tiles, (unsigned)(batch * s.heads)), stream, qf, kf, vf,
+            df, lse, delta, part, part + per, s);
+        if (err) return err;
+        const long long kv_rows = batch * s.kv_heads;
+        const long long threads = 2 * kv_rows * s.sk * D / 4;
+        flash_bwd_gqa_sum_kernel<float><<<(unsigned)((threads + 255) / 256),
+                                          256, 0, stream>>>(
+            part, (float*)dk, (float*)dv, kv_rows, s.kv_group, s.sk * D);
+        err = (int)cudaGetLastError();
+        if (err) return err;
+    }
+    return launch_smem(flash_bwd_dq_tf32_kernel<D>,
+                       dim3((unsigned)((s.sq + FBM_ROWS - 1) / FBM_ROWS),
+                            (unsigned)(batch * s.heads)),
+                       ftb_dq_smem_bytes<D>(), stream, qf, kf, vf, df, lse,
+                       (const float*)delta, (float*)dq, s);
+}
+
 // q, dout: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); each given by the element
 // strides of its first three dimensions in `strides` (q, k, v, dout: 12
-// values), the last dimension dense (and, for bfloat16, 16-byte aligned
-// base pointers and strides: cp.async).  o: (B, H, Sq, D) contiguous of
+// values), the last dimension dense, base pointers and strides 16-byte
+// aligned (cp.async).  o: (B, H, Sq, D) contiguous of
 // q's type; lse: (B, H, Sq) fp32 contiguous; delta: (B, H, Sq) fp32
 // scratch.  dq: (B, H, Sq, D), dk, dv: (B, Hkv, Sk, D), contiguous, of q's
-// type.  part: null, or (bfloat16 only) a (2, B, H, Sk, D) fp32 scratch
-// that selects the GQA split.  dtype 0 = float32, 1 = bfloat16; head_dim
-// 64 or 128.  The caller guarantees B*H, Sq, Sk > 0, H % Hkv == 0 and
-// B*H < 65536.  Returns the CUDA error code of the first failing call
-// (0 = success), or -1 for a type or head dimension no kernel is
-// instantiated for.
+// type.  part: null, or a (2, B, H, Sk, D) fp32 scratch that selects the
+// GQA split.  dtype 0 = float32, 1 = bfloat16; head_dim 64 or 128.  The
+// caller guarantees B*H, Sq, Sk > 0, H % Hkv == 0 and B*H < 65536.
+// Returns the CUDA error code of the first failing call (0 = success), or
+// -1 for a type or head dimension no kernel is instantiated for.
 extern "C" int flash_attention_bwd_launch(
         const void* q, const void* k, const void* v, const void* o,
         const void* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -872,12 +1079,12 @@ extern "C" int flash_attention_bwd_launch(
     const float* l = (const float*)lse;
     float* dl = (float*)delta;
     float* pt = (float*)part;
-    if (dtype == 0 && part == nullptr && head_dim == 64)
-        return run_simt<64>(q, k, v, o, l, dout, dq, dk, dv, dl, s, batch,
+    if (dtype == 0 && head_dim == 64)
+        return run_tf32<64>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s, batch,
                             st);
-    if (dtype == 0 && part == nullptr && head_dim == 128)
-        return run_simt<128>(q, k, v, o, l, dout, dq, dk, dv, dl, s, batch,
-                             st);
+    if (dtype == 0 && head_dim == 128)
+        return run_tf32<128>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s,
+                             batch, st);
     if (dtype == 1 && head_dim == 64)
         return run_mma<64>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s, batch,
                            st);

@@ -11,19 +11,23 @@ with one kernel per dtype:
   rows staged by ``cp.async`` in two stages; ``S = Q K^T`` and ``O += P V``
   with ``mma.sync`` m16n8k16 (bf16 in, fp32 accumulators); the softmax
   scale on the fp32 logits; ``p`` rounded to bf16 in registers for
-  ``P V``, ``l`` summed from the fp32 ``p``.  ``cp.async`` copies 16-byte
-  rows, so an operand whose base or strides are not 16-byte aligned is
-  made contiguous first (:func:`_kernel_operand`).
-* float32 takes ``flash_fwd_simt_kernel``, on the fp32 CUDA cores (one
-  thread per q row): TF32 tensor cores keep about 10 mantissa bits, too few
-  for the fp32 comparison (3e-5).  It serves the float32 checks, not bf16
-  serving.
+  ``P V``, ``l`` summed from the fp32 ``p``.
+* float32 takes ``flash_fwd_tf32_kernel``, on the tensor cores too, in the
+  same shape: each product is three TF32 ones (``mma.sync`` m16n8k8,
+  ``hi*hi + hi*lo + lo*hi`` with ``hi``, ``lo`` rounded by
+  ``cvt.rna.tf32.f32``), which keep the fp32 comparison (3e-5) where one
+  TF32 product (10 mantissa bits) would not; q is scaled in fp32 before
+  its split.  It serves the float32 checks, not bf16 serving.
+
+``cp.async`` copies 16-byte rows, so an operand whose base or strides are
+not 16-byte aligned is made contiguous first (:func:`_kernel_operand`).
 
 Both mask with ``-1e30`` and the ``logits > -1e30/2`` guard exactly as the
 TPU kernel, so a row that sees no key comes out 0 (the plain version gives
 NaN there, as the reference's oracle does).  Ragged ``Sq``/``Sk`` are masked
 inside the kernel; nothing is padded in device memory.  Both are counted in
-``flash_attention.launches``.
+``flash_attention.launches``, the float32 launches also in
+``flash_attention.launches_fp32``.
 
 The backward has no TPU kernel behind it: the reference differentiates its
 plain attention.  A call whose inputs require a gradient goes through
@@ -35,13 +39,15 @@ dQ; fp32 sums, no atomics), counted once a call in
 
 * bfloat16 takes ``flash_bwd_dkdv_mma_kernel`` and
   ``flash_bwd_dq_mma_kernel`` on the tensor cores (``mma.sync``, P and dS
-  rounded to bf16 as A operands).  The GQA sum over a kv head's q heads
-  stays inside its dK/dV block unless those blocks are too few to fill the
-  card (:func:`gqa_split`); then each block takes one q head, writes fp32
-  partials to a scratch allocated here, and ``flash_bwd_gqa_sum_kernel``
-  sums them in head order.
-* float32 takes the SIMT kernels (``flash_bwd_dkdv_kernel``,
-  ``flash_bwd_dq_kernel``), for the reason the forward's float32 does.
+  rounded to bf16 as A operands);
+* float32 takes ``flash_bwd_dkdv_tf32_kernel`` and
+  ``flash_bwd_dq_tf32_kernel``, the same design with each product three
+  TF32 ones, as the forward's float32 (P and dS split, not rounded).
+
+In both the GQA sum over a kv head's q heads stays inside its dK/dV block
+unless those blocks are too few to fill the card (:func:`gqa_split`); then
+each block takes one q head, writes fp32 partials to a scratch allocated
+here, and ``flash_bwd_gqa_sum_kernel`` sums them in head order.
 
 A call that needs no gradient (every serving call) launches the forward
 alone and keeps no ``lse``.
@@ -94,14 +100,12 @@ def _entry(source: str, symbol: str, argtypes):
 
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the kernel takes it: the head dimension dense and, for
-    bfloat16 (staged by 16-byte ``cp.async``), the base pointer and the
-    strides of the first three dimensions 16-byte aligned; otherwise a
-    contiguous copy."""
-    ok = t.stride(-1) == 1
-    if t.dtype == torch.bfloat16:
-        ok = ok and t.data_ptr() % 16 == 0 and all(
-            s % 8 == 0 for s in t.stride()[:3])
+    """``t`` as the kernels take it (staged by 16-byte ``cp.async``): the
+    head dimension dense, the base pointer and the strides of the first
+    three dimensions 16-byte aligned; otherwise a contiguous copy."""
+    per = 16 // t.element_size()
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        s % per == 0 for s in t.stride()[:3])
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -162,6 +166,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_fp32 += q.dtype == torch.float32
     return out, lse
 
 
@@ -265,8 +270,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``Hkv == H`` the two are the same call).  ``D`` is 64 or 128, the type
     float32 or bfloat16, all three on one device; ``scale`` defaults to
     ``1/sqrt(D)``; the causal diagonal sits at ``Sk - Sq``.  Strided views
-    are taken as they are as long as the head dimension is dense (and, in
-    bfloat16, rows are 16-byte aligned; else they are copied).  A CUDA
+    are taken as they are as long as the head dimension is dense and rows
+    are 16-byte aligned (else they are copied).  A CUDA
     tensor always goes through the kernels; only a CPU tensor takes the
     plain versions.  Where autograd needs a gradient of q, k or v the call
     goes through :class:`FlashAttentionFn`.
@@ -278,17 +283,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_fwd(q, k, v, bool(causal), scale, False)[0]
 
 
-#: Number of times the forward kernel was launched (CUDA tensors only).
+#: Number of times the forward kernel was launched (CUDA tensors only),
+#: and how many of those launches were float32.
 flash_attention.launches = 0
+flash_attention.launches_fp32 = 0
 
 
-#: Rows of a K tile of the bf16 dK/dV kernel (``FBM_ROWS``).
+#: Rows of a K tile of the dK/dV kernels (``FBM_ROWS``).
 BWD_TILE = 64
 
 
 def gqa_split(batch: int, kv_heads: int, sk: int, group: int,
               sms: int) -> bool:
-    """Whether the bf16 dK/dV kernel splits each kv head's ``group`` q
+    """Whether the dK/dV kernel splits each kv head's ``group`` q
     heads over blocks (fp32 partials, summed after in head order): where
     the blocks of the in-block sum, ``batch * kv_heads * ceil(sk / 64)``,
     are fewer than two for each of the card's ``sms`` SMs (qwen2-0.5b's
@@ -307,8 +314,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output gradient ``dout``, given the forward's output ``o`` and its
     ``lse`` (fp32 ``(B, H, Sq)``).  dq is ``(B, H, Sq, D)``, dk and dv
     ``(B, Hkv, Sk, D)`` (each kv head's sum over its q heads), all in q's
-    type.  On CUDA tensors: the backward kernels (bf16: on the tensor
-    cores, with the GQA split of :func:`gqa_split`), one count in
+    type.  On CUDA tensors: the backward kernels, on the tensor cores
+    (float32 as three TF32 products), with the GQA split of
+    :func:`gqa_split`, one count in
     ``flash_attention_bwd.launches`` per call; on CPU tensors the plain
     :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`."""
     scale = _check(q, k, v, scale, float64_on_cpu=True)
@@ -343,7 +351,7 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     part = None
-    if q.dtype == torch.bfloat16 and gqa_split(
+    if gqa_split(
             b, hk, sk, h // hk,
             torch.cuda.get_device_properties(q.device).multi_processor_count):
         part = torch.empty(2, b, h, sk, d, dtype=torch.float32,
@@ -361,6 +369,7 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_fp32 += q.dtype == torch.float32
     return dq, dk, dv
 
 
@@ -390,5 +399,7 @@ def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape,
 
 
 #: Number of calls that launched the backward kernels (CUDA tensors only;
-#: each call launches three of them, four with the GQA split).
+#: each call launches three of them, four with the GQA split), and how
+#: many of those calls were float32.
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_fp32 = 0

@@ -66,12 +66,15 @@ def _scale_shape(shape) -> Tuple[int, ...]:
 def _quantize_moment(x: torch.Tensor, signed: bool,
                      row_max=None) -> Dict[str, torch.Tensor]:
     """Per-row absmax int8 quantization of one moment tensor; ``row_max``
-    reduces the rows' absmax where a row is split over ranks."""
+    reduces the rows' absmax where a row is split over ranks.  The scale
+    is ``amax * (1 / 127)``, 1/127 rounded to float32, as the reference's
+    compiled step computes ``amax / 127`` (XLA divides by a constant as a
+    product with its reciprocal); the same bits on the CPU and the card."""
     amax = (torch.amax(torch.abs(x), dim=-1, keepdim=True) if x.dim()
             else torch.abs(x)[None])
     if row_max is not None:
         amax = row_max(amax)
-    scale = torch.clamp(amax, min=1e-12) / 127.0
+    scale = torch.clamp(amax, min=1e-12) * (1.0 / 127.0)
     q = torch.clamp(torch.round(x / scale), -127 if signed else 0, 127)
     return {"q": q.to(torch.int8),
             "s": scale.to(torch.float32).reshape(_scale_shape(x.shape))}
@@ -114,8 +117,9 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, grad_norm=None,
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
+    # ``number / tensor`` would be the tensor's reciprocal times the number
+    scale = torch.clamp(torch.div(cfg.clip_norm,
+                                  torch.clamp(gnorm, min=1e-9)), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)

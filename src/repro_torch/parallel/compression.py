@@ -31,15 +31,14 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
 
-def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
-    """``x / d`` rounded once, as the reference divides: on a CUDA tensor
-    PyTorch multiplies by the reciprocal of a Python number instead, which
-    is another float (one step off) for most divisors."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
-
-
 def _scale(amax: torch.Tensor) -> torch.Tensor:
-    return _divide(torch.clamp(amax, min=1e-8), 127.0)
+    """``max(amax, 1e-8) / 127`` as the reference's compiled step computes
+    it: XLA divides by a constant as a product with the constant's
+    reciprocal rounded to float32, and so does this, on any device (a
+    division rounded once differs from it in about one scale in 25).
+    ``/ n`` below is the same: the reference's ``n`` is ``psum(1)``, a
+    constant once compiled."""
+    return torch.clamp(amax, min=1e-8) * (1.0 / 127.0)
 
 
 def int8_payload(x: torch.Tensor, group=None
@@ -56,14 +55,14 @@ def int8_payload(x: torch.Tensor, group=None
 def compressed_allreduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     """Mean of ``x`` over the ranks of ``group`` with int8 on the wire: each
     rank's :func:`int8_payload` is all-gathered, and the images are summed
-    in float32 in rank order, then ``* scale / n``."""
+    in float32 in rank order, then ``* scale * (1 / n)``."""
     n = dist.get_world_size(group)
     q, scale = int8_payload(x, group)
     gathered = torch.empty(n * q.numel(), dtype=torch.int8, device=q.device)
     dist.all_gather_into_tensor(gathered, q.reshape(-1),   # int8 on the wire
                                 group=group)
     gathered = gathered.view((n,) + tuple(q.shape))
-    return _divide(gathered.to(torch.float32).sum(dim=0) * scale, n)
+    return gathered.to(torch.float32).sum(dim=0) * scale * (1.0 / n)
 
 
 def compress_with_feedback(grads, residual):
@@ -111,11 +110,11 @@ def make_dp_train_step(loss_fn: Callable, optimizer_update: Callable,
                 g.to(torch.float32), group), grads)
             grads, residual = compress_with_feedback(grads, residual)
         else:
-            grads = tree_map(lambda g: _divide(all_reduce(g, (group,)), n),
+            grads = tree_map(lambda g: all_reduce(g, (group,)) * (1.0 / n),
                              grads)
         params, opt_state = optimizer_update(params, grads, opt_state)
         return (params, opt_state, residual,
-                _divide(all_reduce(loss, (group,)), n))
+                all_reduce(loss, (group,)) * (1.0 / n))
 
     return step
 

@@ -13,10 +13,12 @@
 * ``torch.autograd.gradcheck`` of ``FlashAttentionFn``'s CPU path in
   float64 (its saved tensors, the GQA sum, the scale).
 * The float32 backward kernels' loops (``csrc/flash_attention_bwd.cu``,
-  SIMT: 64-row K blocks over 32-row q tiles from the causal diagonal on,
-  64-row q blocks over 32-row K tiles up to it, the thread-to-column map)
-  emulated in NumPy against the plain backward; the bf16 tensor-core
-  kernels are emulated in ``tests/test_torch_flash_bwd_mma.py``.
+  ``flash_bwd_{dkdv,dq}_tf32_kernel``: 64-row K blocks over 64-row q
+  tiles from the causal diagonal on, the q heads of a kv head in order;
+  64-row q blocks over K tiles of 64 rows, 32 at D = 128, up to it)
+  emulated in NumPy against the plain backward, products in fp32; their
+  3xTF32 products are emulated in ``tests/test_torch_tf32_numerics.py``,
+  the bf16 tensor-core kernels in ``tests/test_torch_flash_bwd_mma.py``.
 * ``LM.loss`` through the flash route: the reduced dense, vlm and encdec
   configs at ``head_dim=64``, with and without ``segment_ids``, against
   ``jax.value_and_grad`` of the reference's loss (its plain attention, its
@@ -167,32 +169,28 @@ def test_the_function_runs_where_autograd_records():
 # the backward kernels' loops, emulated
 # ---------------------------------------------------------------------------
 
-COLS, KROWS, QTILE, QROWS, KTILE = 32, 64, 32, 64, 32
+KROWS, QTILE, QROWS = 64, 64, 64
 
 
-def _columns(d):
-    """``fb_col``: the columns thread ``part`` of a row holds, in order."""
-    parts = d // COLS
-    return [[((e >> 2) * parts + part) * 4 + (e & 3) for e in range(COLS)]
-            for part in range(parts)]
+def _ktile(d):
+    """K rows a staged tile of the dQ kernel (``ftb_kv_rows``)."""
+    return 64 if d == 64 else 32
 
 
 def emulate_backward(q, k, v, o, lse, do, causal, scale):
-    """The float32 ``flash_bwd_{delta,dkdv,dq}_kernel`` block by block: the
-    same tiles, loop bounds, masks and GQA order, the columns of a row
-    gathered through the threads' column map."""
+    """The float32 ``flash_bwd_{delta,dkdv,dq}`` kernels block by block: the
+    same tiles, loop bounds, masks and GQA order."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     group, offset = h // hk, sk - sq
-    cols = np.concatenate(_columns(d))
-    assert sorted(cols) == list(range(d))       # each column exactly once
+    ktile = _ktile(d)
     delta = (do * o).sum(-1)
     dk, dv = np.zeros_like(k), np.zeros_like(v)
     for bb in range(b):
         for kh in range(hk):
             for k0 in range(0, sk, KROWS):
                 keys = np.arange(k0, min(k0 + KROWS, sk))
-                kr, vr = k[bb, kh, keys][:, cols], v[bb, kh, keys][:, cols]
+                kr, vr = k[bb, kh, keys], v[bb, kh, keys]
                 dkr, dvr = np.zeros_like(kr), np.zeros_like(vr)
                 first = 0
                 if causal and k0 - offset > 0:
@@ -201,8 +199,7 @@ def emulate_backward(q, k, v, o, lse, do, causal, scale):
                     hh = kh * group + gi
                     for i0 in range(first, sq, QTILE):
                         rows = np.arange(i0, min(i0 + QTILE, sq))
-                        qt = q[bb, hh, rows][:, cols]
-                        dt = do[bb, hh, rows][:, cols]
+                        qt, dt = q[bb, hh, rows], do[bb, hh, rows]
                         s = qt @ kr.T
                         dp = dt @ vr.T
                         valid = np.ones(s.shape, bool)
@@ -213,24 +210,24 @@ def emulate_backward(q, k, v, o, lse, do, causal, scale):
                         ds = p * (dp - delta[bb, hh, rows][:, None])
                         dvr += p.T @ dt
                         dkr += ds.T @ qt
-                dk[bb, kh, keys[:, None], cols[None, :]] = dkr * scale
-                dv[bb, kh, keys[:, None], cols[None, :]] = dvr
+                dk[bb, kh, keys] = dkr * scale
+                dv[bb, kh, keys] = dvr
     dq = np.zeros_like(q)
     for bb in range(b):
         for hh in range(h):
             kh = hh // group
             for q0 in range(0, sq, QROWS):
                 rows = np.arange(q0, min(q0 + QROWS, sq))
-                nk = -(-sk // KTILE)
+                nk = -(-sk // ktile)
                 upper = nk
                 if causal:
                     last = rows[-1] + offset
-                    upper = 0 if last < 0 else min(last // KTILE + 1, nk)
-                qr, dr = q[bb, hh, rows][:, cols], do[bb, hh, rows][:, cols]
+                    upper = 0 if last < 0 else min(last // ktile + 1, nk)
+                qr, dr = q[bb, hh, rows], do[bb, hh, rows]
                 acc = np.zeros_like(qr)
                 for j in range(upper):
-                    keys = np.arange(j * KTILE, min((j + 1) * KTILE, sk))
-                    kt, vt = k[bb, kh, keys][:, cols], v[bb, kh, keys][:, cols]
+                    keys = np.arange(j * ktile, min((j + 1) * ktile, sk))
+                    kt, vt = k[bb, kh, keys], v[bb, kh, keys]
                     valid = np.ones((len(rows), len(keys)), bool)
                     if causal:
                         valid = rows[:, None] + offset >= keys[None, :]
@@ -239,7 +236,7 @@ def emulate_backward(q, k, v, o, lse, do, causal, scale):
                                  0.0)
                     acc += (p * (dr @ vt.T - delta[bb, hh, rows][:, None])
                             ) @ kt
-                dq[bb, hh, rows[:, None], cols[None, :]] = acc * scale
+                dq[bb, hh, rows] = acc * scale
     return dq, dk, dv
 
 

@@ -135,9 +135,10 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_bf16_operands_are_copied_only_when_rows_are_unaligned():
-    """The bf16 kernel stages 16-byte rows with cp.async: a view whose base
-    or strides are not 16-byte aligned is handed over as a contiguous copy;
-    aligned strided views (the model's transposes) and fp32 are not."""
+    """The kernels stage 16-byte rows with cp.async (bf16 and, since its
+    kernels moved to the tensor cores, fp32): a view whose base or strides
+    are not 16-byte aligned is handed over as a contiguous copy; aligned
+    strided views (the model's transposes) are not."""
     n = 2 * 80 * 3 * 64
     x = torch.arange(n + 8, dtype=torch.float32).bfloat16()
     view = x[:n].view(2, 80, 3, 64).transpose(1, 2)
@@ -150,8 +151,17 @@ def test_bf16_operands_are_copied_only_when_rows_are_unaligned():
         assert got.data_ptr() % 16 == 0 and got.is_contiguous()
     narrow = x[:n].view(2, 80, 3, 64)[..., :56]       # 16-byte rows
     assert _kernel_operand(narrow) is narrow
-    odd32 = x.float()[1:1 + n].view(2, 3, 80, 64)      # fp32: no cp.async
-    assert _kernel_operand(odd32) is odd32
+    x32 = x.float()
+    view32 = x32[:n].view(2, 80, 3, 64).transpose(1, 2)
+    assert _kernel_operand(view32) is view32
+    for t in (x32[1:1 + n].view(2, 3, 80, 64),         # base 4 bytes off
+              x32[:25344].view(2, 3, 64, 66)[..., :64],  # 264-byte rows
+              x32[:n].view(2, 80, 3, 64)[..., 2:58]):  # base 8 bytes off
+        got = _kernel_operand(t)
+        assert got is not t and torch.equal(got, t)
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    rows32 = x32[:26112].view(2, 3, 64, 68)[..., 4:68]  # 272-byte rows, 16 off
+    assert _kernel_operand(rows32) is rows32
     assert _kernel_operand(x[:n].view(2, 3, 80, 64)[..., ::2]).stride(-1) == 1
 
 
