@@ -1,0 +1,12 @@
+"""Device milliseconds a batch of images spends in the executor's
+other steps (arithmetic, compares, moves), each with its conversion and
+masked write: the program's span ``engine.alu`` around those steps of
+``core/engine.py::CompiledProgram._execute``, summed within each batch
+(``engine.dispatch``) and averaged over the batches of the traced slice
+that records host operations: one of each pattern."""
+from portbench import program_spans
+
+
+def read(outcome):
+    return program_spans.device("engine.dispatch", ("engine.alu",),
+                                mean=True)

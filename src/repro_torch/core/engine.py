@@ -68,6 +68,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels.ops import mdv_gather, mdv_scatter_
 from ..kernels.ref import wrap_store_addresses
 from . import isa
@@ -109,6 +110,11 @@ class FinalizeError(ExecutorError):
 # exception types that pass through untyped (user errors / control flow)
 _PASSTHROUGH = (isa.ProgramError, VMUnsupported, TypeError, ValueError,
                 ExecutorError)
+
+# the span of each step of :meth:`CompiledProgram._execute`; the rest are
+# ``engine.alu``
+_STEP_SPANS = {Op.SLD: "engine.load", Op.RLD: "engine.load",
+               Op.SST: "engine.store", Op.RST: "engine.store"}
 
 
 @dataclasses.dataclass
@@ -295,12 +301,15 @@ class CompiledProgram:
         zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
         rand_addrs: List[torch.Tensor] = [None] * self.n_random
         n = memory.shape[-1]
+        spans = obs.StepSpans(device=True) if obs.recording() else None
 
         for step in self.steps:
             instr = step.instr
             op = instr.op
             if op in isa.CONFIG_OPS or op is Op.SCALAR:
                 continue
+            if spans is not None:
+                spans.step(_STEP_SPANS.get(op, "engine.alu"))
 
             dt = TORCH_DTYPE.get(instr.dtype, torch.float32)
             mask = ops.masks[step.mask_slot]
@@ -354,6 +363,8 @@ class CompiledProgram:
             keep = mask & tag if instr.predicated else mask
             regs[instr.vd] = torch.where(keep, result, old(instr.vd))
 
+        if spans is not None:
+            spans.close()
         return memory, regs, tag, rand_addrs
 
     def _execute_on(self, memory: torch.Tensor):
@@ -407,20 +418,21 @@ class CompiledProgram:
         an executor-owned copy, and enqueue the program through the VM
         (float32-canonical images under ``mode="vm"``) or directly.
         Returns ``(kind, pending)``."""
-        if isinstance(memory, dict):
-            kernel = self._bound_kernel()
-            memory = kernel.pack_batch(memory) if batched \
-                else kernel.pack(memory)
-        mem = as_memory(memory, dev)
-        if mem.dim() != (2 if batched else 1):
-            raise ValueError(
-                f"expected a {'(B, N) batch of images' if batched else 'flat (N,) image'}, "
-                f"got shape {tuple(mem.shape)}")
-        if self._use_vm(mem):
-            vm = self._vm
-            return "vm", (vm.run_batch_async(mem) if batched
-                          else vm.run_async(mem))
-        return "fused", self._execute(mem, self._device_operands(dev))
+        with obs.span("engine.dispatch"):
+            if isinstance(memory, dict):
+                kernel = self._bound_kernel()
+                memory = kernel.pack_batch(memory) if batched \
+                    else kernel.pack(memory)
+            mem = as_memory(memory, dev)
+            if mem.dim() != (2 if batched else 1):
+                raise ValueError(
+                    f"expected a {'(B, N) batch of images' if batched else 'flat (N,) image'}, "
+                    f"got shape {tuple(mem.shape)}")
+            if self._use_vm(mem):
+                vm = self._vm
+                return "vm", (vm.run_batch_async(mem) if batched
+                              else vm.run_async(mem))
+            return "fused", self._execute(mem, self._device_operands(dev))
 
     @staticmethod
     def _vm_dtype(dtype) -> bool:

@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
+from .. import obs
 from ..core.packing import pack_documents
 
 
@@ -85,23 +86,23 @@ def make_train_batches(cfg: DataConfig, host: int = 0, num_hosts: int = 1,
     stride = num_hosts
     buf: List[np.ndarray] = []
     while True:
-        rows: List = []
-        # over-fetch documents until packing yields enough rows
-        while True:
-            buf.append(src.document(doc))
-            doc += stride
-            tokens, segs, pos = pack_documents(buf, cfg.seq_len + 1)
-            if len(tokens) > rows_needed:   # keep leftover docs for next batch
-                tokens, segs, pos = tokens[:rows_needed], \
-                    segs[:rows_needed], pos[:rows_needed]
-                buf = []
-                break
-        targets = tokens[:, 1:]
-        yield {
-            "tokens": tokens[:, :-1].astype(np.int32),
-            "targets": targets.astype(np.int32),
-            "loss_mask": (segs[:, 1:] > 0).astype(np.float32),
-            "positions": pos[:, :-1].astype(np.int32),
-            "segment_ids": segs[:, :-1].astype(np.int32),
-            "next_doc": np.asarray(doc, np.int64),
-        }
+        with obs.span("data.pack"):      # ended before the batch is yielded
+            # over-fetch documents until packing yields enough rows
+            while True:
+                buf.append(src.document(doc))
+                doc += stride
+                tokens, segs, pos = pack_documents(buf, cfg.seq_len + 1)
+                if len(tokens) > rows_needed:   # keep leftover docs
+                    tokens, segs, pos = tokens[:rows_needed], \
+                        segs[:rows_needed], pos[:rows_needed]
+                    buf = []
+                    break
+            batch = {
+                "tokens": tokens[:, :-1].astype(np.int32),
+                "targets": tokens[:, 1:].astype(np.int32),
+                "loss_mask": (segs[:, 1:] > 0).astype(np.float32),
+                "positions": pos[:, :-1].astype(np.int32),
+                "segment_ids": segs[:, :-1].astype(np.int32),
+                "next_doc": np.asarray(doc, np.int64),
+            }
+        yield batch

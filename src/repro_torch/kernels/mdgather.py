@@ -48,6 +48,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import _build
 from .ref import mdgather_ref
 
@@ -176,7 +177,8 @@ def mdgather(src: torch.Tensor, dims: Sequence[int], strides: Sequence[int],
         raise ValueError("src must be a non-empty (N,) or (B, N) tensor, "
                          f"got shape {tuple(src.shape)}")
     if not src.is_cuda:
-        check_walk(dims, strides)
+        with obs.span("kernels.route"):
+            check_walk(dims, strides)
         return mdgather_ref(src, dims, strides, base, lanes)
     if src.element_size() not in _ELEM_SIZES:
         raise TypeError(f"unsupported element type {src.dtype}")
@@ -184,12 +186,12 @@ def mdgather(src: torch.Tensor, dims: Sequence[int], strides: Sequence[int],
     if device != torch.cuda.current_device():
         with torch.cuda.device(device):
             return mdgather(src, dims, strides, base, lanes)
-    n = src.shape[-1]
-    lanes, plan, packed = _call(tuple(dims), tuple(strides), int(base), n,
-                                lanes)
-    src = src.contiguous()
-    out = torch.empty(src.shape[:-1] + (lanes,), dtype=src.dtype,
-                      device=src.device)
+    with obs.span("kernels.route"):
+        lanes, plan, packed = _call(tuple(dims), tuple(strides), int(base),
+                                    src.shape[-1], lanes)
+        src = src.contiguous()
+        out = torch.empty(src.shape[:-1] + (lanes,), dtype=src.dtype,
+                          device=src.device)
     if out.numel() == 0:
         return out
     batch = src.shape[0] if src.dim() == 2 else 1

@@ -44,6 +44,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import _build
 from .mdgather import _ELEM_SIZES, check_walk
 from .ref import mdscatter_ref, wrap_store_addresses
@@ -175,7 +176,8 @@ def mdscatter_(dst: torch.Tensor, values: torch.Tensor, dims: Sequence[int],
                 f"{dst.device}, got {mask.dtype} {tuple(mask.shape)} on "
                 f"{mask.device}")
     if not dst.is_cuda:
-        check_walk(dims, strides)
+        with obs.span("kernels.route"):
+            check_walk(dims, strides)
         return dst.copy_(mdscatter_ref(dst, values, dims, strides, base,
                                        mask))
     if dst.element_size() not in _ELEM_SIZES:
@@ -187,24 +189,26 @@ def mdscatter_(dst: torch.Tensor, values: torch.Tensor, dims: Sequence[int],
         with torch.cuda.device(device):
             return mdscatter_(dst, values, dims, strides, base, mask)
     n = dst.shape[-1]
-    walk = (tuple(dims), tuple(strides), int(base), n, lanes)
-    ndims, dims4, strides4, plan = _walk(*walk)
-    if plan.route == "none":            # no lane lands in the image
-        return dst
-    values = values.contiguous()
-    mask = None if mask is None else mask.contiguous()     # kept alive
-    mask_ptr = None if mask is None else mask.data_ptr()
-    batch = dst.shape[0] if dst.dim() == 2 else 1
-    stream = torch._C._cuda_getCurrentRawStream(device)
+    with obs.span("kernels.route"):
+        walk = (tuple(dims), tuple(strides), int(base), n, lanes)
+        ndims, dims4, strides4, plan = _walk(*walk)
+        if plan.route == "none":            # no lane lands in the image
+            return dst
+        values = values.contiguous()
+        mask = None if mask is None else mask.contiguous()     # kept alive
+        mask_ptr = None if mask is None else mask.data_ptr()
+        batch = dst.shape[0] if dst.dim() == 2 else 1
+        stream = torch._C._cuda_getCurrentRawStream(device)
+        if plan.route != "contiguous":
+            order = _device_lane_order(*walk, dst.device)
+            owner = (torch.empty(n, dtype=torch.int32, device=dst.device)
+                     if plan.route == "colliding" else None)
     if plan.route == "contiguous":
         code = _entry("mdscatter_contig_launch", _CONTIG_ARGTYPES)(
             dst.data_ptr(), values.data_ptr(), mask_ptr, batch, n, lanes,
             dst.element_size(), plan.lo, plan.hi - plan.lo, plan.shift,
             stream)
     else:
-        order = _device_lane_order(*walk, dst.device)
-        owner = (torch.empty(n, dtype=torch.int32, device=dst.device)
-                 if plan.route == "colliding" else None)
         code = _entry("mdscatter_launch", _WALK_ARGTYPES)(
             dst.data_ptr(), values.data_ptr(),
             None if owner is None else owner.data_ptr(), order.data_ptr(),

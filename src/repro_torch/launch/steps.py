@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from .. import obs
 from ..configs.base import ModelConfig, ShapeCell
 from ..models.common import (DTYPES, ShapeDtype, abstract_tree, axes_tree,
                              tree_leaves, tree_map, value_and_grad)
@@ -106,9 +107,10 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig):
     (reading one waits for the device)."""
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Dict, Dict, Dict[str, torch.Tensor]]:
-        (loss, metrics), grads = _loss_and_grads(model, params, batch)
-        params, opt_state, om = adamw_update(opt_cfg, params, grads,
-                                             opt_state)
+        with obs.span("launch.train_step", device=True):
+            (loss, metrics), grads = _loss_and_grads(model, params, batch)
+            params, opt_state, om = adamw_update(opt_cfg, params, grads,
+                                                 opt_state)
         return params, opt_state, {**metrics, **om, "loss": loss}
     return train_step
 

@@ -37,6 +37,7 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from ..checkpoint import CheckpointManager, latest_step, load_checkpoint
 from ..configs import ARCH_IDS, get_config
 from ..configs.base import ShapeCell
@@ -80,7 +81,8 @@ def state_template(model: LM, state_format: str) -> Dict:
 
 
 def _batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(x).to(device) for k, x in batch.items()}
+    with obs.span("launch.batch_to"):
+        return {k: torch.from_numpy(x).to(device) for k, x in batch.items()}
 
 
 def train_loop(cfg, cell: ShapeCell, loop: TrainLoopConfig,

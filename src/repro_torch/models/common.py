@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..parallel.axes import batch_sum, constrain, matmul, settled
 from ..trees import (tree_leaves, tree_map, tree_unflatten,  # noqa: F401
                      value_and_grad)
@@ -149,15 +150,18 @@ def _ce_chunk(h: torch.Tensor, lm_head: torch.Tensor, t: torch.Tensor,
               m: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """The masked CE sum of one sequence chunk: logits in the model type,
     then read as fp32 with the padded vocab entries at ``-1e30``."""
-    h = constrain(h, "batch", "seq", None)
-    logits = constrain(matmul(h, lm_head), "batch", None,
-                       "act_vocab").float()
-    v = logits.shape[-1]
-    vocab_mask = torch.arange(v, device=logits.device) < vocab_size
-    logits = torch.where(vocab_mask, logits, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = settled(torch.gather(logits, -1, t[..., None].long())).squeeze(-1)
-    return ((lse - gold) * m).sum()
+    with obs.span("model.ce", device=True, grad=True) as s:
+        h, lm_head = s.inputs(h, lm_head)
+        h = constrain(h, "batch", "seq", None)
+        logits = constrain(matmul(h, lm_head), "batch", None,
+                           "act_vocab").float()
+        v = logits.shape[-1]
+        vocab_mask = torch.arange(v, device=logits.device) < vocab_size
+        logits = torch.where(vocab_mask, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = settled(torch.gather(logits, -1,
+                                    t[..., None].long())).squeeze(-1)
+        return s.output(((lse - gold) * m).sum())
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, lm_head: torch.Tensor,

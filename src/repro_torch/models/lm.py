@@ -49,6 +49,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import obs
 from ..configs.base import ModelConfig
 from ..core.machine import resolve_device
 from ..parallel.axes import (constrain, einsum, matmul, merge_heads,
@@ -241,9 +242,11 @@ def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
         out = decode_attention(q, ck, cv, cache_index)
         side = (ck, cv)
     else:
-        out = chunked_attention(q, k, v, causal=causal,
-                                segment_ids=segment_ids,
-                                chunk=cfg.attn_chunk)
+        with obs.span("model.attention", device=True, grad=True) as s:
+            q, k, v = s.inputs(q, k, v)
+            out = s.output(chunked_attention(q, k, v, causal=causal,
+                                             segment_ids=segment_ids,
+                                             chunk=cfg.attn_chunk))
         side = (k, v)
     h = h + matmul(merge_heads(out), p["wo"])
     return constrain(h, "batch", "seq", None), side
@@ -264,7 +267,10 @@ def _cross_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
     if not decode:
         q = constrain(q, "batch", None, "act_heads", None)
         k = constrain(k, "batch", None, None, None)
-    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    with obs.span("model.attention", device=True, grad=True) as s:
+        q, k, v = s.inputs(q, k, v)
+        out = s.output(chunked_attention(q, k, v, causal=False,
+                                         chunk=cfg.attn_chunk))
     delta = matmul(merge_heads(out), p["wo"])
     if gated:
         delta = delta * torch.tanh(p["gate"]).to(delta.dtype)
@@ -289,6 +295,14 @@ def _cross_kv_from(cfg: ModelConfig, p_stack: Dict, src: torch.Tensor
 def _position_table(length: int, d: int, device: torch.device
                     ) -> torch.Tensor:
     return sinusoidal_positions(length, d, device=device)
+
+
+def _in_layer_span(fn, *args):
+    """``fn(*args)`` in the ``model.layer`` span: the function that
+    :meth:`LM._remat` checkpoints, so that the recompute enters it again
+    (as ``model.layer.recompute``, the one that takes device time)."""
+    with obs.span("model.layer", device=obs.in_backward()):
+        return fn(*args)
 
 
 def _mlp(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
@@ -390,13 +404,13 @@ class LM:
         outputs too (selective checkpointing).  Values never change."""
         remat = self.cfg.remat
         if remat == "none" or not torch.is_grad_enabled():
-            return fn(*args)
+            return _in_layer_span(fn, *args)
         if remat == "dots":
-            return checkpoint(fn, *args, use_reentrant=False,
+            return checkpoint(_in_layer_span, fn, *args, use_reentrant=False,
                               context_fn=_keep_products)
         if remat != "full":
             raise ValueError(f"unknown remat {remat!r}")
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(_in_layer_span, fn, *args, use_reentrant=False)
 
     def _dense_layer(self, p, cross, h, positions, segment_ids, mode,
                      cache_kv, cache_index):

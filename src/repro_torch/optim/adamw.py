@@ -18,6 +18,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from .. import obs
 from ..models.common import tree_leaves, tree_map
 
 
@@ -114,6 +115,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, grad_norm=None,
     norm of the whole gradient as ``grad_norm``, and for int8 moments a
     tree like ``params`` whose leaves reduce a moment's row absmax over
     the ranks that split its rows (``None`` where a row is whole)."""
+    with obs.span("optim.adamw", device=True):
+        return _update(cfg, params, grads, state, grad_norm, row_max)
+
+
+def _update(cfg: AdamWConfig, params, grads, state, grad_norm, row_max):
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
