@@ -192,8 +192,10 @@ non-zero:
    fp32 moments, 6 steps, a checkpoint every 3), then 3 steps in a fresh
    directory and a new ``train_loop`` call restarting from its checkpoint
    to step 6: the final loss equal to the straight run's (bit for bit, or
-   within 5e-3: which is printed); finite loss, grad norm > 0, no flash
-   launch (packed batches carry segment ids); one more step profiled
+   within 5e-3: which is printed); finite loss, grad norm > 0, every
+   self attention through the segmented flash kernels (packed batches
+   carry segment ids: each forward launch segmented, 2 forward launches a
+   backward one under remat "full", no plain chunk); one more step profiled
    (busy share, launches), peak memory, the checkpoint's save and restore
    timed.  whisper-base (6 + 6 layers) through ``make_train_step``: 4
    steps of 4 x 384 text tokens over 4 x 1500 frames, flash launches per
@@ -1269,6 +1271,242 @@ def time_flash_bwd(ref, flash_attention_bwd) -> dict:
                         "its bound at FP32_WORK_FLOPS; library_ms_fp32: "
                         "SDPA's fp32 backward)")
     return row
+
+
+# the packed training cell's self attention (qwen2-7b, portbench's
+# train-packed-4k): q (4, 28, 4096, 128) over 4 kv heads, causal, with the
+# segment ids of Poisson documents (mean 512, at least 16) packed into rows
+SEG_SHAPE = (4, 28, 4, 4096, 128)             # B, H, Hkv, S, D
+
+
+def packed_ids(b: int, s: int, seed: int) -> torch.Tensor:
+    """``(b, s)`` int32 ids on the card: ``pack_documents`` over Poisson
+    documents of mean 512 (at least 16), pads of id 0 at a row's end."""
+    from repro_torch.core.packing import pack_documents
+
+    rng = np.random.default_rng(seed)
+    docs = [np.zeros(max(16, int(rng.poisson(512))), np.int32)
+            for _ in range(4 * b * s // 512)]
+    return torch.from_numpy(pack_documents(docs, s)[1][:b]).to(
+        device="cuda", dtype=torch.int32)
+
+
+def _by_row(fn, *tensors) -> tuple:
+    """``fn`` over one batch row at a time (the plain versions' fp32
+    logits of the whole packed shape would take tens of GB), the results
+    joined on dim 0."""
+    outs = [fn(*(t[i:i + 1] for t in tensors))
+            for i in range(tensors[0].shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def segmented_bound(ids, h, hk, d, elem, per_pair):
+    """Least time for one causal call over contiguous segments: the
+    ``per_pair * D`` operations of each visible pair (a key at or before
+    its query in the query's own segment: ``c (c + 1) / 2`` pairs for a
+    run of ``c`` equal ids, pads included) for each q head at the bf16
+    peak, or the bytes of q, k, v and o (the forward; the backward's
+    ``flash_bwd_bound`` bytes are a few times more, and still far under
+    its operations here) over the memory rate."""
+    b, s = ids.shape
+    pairs = 0
+    for row in ids.cpu().numpy():
+        runs = np.diff(np.flatnonzero(np.diff(row, prepend=-1,
+                                              append=-1) != 0))
+        pairs += int((runs * (runs + 1) // 2).sum())
+    flops = float(per_pair) * d * h * pairs
+    nbytes = elem * d * (2 * b * h * s + 2 * b * hk * s) + 8 * b * s
+    by_ops, by_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(by_ops, by_bytes),
+            "operations" if by_ops > by_bytes else "bytes", pairs)
+
+
+def check_flash_segments(ref, flash_attention_bwd):
+    """The segmented flash kernels on the card at ``SEG_SHAPE``, in fp32
+    and bf16: the forward's output and ``lse`` against the plain versions
+    given the same ids (``FLASH_FP32_PATH_TOL`` / ``FLASH_BF16_TOL``,
+    ``LSE_TOL``), the backward's dq, dk, dv (``FLASH_BWD_*_TOL``) with the
+    GQA sum in the block and split; the pre-pass kernel bit-equal to
+    ``flash_segment_tiles_ref``, causal and not, on the packed ids and on
+    ids in no order with kv ids of another length; a call whose ids are
+    all equal bit-equal to the call without ids, forward and backward.
+    Returns (cases, the largest |difference|, the largest |lse
+    difference|)."""
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, hk, s, d = SEG_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    ids = packed_ids(b, s, seed=11)
+    worst = lse_worst = 0.0
+    cases = 0
+    for dtype, fwd_tol, (rtol, step) in (
+            (torch.float32, FLASH_FP32_PATH_TOL, FLASH_BWD_FP32_TOL),
+            (torch.bfloat16, FLASH_BF16_TOL, FLASH_BWD_BF16_TOL)):
+        q, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, hk, s, d, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        o, lse = fa._forward(q, k, v, True, scale, True, ids, ids)
+        want, want_lse = _by_row(
+            lambda q, k, v, i: ref.flash_attention_lse_ref(
+                q, k, v, causal=True, segment_ids=i, kv_segment_ids=i),
+            q, k, v, ids)
+        seen = torch.isfinite(want_lse)
+        if not torch.equal(torch.isneginf(lse), ~seen) or o[~seen].any():
+            raise AssertionError(f"segmented forward: rows without a key "
+                                 f"differ ({dtype})")
+        lse_err = float((lse - want_lse)[seen].abs().max())
+        if lse_err > LSE_TOL:
+            raise AssertionError(f"segmented lse != plain ({dtype}): "
+                                 f"{lse_err}")
+        lse_worst = max(lse_worst, lse_err)
+        if o.dtype != dtype or not torch.allclose(
+                o[seen].float(), want[seen].float(), **fwd_tol):
+            raise AssertionError(f"segmented forward != plain ({dtype}): "
+                                 f"max_abs_err {max_abs_err(o, want)}")
+        worst = max(worst, max_abs_err(o, want))
+        cases += 1
+        del want, want_lse
+        want = _by_row(
+            lambda *t: ref.flash_attention_bwd_ref(
+                *t[:6], causal=True, segment_ids=t[6], kv_segment_ids=t[6]),
+            q, k, v, o, lse, do, ids)
+        for split in (False, True):
+            with mock.patch.object(fa, "gqa_split",
+                                   lambda *a, split=split: split):
+                got = flash_attention_bwd(q, k, v, o, lse, do,
+                                          segment_ids=ids)
+            torch.cuda.synchronize()
+            for what, g, w in zip(("dq", "dk", "dv"), got, want):
+                top = float(w.float().abs().max())
+                if g.dtype != dtype or g.shape != w.shape or not \
+                        torch.allclose(g.float(), w.float(), rtol=rtol,
+                                       atol=step * top):
+                    raise AssertionError(
+                        f"segmented backward != plain: {what} {dtype} "
+                        f"(split {split}): max_abs_err {max_abs_err(g, w)} "
+                        f"(largest entry {top})")
+                worst = max(worst, max_abs_err(g, w))
+            cases += 1
+        del want, got
+        ones = torch.ones_like(ids)
+        plain = fa._forward(q, k, v, True, scale, True)
+        seg = fa._forward(q, k, v, True, scale, True, ones, ones)
+        grads = (flash_attention_bwd(q, k, v, *plain, do),
+                 flash_attention_bwd(q, k, v, *plain, do, segment_ids=ones))
+        if not all(torch.equal(bits(x), bits(y))
+                   for x, y in zip(plain + grads[0], seg + grads[1])):
+            raise AssertionError(f"equal ids != no ids ({dtype})")
+        cases += 1
+    rng = np.random.default_rng(12)
+    unordered = [torch.from_numpy(rng.integers(0, 5, shape)).to(
+        device="cuda", dtype=torch.int32) for shape in ((3, 300), (3, 70))]
+    for seg_q, seg_k in ((ids, ids), (unordered[0], unordered[0]),
+                         unordered):
+        for causal in (True, False):
+            got = fa._segment_tiles(seg_q, seg_k, causal)
+            want = ref.flash_segment_tiles_ref(seg_q.cpu(), seg_k.cpu(),
+                                               causal)
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(
+                    f"flash_seg_tiles_kernel != flash_segment_tiles_ref at "
+                    f"ids {tuple(seg_q.shape)} / {tuple(seg_k.shape)}, "
+                    f"causal {causal}")
+            cases += 1
+    return cases, worst, lse_worst
+
+
+def time_flash_segments(ref, flash_attention, flash_attention_bwd) -> dict:
+    """The segmented kernels at ``SEG_SHAPE`` in bf16, each beside its
+    bound over the visible pairs (``segmented_bound``), the plain chunked
+    route that packed calls took before (``plain_chunked_attention``:
+    the forward, and for the backward the forward and backward less the
+    forward; it recomputes each chunk in the backward, as in training) and
+    ``scaled_dot_product_attention`` with the boolean document mask on K/V
+    repeated to the q heads beforehand (the same function; timed only, the
+    port never calls it).  The pre-pass alone as its own row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import plain_chunked_attention
+
+    b, h, hk, s, d = SEG_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    ids = packed_ids(b, s, seed=11)
+    q, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, hk, s, d, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    tiles = fa._segment_tiles(ids, ids, True)
+    o, lse = fa._forward(q, k, v, True, scale, True, ids, ids, tiles)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    mask = (ids[:, None, :, None] == ids[:, None, None, :]) & causal
+    qs, ks, vs = (x.detach().requires_grad_() for x in (
+        q, k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1)))
+    so = sdpa(qs, ks, vs, attn_mask=mask)
+    qm, km, vm = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dom = do.transpose(1, 2)
+
+    def plain_fwd():
+        with torch.no_grad():
+            plain_chunked_attention(qm, km, vm, True, ids)
+
+    def plain_fwd_bwd():
+        torch.autograd.grad(plain_chunked_attention(qm, km, vm, True, ids),
+                            (qm, km, vm), dom)
+
+    plain_ms, plain_both_ms = time_ms(plain_fwd, 3), time_ms(plain_fwd_bwd, 3)
+    shape = (f"bf16 q ({b}, {h}, {s}, {d}), k/v ({b}, {hk}, {s}, {d}), "
+             f"causal, ids of {int((ids.diff(dim=1) != 0).sum()) + b} runs "
+             "(packed Poisson-512 documents and pads)")
+    library = ("torch.nn.functional.scaled_dot_product_attention (attn_mask:"
+               " the boolean document mask, K/V repeated to the q heads "
+               "before the timing)")
+    bound, by, pairs = segmented_bound(ids, h, hk, d, 2, 4)
+    rows = {"flash_attention_segmented": dict(
+        ms=time_ms(lambda: flash_attention(q, k, v, segment_ids=ids), 20),
+        device_ms=device_ms(
+            lambda: flash_attention(q, k, v, segment_ids=ids), 20),
+        device_ms_no_pre_pass=device_ms(lambda: fa._forward(
+            q, k, v, True, scale, False, ids, ids, tiles), 20),
+        bound_ms=bound, bound_by=by, visible_pairs=pairs,
+        causal_pairs=b * s * (s + 1) // 2,
+        plain_ms=plain_ms, plain="models.attention.plain_chunked_attention "
+                                 "(no grad)",
+        library_ms=device_ms(lambda: sdpa(q, ks, vs, attn_mask=mask), 10),
+        library=library, timed_at=shape + "; ms, device_ms: the pre-pass "
+                                          "and the forward")}
+    bound, by, _ = segmented_bound(ids, h, hk, d, 2, 10)
+    rows["flash_attention_bwd_segmented"] = dict(
+        ms=time_ms(lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, segment_ids=ids, tiles=tiles), 10),
+        device_ms=device_ms(lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, segment_ids=ids, tiles=tiles), 10),
+        bound_ms=bound, bound_by=by,
+        plain_ms=plain_both_ms - plain_ms, plain_ms_fwd_bwd=plain_both_ms,
+        plain="models.attention.plain_chunked_attention: its forward and "
+              "backward less its forward",
+        library_ms=device_ms(lambda: torch.autograd.grad(
+            so, (qs, ks, vs), do, retain_graph=True), 10),
+        library="the backward of " + library,
+        timed_at=shape + "; the forward's tiles given, as in training")
+    nq = -(-s // fa.SEG_TILE)
+    rows["flash_seg_tiles"] = dict(
+        ms=time_ms(lambda: fa._segment_tiles(ids, ids, True), 50),
+        device_ms=device_ms(lambda: fa._segment_tiles(ids, ids, True), 50),
+        bound_ms=(2 * 4 * b * s + 4 * 8 * b * 2 * nq) / HBM_BYTES_PER_S
+        * 1e3, bound_by="bytes",
+        plain_ms=time_ms(lambda: ref.flash_segment_tiles_ref(ids, ids, True),
+                         5),
+        plain="kernels.ref.flash_segment_tiles_ref on the card",
+        library_ms=None, library="none computes these records",
+        timed_at=f"ids ({b}, {s}) of the packed rows, both sides, causal")
+    del qs, ks, vs, so, qm, km, vm
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2764,9 +3002,11 @@ def drive_train_qwen2(flash_attention, flash_attention_bwd) -> dict:
     then 3 steps in a fresh directory and a new ``train_loop`` call that
     restarts from its checkpoint to step 6, whose loss must equal the
     straight run's (bit for bit or within ``RESUME_TOL``: which is
-    recorded).  Packed batches carry segment ids, so no flash kernel runs.
-    Then one more step profiled, and the checkpoint's save and restore
-    timed."""
+    recorded).  Packed batches carry segment ids, so every self attention
+    runs the segmented flash kernels: each forward launch segmented, two a
+    backward call (remat "full" recomputes the forward), none of the plain
+    route's chunks.  Then one more step profiled, and the checkpoint's save
+    and restore timed."""
     from repro_torch.configs import ShapeCell, get_config
     from repro_torch.data import DataConfig, make_train_batches
     from repro_torch.launch.steps import make_train_step
@@ -2778,7 +3018,10 @@ def drive_train_qwen2(flash_attention, flash_attention_bwd) -> dict:
     cell = ShapeCell("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
     opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-    before = (flash_attention.launches, flash_attention_bwd.launches)
+    from repro_torch.models.attention import chunked_attention
+    before = (flash_attention.launches, flash_attention_bwd.launches,
+              flash_attention.launches_segmented,
+              chunked_attention.plain_chunks)
 
     def run(steps, where):
         t0 = time.perf_counter()
@@ -2803,10 +3046,17 @@ def drive_train_qwen2(flash_attention, flash_attention_bwd) -> dict:
         raise AssertionError(f"qwen2-0.5b resumed loss {resumed['loss']} "
                              f"!= straight {straight['loss']}")
     launched = (flash_attention.launches - before[0],
-                flash_attention_bwd.launches - before[1])
-    if launched != (0, 0):
-        raise AssertionError(f"qwen2-0.5b training launched flash {launched}"
-                             " times: its packed batches carry segment ids")
+                flash_attention_bwd.launches - before[1],
+                flash_attention.launches_segmented - before[2],
+                chunked_attention.plain_chunks - before[3])
+    fwd, bwd, segmented, plain = launched
+    if not (fwd > 0 and segmented == fwd == 2 * bwd and plain == 0
+            and bwd % cfg.num_layers == 0):
+        raise AssertionError(f"qwen2-0.5b training: flash launches (forward,"
+                             f" backward, segmented) and plain chunks "
+                             f"{launched}: its packed batches carry segment "
+                             f"ids, every self attention takes the "
+                             f"segmented kernels")
 
     # the state after 6 steps, restored; one more step under the profiler
     from repro_torch.checkpoint import load_checkpoint
@@ -3964,16 +4214,21 @@ def main() -> int:
     def drive(path, needs, fn, *args):
         """Run one main path with every launch counter at 0 just before it
         and read just after (the flash wrappers' float32 launches also
-        as "<name> fp32"); each kernel in ``needs`` must have launched."""
+        as "<name> fp32", the forward's segmented ones as "<name>
+        segmented"); each kernel in ``needs`` must have launched."""
         for w in wrappers.values():
             w.launches = 0
-            if hasattr(w, "launches_fp32"):
-                w.launches_fp32 = 0
+            for sub in ("launches_fp32", "launches_segmented"):
+                if hasattr(w, sub):
+                    setattr(w, sub, 0)
         out = fn(*args)
         counts = {name: w.launches for name, w in wrappers.items()}
         counts.update({f"{name} fp32": w.launches_fp32
                        for name, w in wrappers.items()
                        if hasattr(w, "launches_fp32")})
+        counts.update({f"{name} segmented": w.launches_segmented
+                       for name, w in wrappers.items()
+                       if hasattr(w, "launches_segmented")})
         for name in needs:
             if counts[name] <= 0:
                 raise AssertionError(f"the {path} path never launched {name}")
@@ -3990,6 +4245,7 @@ def main() -> int:
                  for source, kernel in (
                      ("flash_attention", "flash_fwd_mma_kernel"),
                      ("flash_attention", "flash_fwd_tf32_kernel"),
+                     ("flash_attention", "flash_seg_tiles_kernel"),
                      ("flash_attention_bwd", "flash_bwd_delta_kernel"),
                      ("flash_attention_bwd", "flash_bwd_dkdv_mma_kernel"),
                      ("flash_attention_bwd", "flash_bwd_gqa_sum_kernel"),
@@ -4021,8 +4277,12 @@ def main() -> int:
     bwd_cases, worst["flash_attention_bwd"], lse_err, bwd_split = \
         check_flash_bwd(ref, flash_attention_bwd)
     timings["flash_attention_bwd"] = time_flash_bwd(ref, flash_attention_bwd)
+    seg_cases, worst["flash_attention_segmented"], seg_lse_err = \
+        check_flash_segments(ref, flash_attention_bwd)
+    timings.update(time_flash_segments(ref, flash_attention,
+                                       flash_attention_bwd))
     emit("kernels", seconds=time.perf_counter() - t0,
-         cases=cases + lm_cases + float_cases + bwd_cases,
+         cases=cases + lm_cases + float_cases + bwd_cases + seg_cases,
          tolerance={"mdgather, mdscatter, int8_matmul, bitplane_matmul, "
                     "float_binary, float_convert":
                     "bit-equal (max_abs_err must be 0)",
@@ -4032,8 +4292,14 @@ def main() -> int:
                                        f"{FLASH_BF16_TOL}; lse {LSE_TOL}",
                     "flash_attention_bwd": "(rtol, share of the largest "
                                            f"entry): fp32 {FLASH_BWD_FP32_TOL}"
-                                           f", bf16 {FLASH_BWD_BF16_TOL}"},
+                                           f", bf16 {FLASH_BWD_BF16_TOL}",
+                    "flash_attention_segmented": "the forward's and the "
+                                                 "backward's limits at "
+                                                 "SEG_SHAPE; flash_seg_tiles"
+                                                 " and ids all equal: "
+                                                 "bit-equal"},
          flash_lse_max_abs_err=lse_err, flash_bwd_gqa_split=bwd_split,
+         flash_segmented_lse_max_abs_err=seg_lse_err,
          max_abs_err=worst, mdgather_routes=gather_routes,
          mdgather_device_ops=gather_ops, mdscatter_routes=routes,
          mdscatter_device_ops=scatter_ops,
@@ -4168,6 +4434,9 @@ def main() -> int:
     fp32 = {name: sum(c[f"{name} fp32"] for c in (
         lm_counts, fam_counts, train_counts, mesh_counts, dry_counts,
         claims_counts)) for name in ("flash_attention", "flash_attention_bwd")}
+    segmented = sum(c["flash_attention segmented"] for c in (
+        lm_counts, fam_counts, train_counts, mesh_counts, dry_counts,
+        claims_counts))
 
     # ---- 7. result -------------------------------------------------------
     kernels = []
@@ -4180,6 +4449,8 @@ def main() -> int:
             "max_abs_err": worst[name], **t})
         if name in fp32:
             kernels[-1]["launches_fp32"] = fp32[name]
+        if name == "flash_attention":
+            kernels[-1]["launches_segmented"] = segmented
     emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

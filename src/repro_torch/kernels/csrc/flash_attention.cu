@@ -85,6 +85,36 @@
 // qwen2-0.5b's prefill 7.5 GFLOP -> 45.6 us, over its 33.6 MB of fp32
 // bytes, 10.0 us).
 //
+// Segment ids (packed documents).  Each kernel has a second instantiation,
+// SEG = true, for a call with q ids (B, Sq) and kv ids (B, Sk), int32: a
+// query sees only the keys of its own id (and causal where asked), the
+// plain route's rule, so pads (id 0) see only pads.  A call without ids
+// runs SEG = false, the code as it was: the flag is a template parameter,
+// not a branch in the loop.  One launch before the kernels,
+// flash_seg_tiles_kernel (below), reads the ids once a call and writes a
+// record for each 64-row q tile and each 64-row kv tile
+// (flash_segments.cuh): its least and largest id, up to three distinct
+// ids, and the range of rows of the other side whose tiles may share an
+// id with it (tiles of at most three ids each: an id in common; others:
+// their id intervals meet; under causal only tiles at or before the
+// diagonal).  The backward kernels take the same records.  With SEG:
+//   range  a block loops over its q tile's range of keys, inside the
+//          causal bound: on packed documents of mean 512 a q tile visits
+//          5.4 kv tiles of 64 against 32.5 on a causal row of 4096;
+//   skip   a warp skips a tile whose id interval misses its rows' (a
+//          tile of the range that holds other documents only);
+//   mask   the per-pair test of the ids joins the causal and Sk tests, and
+//          only on a tile that is not one id on both sides (a segment
+//          edge), so interior tiles of a document run unmasked;
+//   ids    the block's 64 row ids and each warp's id bounds sit in shared
+//          memory (fs_rows), not in registers, which the loops need (the
+//          D = 128 kernels use 240-255); kv ids are read from the card's
+//          memory, on edge tiles only.
+// The records over-approximate the pairs, so any ids are right, in any
+// order; only tiles with no pair of one id are skipped, and those are
+// masked out wholly, so a call whose ids are all equal visits and masks
+// the tiles of the call without ids, bit for bit.
+//
 // Both kernels also write the log-sum-exp of each row's scaled logits,
 // lse = m + log(l) in fp32 ((B, H, Sq), -inf on a row that saw no key),
 // when the caller passes an lse buffer: the backward kernels
@@ -94,6 +124,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_segments.cuh"
 #include "mma_sync.cuh"
 
 #define FA_NEG_INF (-1e30f)
@@ -112,6 +143,7 @@ struct FaShape {
     long long v_sb, v_sh, v_ss;
     int causal;
     float scale;
+    FsIds seg;                          // the segment ids (SEG kernels)
 };
 
 // ---------------------------------------------------------------------------
@@ -121,9 +153,10 @@ struct FaShape {
 #define FM_ROWS 64                  // q rows per block = kv rows per tile
 #define FM_THREADS 128              // 4 warps x 16 q rows
 
-template <int D>
+template <int D, bool SEG>
 constexpr size_t fm_smem_bytes() {  // q tile + two stages of k and v
-    return (size_t)5 * FM_ROWS * (D + 8) * sizeof(__nv_bfloat16);
+    return (size_t)5 * FM_ROWS * (D + 8) * sizeof(__nv_bfloat16) +
+           (SEG ? FS_SMEM_INTS * sizeof(int) : 0);
 }
 
 // Stage rows row0 .. row0 + 63 of one head into a padded tile
@@ -136,7 +169,7 @@ __device__ __forceinline__ void fm_stage(__nv_bfloat16* dst,
     cp_async_rows<FM_ROWS, D, FM_THREADS>(dst, src, stride, row0, end, tid);
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(FM_THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -148,6 +181,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(fm_smem);
     __nv_bfloat16* k_s = q_s + TILE;            // two stages
     __nv_bfloat16* v_s = k_s + 2 * TILE;        // two stages
+    int* ids_s = reinterpret_cast<int*>(v_s + 2 * TILE);   // (SEG) row ids
+    int* wb_s = ids_s + FS_TILE;                           // (SEG) bounds
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
@@ -158,22 +193,19 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* qb = q + b * s.q_sb + h * s.q_sh;
     const __nv_bfloat16* kb = k + b * s.k_sb + hk * s.k_sh;
     const __nv_bfloat16* vb = v + b * s.v_sb + hk * s.v_sh;
+    const long long qw0 = q0 + warp * 16;       // the warp's first q row
 
-    const long long nk = (s.sk + FM_ROWS - 1) / FM_ROWS;
-    long long upper = nk;
-    if (s.causal) {
-        const long long last =
-            (q0 + FM_ROWS < s.sq ? q0 + FM_ROWS : s.sq) - 1 + s.offset;
-        upper = last < 0 ? 0 : (last / FM_ROWS + 1 < nk ? last / FM_ROWS + 1
-                                                        : nk);
-    }
+    long long lower, upper;
+    fs_kv_range<SEG, FM_ROWS>(s, b, q0, lower, upper);
+    if constexpr (SEG)
+        fs_rows(ids_s, wb_s, s.seg.q + b * s.sq, s.sq, q0, tid);
 
-    // group 0: the q tile; group 1: kv tile 0
+    // group 0: the q tile; group 1: kv tile `lower`
     fm_stage<D>(q_s, qb, s.q_ss, q0, s.sq, tid);
     cp_async_commit();
-    if (upper > 0) {
-        fm_stage<D>(k_s, kb, s.k_ss, 0, s.sk, tid);
-        fm_stage<D>(v_s, vb, s.v_ss, 0, s.sk, tid);
+    if (upper > lower) {
+        fm_stage<D>(k_s, kb, s.k_ss, lower * FM_ROWS, s.sk, tid);
+        fm_stage<D>(v_s, vb, s.v_ss, lower * FM_ROWS, s.sk, tid);
     }
     cp_async_commit();
 
@@ -192,7 +224,6 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], q_addr + kk * 32);
 
-    const long long qw0 = q0 + warp * 16;       // the warp's first q row
     const long long pos0 = qw0 + g + s.offset;  // causal position, row g
     float o[D / 8][4];
 #pragma unroll
@@ -200,8 +231,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
 
-    for (long long j = 0; j < upper; ++j) {
-        const int st = (int)(j & 1);
+    for (long long j = lower; j < upper; ++j) {
+        const int st = (int)((j - lower) & 1);
         if (j + 1 < upper) {
             const long long next = (j + 1) * FM_ROWS;
             fm_stage<D>(k_s + (st ^ 1) * TILE, kb, s.k_ss, next, s.sk, tid);
@@ -212,7 +243,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         __syncthreads();
 
         const long long k0 = j * FM_ROWS;
-        if (!s.causal || k0 <= qw0 + 15 + s.offset) {
+        bool sees = !s.causal || k0 <= qw0 + 15 + s.offset;
+        bool split = false;                     // crosses a segment edge
+        if constexpr (SEG)
+            fs_warp_tile(wb_s + 2 * warp, fs_k_rec(s.seg, b, k0 / FS_TILE),
+                         sees, split);
+        if (sees) {
             // S = Q K^T for the warp's 16 rows x 64 keys
             float sc[FM_ROWS / 8][4];
 #pragma unroll
@@ -230,9 +266,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 }
             }
 
-            // scale in fp32, mask where the tile crosses the diagonal or Sk
+            // scale in fp32, mask where the tile crosses the diagonal, Sk
+            // or (SEG) a segment edge
             const bool edge = (s.causal && k0 + FM_ROWS - 1 > qw0 + s.offset)
-                              || k0 + FM_ROWS > s.sk;
+                              || k0 + FM_ROWS > s.sk || split;
             float tmax[2] = {FA_NEG_INF, FA_NEG_INF};
 #pragma unroll
             for (int n = 0; n < FM_ROWS / 8; ++n) {
@@ -242,8 +279,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     if (edge) {
                         const long long key = k0 + n * 8 + 2 * t + (e & 1);
                         const long long pos = pos0 + (e >> 1) * 8;
-                        const bool valid =
-                            key < s.sk && (!s.causal || pos >= key);
+                        bool valid = key < s.sk && (!s.causal || pos >= key);
+                        if constexpr (SEG)
+                            valid = valid && s.seg.k[b * s.sk + key] ==
+                                                 ids_s[warp * 16 + g +
+                                                       (e >> 1) * 8];
                         x = valid ? x : FA_NEG_INF;
                     }
                     sc[n][e] = x;
@@ -337,12 +377,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D>
 __host__ __device__ constexpr int ft_kv_rows() { return D == 64 ? 64 : 32; }
 
-template <int D>
+template <int D, bool SEG>
 constexpr size_t ft_smem_bytes() {  // q tile + two stages of k and v
-    return (size_t)(FT_ROWS + 4 * ft_kv_rows<D>()) * (D + 4) * sizeof(float);
+    return (size_t)(FT_ROWS + 4 * ft_kv_rows<D>()) * (D + 4) * sizeof(float) +
+           (SEG ? FS_SMEM_INTS * sizeof(int) : 0);
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(FT_THREADS)
 flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
@@ -352,6 +393,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* q_s = reinterpret_cast<float*>(ft_smem);     // FT_ROWS x LD
     float* k_s = q_s + FT_ROWS * LD;                     // two stages
     float* v_s = k_s + 2 * TILE;                         // two stages
+    int* ids_s = reinterpret_cast<int*>(v_s + 2 * TILE);   // (SEG) row ids
+    int* wb_s = ids_s + FS_TILE;                           // (SEG) bounds
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
@@ -362,21 +405,21 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* qb = q + b * s.q_sb + h * s.q_sh;
     const float* kb = k + b * s.k_sb + hk * s.k_sh;
     const float* vb = v + b * s.v_sb + hk * s.v_sh;
+    const long long qw0 = q0 + warp * 16;       // the warp's first q row
 
-    const long long nk = (s.sk + BK - 1) / BK;
-    long long upper = nk;
-    if (s.causal) {
-        const long long last =
-            (q0 + FT_ROWS < s.sq ? q0 + FT_ROWS : s.sq) - 1 + s.offset;
-        upper = last < 0 ? 0 : (last / BK + 1 < nk ? last / BK + 1 : nk);
-    }
+    long long lower, upper;
+    fs_kv_range<SEG, BK>(s, b, q0, lower, upper);
+    if constexpr (SEG)
+        fs_rows(ids_s, wb_s, s.seg.q + b * s.sq, s.sq, q0, tid);
 
-    // group 0: the q tile; group 1: kv tile 0
+    // group 0: the q tile; group 1: kv tile `lower`
     cp_async_rows_f32<FT_ROWS, D, FT_THREADS>(q_s, qb, s.q_ss, q0, s.sq, tid);
     cp_async_commit();
-    if (upper > 0) {
-        cp_async_rows_f32<BK, D, FT_THREADS>(k_s, kb, s.k_ss, 0, s.sk, tid);
-        cp_async_rows_f32<BK, D, FT_THREADS>(v_s, vb, s.v_ss, 0, s.sk, tid);
+    if (upper > lower) {
+        cp_async_rows_f32<BK, D, FT_THREADS>(k_s, kb, s.k_ss, lower * BK,
+                                             s.sk, tid);
+        cp_async_rows_f32<BK, D, FT_THREADS>(v_s, vb, s.v_ss, lower * BK,
+                                             s.sk, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -386,7 +429,6 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         q_s[(i / D) * LD + i % D] *= s.scale;
     __syncthreads();
 
-    const long long qw0 = q0 + warp * 16;       // the warp's first q row
     const long long pos0 = qw0 + g + s.offset;  // causal position, row g
     const float* q_w = q_s + (warp * 16 + g) * LD + t;
     float o[D / 8][4];
@@ -395,8 +437,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
 
-    for (long long j = 0; j < upper; ++j) {
-        const int st = (int)(j & 1);
+    for (long long j = lower; j < upper; ++j) {
+        const int st = (int)((j - lower) & 1);
         if (j + 1 < upper) {
             const long long next = (j + 1) * BK;
             cp_async_rows_f32<BK, D, FT_THREADS>(k_s + (st ^ 1) * TILE, kb,
@@ -409,7 +451,12 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         __syncthreads();
 
         const long long k0 = j * BK;
-        if (!s.causal || k0 <= qw0 + 15 + s.offset) {
+        bool sees = !s.causal || k0 <= qw0 + 15 + s.offset;
+        bool split = false;                     // crosses a segment edge
+        if constexpr (SEG)
+            fs_warp_tile(wb_s + 2 * warp, fs_k_rec(s.seg, b, k0 / FS_TILE),
+                         sees, split);
+        if (sees) {
             // S = Q K^T for the warp's 16 rows x BK keys
             float sc[BK / 8][4];
 #pragma unroll
@@ -429,9 +476,10 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 }
             }
 
-            // mask where the tile crosses the diagonal or Sk
+            // mask where the tile crosses the diagonal, Sk or (SEG) a
+            // segment edge
             const bool edge = (s.causal && k0 + BK - 1 > qw0 + s.offset)
-                              || k0 + BK > s.sk;
+                              || k0 + BK > s.sk || split;
             float tmax[2] = {FA_NEG_INF, FA_NEG_INF};
 #pragma unroll
             for (int n = 0; n < BK / 8; ++n) {
@@ -441,8 +489,11 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     if (edge) {
                         const long long key = k0 + n * 8 + 2 * t + (e & 1);
                         const long long pos = pos0 + (e >> 1) * 8;
-                        const bool valid =
-                            key < s.sk && (!s.causal || pos >= key);
+                        bool valid = key < s.sk && (!s.causal || pos >= key);
+                        if constexpr (SEG)
+                            valid = valid && s.seg.k[b * s.sk + key] ==
+                                                 ids_s[warp * 16 + g +
+                                                       (e >> 1) * 8];
                         x = valid ? x : FA_NEG_INF;
                     }
                     sc[n][e] = x;
@@ -521,6 +572,117 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// the segment pre-pass
+// ---------------------------------------------------------------------------
+
+#define FS_THREADS 256
+
+// The segment pre-pass, one block a row of the batch (a few microseconds:
+// 4 x 4096 ids in 19 us on this card).  Phase 1: each tile's record but
+// its range
+// (one thread a tile walks its 64 ids).  Phase 2, after the block's
+// barrier (which makes phase 1's global writes visible to the block): each
+// tile's range, from the first to the last tile of the other side that it
+// meets (flash_segments.cuh; kernels/ref.py::flash_segment_tiles_ref).
+__global__ void __launch_bounds__(FS_THREADS)
+flash_seg_tiles_kernel(const int* __restrict__ seg_q,
+                       const int* __restrict__ seg_k, int* __restrict__ tiles,
+                       long long sq, long long sk, int causal) {
+    const long long b = blockIdx.x;
+    const long long nq = (sq + FS_TILE - 1) / FS_TILE;
+    const long long nk = (sk + FS_TILE - 1) / FS_TILE;
+    int* rec = tiles + b * (nq + nk) * FS_REC;
+    for (long long t = threadIdx.x; t < nq + nk; t += blockDim.x) {
+        const bool is_q = t < nq;
+        const long long len = is_q ? sq : sk;
+        const int* ids = is_q ? seg_q + b * sq : seg_k + b * sk;
+        const long long r0 = (is_q ? t : t - nq) * FS_TILE;
+        const long long r1 = r0 + FS_TILE < len ? r0 + FS_TILE : len;
+        int lo = ids[r0], hi = lo, slot[FS_SLOTS], count = 1;
+#pragma unroll
+        for (int i = 0; i < FS_SLOTS; ++i) slot[i] = lo;
+        for (long long r = r0 + 1; r < r1; ++r) {
+            const int x = ids[r];
+            lo = min(lo, x);
+            hi = max(hi, x);
+            bool seen = false;
+#pragma unroll
+            for (int i = 0; i < FS_SLOTS; ++i)
+                seen |= i < count && slot[i] == x;
+            if (!seen && count <= FS_SLOTS) {
+                if (count < FS_SLOTS) slot[count] = x;
+                ++count;
+            }
+        }
+        if (count > FS_SLOTS) {             // an interval: slots the least
+#pragma unroll
+            for (int i = 0; i < FS_SLOTS; ++i) slot[i] = lo;
+        } else {                            // sorted, the least in the rest
+#pragma unroll
+            for (int i = 0; i < FS_SLOTS; ++i)
+#pragma unroll
+                for (int j = 0; j + 1 < FS_SLOTS; ++j)
+                    if (j + 1 < count && slot[j] > slot[j + 1]) {
+                        const int x = slot[j];
+                        slot[j] = slot[j + 1];
+                        slot[j + 1] = x;
+                    }
+#pragma unroll
+            for (int i = 0; i < FS_SLOTS; ++i)
+                if (i >= count) slot[i] = slot[0];
+        }
+        int* r = rec + t * FS_REC;
+        r[0] = lo;
+        r[1] = hi;
+#pragma unroll
+        for (int i = 0; i < FS_SLOTS; ++i) r[4 + i] = slot[i];
+        r[7] = count;
+    }
+    __syncthreads();
+    for (long long t = threadIdx.x; t < nq + nk; t += blockDim.x) {
+        const bool is_q = t < nq;
+        const int* me = rec + t * FS_REC;
+        const int lo = me[0], hi = me[1], count = me[7];
+        const int s0 = me[4], s1 = me[5], s2 = me[6];
+        const long long first_other = is_q ? nq : 0, n_other = is_q ? nk : nq;
+        long long first = -1, last = -1;
+        for (long long u = 0; u < n_other; ++u) {
+            if (causal) {                   // the K tile starts past the
+                const long long tq = is_q ? t : u;      // q tile's diagonal
+                const long long tk = is_q ? u : t - nq;
+                const long long row = (tq + 1) * FS_TILE < sq
+                                          ? (tq + 1) * FS_TILE - 1 : sq - 1;
+                if (tk * FS_TILE > row + (sk - sq)) {
+                    if (is_q) break;
+                    continue;
+                }
+            }
+            const int* o = rec + (first_other + u) * FS_REC;
+            bool meet;
+            if (count <= FS_SLOTS && o[7] <= FS_SLOTS) {
+                meet = false;
+#pragma unroll
+                for (int i = 0; i < FS_SLOTS; ++i)
+                    meet |= o[4 + i] == s0 || o[4 + i] == s1 ||
+                            o[4 + i] == s2;
+            } else {
+                meet = lo <= o[1] && o[0] <= hi;
+            }
+            if (meet) {
+                if (first < 0) first = u;
+                last = u;
+            }
+        }
+        const long long rows = is_q ? sk : sq;
+        const long long end =
+            (last + 1) * FS_TILE < rows ? (last + 1) * FS_TILE : rows;
+        int* r = rec + t * FS_REC;
+        r[2] = first < 0 ? 0 : (int)(first * FS_TILE);
+        r[3] = first < 0 ? 0 : (int)end;
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -538,21 +700,47 @@ static int launch(Kernel kernel, size_t smem, int rows, int threads,
     return (int)cudaGetLastError();
 }
 
+template <bool SEG>
+static int launch_dtype(int dtype, int head_dim, const void* q,
+                        const void* k, const void* v, void* out, float* l,
+                        const FaShape& s, long long bh, cudaStream_t st) {
+    if (dtype == 0 && head_dim == 64)
+        return launch<float>(flash_fwd_tf32_kernel<64, SEG>,
+                             ft_smem_bytes<64, SEG>(), FT_ROWS, FT_THREADS,
+                             q, k, v, out, l, s, bh, st);
+    if (dtype == 0 && head_dim == 128)
+        return launch<float>(flash_fwd_tf32_kernel<128, SEG>,
+                             ft_smem_bytes<128, SEG>(), FT_ROWS, FT_THREADS,
+                             q, k, v, out, l, s, bh, st);
+    if (dtype == 1 && head_dim == 64)
+        return launch<__nv_bfloat16>(flash_fwd_mma_kernel<64, SEG>,
+                                     fm_smem_bytes<64, SEG>(), FM_ROWS,
+                                     FM_THREADS, q, k, v, out, l, s, bh, st);
+    if (dtype == 1 && head_dim == 128)
+        return launch<__nv_bfloat16>(flash_fwd_mma_kernel<128, SEG>,
+                                     fm_smem_bytes<128, SEG>(), FM_ROWS,
+                                     FM_THREADS, q, k, v, out, l, s, bh, st);
+    return -1;
+}
+
 // q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D), each given by element strides of
 // its first three dimensions (the last is dense); out: (B, H, Sq, D)
 // contiguous, of q's type; lse: (B, H, Sq) fp32 contiguous, or null to
 // skip it.  dtype 0 = float32, 1 = bfloat16 (base pointers and strides
-// 16-byte aligned in both: cp.async); head_dim 64 or 128.  The
-// caller guarantees B*H, Sq > 0 and H % Hkv == 0.  Returns the CUDA error
-// code of the first failing call (0 = success), or -1 for a type or head
-// dimension no kernel is instantiated for.
+// 16-byte aligned in both: cp.async); head_dim 64 or 128.  seg_q, seg_k,
+// tiles: null, or the segment ids (int32 (B, Sq), (B, Sk), contiguous) and
+// the pre-pass's records (flash_segment_tiles_launch), which select the
+// segmented kernels.  The caller guarantees B*H, Sq > 0 and H % Hkv == 0.
+// Returns the CUDA error code of the first failing call (0 = success), or
+// -1 for a type or head dimension no kernel is instantiated for.
 extern "C" int flash_attention_launch(
         const void* q, const void* k, const void* v, void* out, void* lse,
         int dtype, int head_dim, long long batch, long long heads,
         long long kv_heads, long long sq, long long sk, long long q_sb, long long q_sh,
         long long q_ss, long long k_sb, long long k_sh, long long k_ss,
         long long v_sb, long long v_sh, long long v_ss, int causal,
-        float scale, void* stream) {
+        float scale, const void* seg_q, const void* seg_k, const void* tiles,
+        void* stream) {
     FaShape s;
     s.heads = heads;
     s.kv_group = heads / kv_heads;
@@ -564,22 +752,31 @@ extern "C" int flash_attention_launch(
     s.v_sb = v_sb; s.v_sh = v_sh; s.v_ss = v_ss;
     s.causal = causal;
     s.scale = scale;
+    s.seg.q = (const int*)seg_q;
+    s.seg.k = (const int*)seg_k;
+    s.seg.tiles = (const int*)tiles;
+    s.seg.nq = (sq + FS_TILE - 1) / FS_TILE;
+    s.seg.nk = (sk + FS_TILE - 1) / FS_TILE;
     const long long bh = batch * heads;
     cudaStream_t st = (cudaStream_t)stream;
     float* l = (float*)lse;
-    if (dtype == 0 && head_dim == 64)
-        return launch<float>(flash_fwd_tf32_kernel<64>, ft_smem_bytes<64>(),
-                             FT_ROWS, FT_THREADS, q, k, v, out, l, s, bh, st);
-    if (dtype == 0 && head_dim == 128)
-        return launch<float>(flash_fwd_tf32_kernel<128>, ft_smem_bytes<128>(),
-                             FT_ROWS, FT_THREADS, q, k, v, out, l, s, bh, st);
-    if (dtype == 1 && head_dim == 64)
-        return launch<__nv_bfloat16>(flash_fwd_mma_kernel<64>,
-                                     fm_smem_bytes<64>(), FM_ROWS, FM_THREADS,
-                                     q, k, v, out, l, s, bh, st);
-    if (dtype == 1 && head_dim == 128)
-        return launch<__nv_bfloat16>(flash_fwd_mma_kernel<128>,
-                                     fm_smem_bytes<128>(), FM_ROWS,
-                                     FM_THREADS, q, k, v, out, l, s, bh, st);
-    return -1;
+    if (seg_q != nullptr)
+        return launch_dtype<true>(dtype, head_dim, q, k, v, out, l, s, bh,
+                                  st);
+    return launch_dtype<false>(dtype, head_dim, q, k, v, out, l, s, bh, st);
+}
+
+// The segment pre-pass: seg_q (B, Sq), seg_k (B, Sk) int32 contiguous ->
+// tiles (B, nq + nk, FS_REC) int32 (flash_segments.cuh), one block a row.
+// The caller guarantees B, Sq, Sk > 0.  Returns the CUDA error code of the
+// launch (0 = success).
+extern "C" int flash_segment_tiles_launch(const void* seg_q,
+                                          const void* seg_k, void* tiles,
+                                          long long batch, long long sq,
+                                          long long sk, int causal,
+                                          void* stream) {
+    flash_seg_tiles_kernel<<<(unsigned)batch, FS_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const int*)seg_q, (const int*)seg_k, (int*)tiles, sq, sk, causal);
+    return (int)cudaGetLastError();
 }

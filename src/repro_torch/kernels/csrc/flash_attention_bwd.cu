@@ -85,6 +85,19 @@
 //   64, 204 KB at D = 128), dQ two of 64 rows and four of the K/V tile
 //   (104 KB, 135 KB).  Sums in fp32 and expf, as the plain version.
 //
+// Segment ids: each dK/dV and dQ kernel, both dtypes, has a SEG = true
+// instantiation for a call with the forward's ids, over the forward's
+// segment records (flash_attention.cu, flash_segments.cuh; a call without
+// ids runs SEG = false, the code as it was).  The dK/dV block loops over
+// its K tile's range of q rows (over each q head), the dQ block over its q
+// tile's range of keys, each inside the causal bound; a warp skips a tile
+// whose id interval misses its own keys' (dK/dV) or rows' (dQ); the
+// per-pair test of the ids joins the mask only on a tile that is not one
+// id on both sides.  The dK/dV block stages each q tile's ids beside its
+// lse and D; the block's own ids and each warp's bounds sit in shared
+// memory (fs_rows).  A dK/dV block whose range is empty (kv ids that no
+// query shares) writes zeros.
+//
 // Every kernel sums in a fixed order with no atomics, so a training step
 // is deterministic; dQ has its own kernel that recomputes S and dP.
 //
@@ -101,6 +114,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_segments.cuh"
 #include "mma_sync.cuh"
 
 struct FbShape {
@@ -112,7 +126,28 @@ struct FbShape {
     long long do_sb, do_sh, do_ss;
     int causal;
     float scale;
+    FsIds seg;                              // the segment ids (SEG kernels)
 };
+
+// The q tiles of a dK/dV block (K tile k0): the first q row i_first and
+// the number of 64-row tiles from it, the causal bound and, with SEG,
+// inside it the pre-pass's range of q rows.
+template <bool SEG>
+__device__ __forceinline__ void fb_q_range(const FbShape& s, long long b,
+                                           long long k0, long long& i_first,
+                                           long long& n_tiles) {
+    // the first q tile with a row that sees key k0 (always < Sq: k0 < Sk)
+    i_first = 0;
+    if (s.causal && k0 - s.offset > 0)
+        i_first = (k0 - s.offset) / 64 * 64;
+    if constexpr (!SEG) {
+        n_tiles = (s.sq - i_first + 63) / 64;
+    } else {
+        const int4 rec = fs_k_rec(s.seg, b, k0 / FS_TILE);
+        if (rec.z > i_first) i_first = rec.z;
+        n_tiles = rec.w > i_first ? (rec.w - i_first + 63) / 64 : 0;
+    }
+}
 
 __device__ __forceinline__ float fb_load(const float* p) { return *p; }
 __device__ __forceinline__ float fb_load(const __nv_bfloat16* p) {
@@ -152,10 +187,15 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 typedef __nv_bfloat16 bf16;
 
-template <int D>
+// Ints past the lse and D rows of a segmented kernel: two staged rows of q
+// ids (dK/dV) and fs_rows' ids and bounds.
+#define FB_SEG_INTS (2 * FBM_ROWS + FS_SMEM_INTS)
+
+template <int D, bool SEG>
 constexpr size_t fbm_smem_bytes() {  // six padded tiles + 2 x 2 rows of 64
     return (size_t)6 * FBM_ROWS * (D + 8) * sizeof(bf16) +
-           (size_t)4 * FBM_ROWS * sizeof(float);
+           (size_t)4 * FBM_ROWS * sizeof(float) +
+           (SEG ? FB_SEG_INTS * sizeof(int) : 0);
 }
 
 template <int D>
@@ -188,7 +228,7 @@ __device__ __forceinline__ void fbm_a_from_c(uint32_t (&a)[4],
 // kv head blockIdx.y % Hkv and writes dk, dv (B, Hkv, Sk, D); TO = float
 // (the GQA split): the block takes q head blockIdx.y % H alone and writes
 // its partials to dk, dv (B, H, Sk, D).
-template <int D, typename TO>
+template <int D, typename TO, bool SEG>
 __global__ void __launch_bounds__(FBM_THREADS)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -208,6 +248,9 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
     bf16* do_s = q_s + 2 * TILE;             // two stages
     float* lse_s = reinterpret_cast<float*>(do_s + 2 * TILE);  // two stages
     float* dl_s = lse_s + 2 * FBM_ROWS;                        // two stages
+    int* id_s = reinterpret_cast<int*>(dl_s + 2 * FBM_ROWS);   // (SEG) two
+    int* kid_s = id_s + 2 * FBM_ROWS;           // (SEG) the block's key ids
+    int* wb_s = kid_s + FS_TILE;                // (SEG) each warp's bounds
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
@@ -219,11 +262,10 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
     const long long k0 = (long long)blockIdx.x * FBM_ROWS;
     const long long kw0 = k0 + warp * 16;       // the warp's first key
 
-    // the first q tile with a row that sees key k0 (always < Sq: k0 < Sk)
-    long long i_first = 0;
-    if (s.causal && k0 - s.offset > 0)
-        i_first = (k0 - s.offset) / FBM_ROWS * FBM_ROWS;
-    const long long n_tiles = (s.sq - i_first + FBM_ROWS - 1) / FBM_ROWS;
+    long long i_first, n_tiles;
+    fb_q_range<SEG>(s, b, k0, i_first, n_tiles);
+    if constexpr (SEG)
+        fs_rows(kid_s, wb_s, s.seg.k + b * s.sk, s.sk, k0, tid);
     const long long steps = n_heads * n_tiles;
 
     // step j: q head h_first + j / n_tiles, q tile i_first + 64 (j % n_tiles)
@@ -239,13 +281,21 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
             const long long row = (b * s.heads + h) * s.sq + i;
             lse_s[st * FBM_ROWS + tid] = i < s.sq ? lse[row] : 0.f;
             dl_s[st * FBM_ROWS + tid] = i < s.sq ? delta[row] : 0.f;
+            if constexpr (SEG)
+                id_s[st * FBM_ROWS + tid] =
+                    i < s.sq ? s.seg.q[b * s.sq + i] : 0;
         }
     };
 
-    // group 0: the K and V tiles and step 0's q and dO
-    fbm_stage<D>(k_s, k + b * s.k_sb + hk * s.k_sh, s.k_ss, k0, s.sk, tid);
-    fbm_stage<D>(v_s, v + b * s.v_sb + hk * s.v_sh, s.v_ss, k0, s.sk, tid);
-    stage(0, 0);
+    // group 0: the K and V tiles and step 0's q and dO (none where the
+    // pre-pass found no q tile: the block writes zeros)
+    if (!SEG || steps > 0) {
+        fbm_stage<D>(k_s, k + b * s.k_sb + hk * s.k_sh, s.k_ss, k0, s.sk,
+                     tid);
+        fbm_stage<D>(v_s, v + b * s.v_sb + hk * s.v_sh, s.v_ss, k0, s.sk,
+                     tid);
+        stage(0, 0);
+    }
     cp_async_commit();
 
     // lane addresses (flash_attention.cu): A tiles and .trans B tiles take
@@ -272,11 +322,18 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
         __syncthreads();
 
         const long long i0 = i_first + (j % n_tiles) * FBM_ROWS;
-        if (!s.causal || i0 + FBM_ROWS - 1 + s.offset >= kw0) {
+        bool sees = !s.causal || i0 + FBM_ROWS - 1 + s.offset >= kw0;
+        bool split = false;                     // crosses a segment edge
+        if constexpr (SEG)
+            fs_warp_tile(wb_s + 2 * warp, fs_q_rec(s.seg, b, i0 / FS_TILE),
+                         sees, split);
+        if (sees) {
             const bool edge = (s.causal && i0 + s.offset < kw0 + 15) ||
-                              i0 + FBM_ROWS > s.sq || kw0 + 16 > s.sk;
+                              i0 + FBM_ROWS > s.sq || kw0 + 16 > s.sk ||
+                              split;
             const float* lse_t = lse_s + st * FBM_ROWS;
             const float* dl_t = dl_s + st * FBM_ROWS;
+            const int* id_t = id_s + st * FBM_ROWS;
             const uint32_t q_col = smem_addr(q_s + st * TILE + b_lane);
             const uint32_t do_col = smem_addr(do_s + st * TILE + b_lane);
             const uint32_t q_tr = smem_addr(q_s + st * TILE + a_lane);
@@ -319,9 +376,12 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
                         if (edge) {
                             const long long key = kw0 + g + 8 * (e >> 1);
                             const long long i = i0 + c;
-                            const bool valid =
-                                key < s.sk && i < s.sq &&
-                                (!s.causal || i + s.offset >= key);
+                            bool valid = key < s.sk && i < s.sq &&
+                                         (!s.causal || i + s.offset >= key);
+                            if constexpr (SEG)
+                                valid = valid &&
+                                        id_t[c] == kid_s[warp * 16 + g +
+                                                         (e >> 1) * 8];
                             p = valid ? p : 0.f;
                         }
                         sc[n][e] = p;
@@ -398,7 +458,7 @@ flash_bwd_gqa_sum_kernel(const float* __restrict__ part, TO* __restrict__ dk,
 }
 
 // dQ of one 64-row q tile of q head blockIdx.y % H.
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(FBM_THREADS)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
@@ -413,6 +473,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     bf16* do_s = q_s + TILE;
     bf16* k_s = do_s + TILE;                    // two stages
     bf16* v_s = k_s + 2 * TILE;                 // two stages
+    int* ids_s = reinterpret_cast<int*>(v_s + 2 * TILE);   // (SEG) row ids
+    int* wb_s = ids_s + FS_TILE;                           // (SEG) bounds
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
@@ -424,22 +486,18 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     const bf16* kb = k + b * s.k_sb + hk * s.k_sh;
     const bf16* vb = v + b * s.v_sb + hk * s.v_sh;
 
-    const long long nk = (s.sk + FBM_ROWS - 1) / FBM_ROWS;
-    long long upper = nk;
-    if (s.causal) {
-        const long long last =
-            (q0 + FBM_ROWS < s.sq ? q0 + FBM_ROWS : s.sq) - 1 + s.offset;
-        upper = last < 0 ? 0 : (last / FBM_ROWS + 1 < nk ? last / FBM_ROWS + 1
-                                                         : nk);
-    }
+    long long lower, upper;
+    fs_kv_range<SEG, FBM_ROWS>(s, b, q0, lower, upper);
+    if constexpr (SEG)
+        fs_rows(ids_s, wb_s, s.seg.q + b * s.sq, s.sq, q0, tid);
 
-    // group 0: the q and dO tiles and K/V tile 0
+    // group 0: the q and dO tiles and K/V tile `lower`
     fbm_stage<D>(q_s, q + b * s.q_sb + h * s.q_sh, s.q_ss, q0, s.sq, tid);
     fbm_stage<D>(do_s, dout + b * s.do_sb + h * s.do_sh, s.do_ss, q0, s.sq,
                  tid);
-    if (upper > 0) {
-        fbm_stage<D>(k_s, kb, s.k_ss, 0, s.sk, tid);
-        fbm_stage<D>(v_s, vb, s.v_ss, 0, s.sk, tid);
+    if (upper > lower) {
+        fbm_stage<D>(k_s, kb, s.k_ss, lower * FBM_ROWS, s.sk, tid);
+        fbm_stage<D>(v_s, vb, s.v_ss, lower * FBM_ROWS, s.sk, tid);
     }
     cp_async_commit();
 
@@ -462,8 +520,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     for (int n = 0; n < D / 8; ++n)
         dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
 
-    for (long long j = 0; j < upper; ++j) {
-        const int st = (int)(j & 1);
+    for (long long j = lower; j < upper; ++j) {
+        const int st = (int)((j - lower) & 1);
         if (j + 1 < upper) {
             const long long next = (j + 1) * FBM_ROWS;
             fbm_stage<D>(k_s + (st ^ 1) * TILE, kb, s.k_ss, next, s.sk, tid);
@@ -474,7 +532,12 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
         __syncthreads();
 
         const long long k0 = j * FBM_ROWS;
-        if (!s.causal || k0 <= qw0 + 15 + s.offset) {
+        bool sees = !s.causal || k0 <= qw0 + 15 + s.offset;
+        bool split = false;                     // crosses a segment edge
+        if constexpr (SEG)
+            fs_warp_tile(wb_s + 2 * warp, fs_k_rec(s.seg, b, k0 / FS_TILE),
+                         sees, split);
+        if (sees) {
             // S = Q K^T, dP = dO V^T: 16 q rows x 64 keys
             float sc[FBM_ROWS / 8][4], dp[FBM_ROWS / 8][4];
 #pragma unroll
@@ -502,7 +565,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
             }
             // dS = P * (dP - D) in fp32
             const bool edge = (s.causal && k0 + FBM_ROWS - 1 > qw0 + s.offset)
-                              || k0 + FBM_ROWS > s.sk || qw0 + 16 > s.sq;
+                              || k0 + FBM_ROWS > s.sk || qw0 + 16 > s.sq ||
+                              split;
 #pragma unroll
             for (int n = 0; n < FBM_ROWS / 8; ++n) {
 #pragma unroll
@@ -512,9 +576,12 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                     if (edge) {
                         const long long key = k0 + n * 8 + 2 * t + (e & 1);
                         const long long row = qw0 + g + 8 * (e >> 1);
-                        const bool valid =
-                            key < s.sk && row < s.sq &&
-                            (!s.causal || row + s.offset >= key);
+                        bool valid = key < s.sk && row < s.sq &&
+                                     (!s.causal || row + s.offset >= key);
+                        if constexpr (SEG)
+                            valid = valid && s.seg.k[b * s.sk + key] ==
+                                                 ids_s[warp * 16 + g +
+                                                       (e >> 1) * 8];
                         p = valid ? p : 0.f;
                     }
                     dp[n][e] = p * (dp[n][e] - dl_r[e >> 1]);
@@ -565,16 +632,17 @@ __host__ __device__ constexpr int ftb_kv_rows() { return D == 64 ? 64 : 32; }
 // and dP^T again)
 enum { FTB_DK = 1, FTB_DV = 2, FTB_BOTH = 3 };
 
-template <int D>
+template <int D, bool SEG>
 constexpr size_t ftb_dkdv_smem_bytes() {  // K, V + two stages of q, dO
     return (size_t)6 * FBM_ROWS * (D + 4) * sizeof(float) +
-           (size_t)4 * FBM_ROWS * sizeof(float);
+           (size_t)4 * FBM_ROWS * sizeof(float) +
+           (SEG ? FB_SEG_INTS * sizeof(int) : 0);
 }
 
-template <int D>
+template <int D, bool SEG>
 constexpr size_t ftb_dq_smem_bytes() {    // q, dO + two stages of K, V
     return (size_t)(2 * FBM_ROWS + 4 * ftb_kv_rows<D>()) * (D + 4) *
-           sizeof(float);
+           sizeof(float) + (SEG ? FS_SMEM_INTS * sizeof(int) : 0);
 }
 
 // dK and / or dV (WHAT) of one 64-row K tile in float32, as
@@ -582,7 +650,7 @@ constexpr size_t ftb_dq_smem_bytes() {    // q, dO + two stages of K, V
 // blockIdx.y % Hkv and writes dk, dv (B, Hkv, Sk, D); SPLIT = true takes q
 // head blockIdx.y % H alone and writes its partials to dk, dv (B, H, Sk,
 // D).
-template <int D, bool SPLIT, int WHAT>
+template <int D, bool SPLIT, int WHAT, bool SEG>
 __global__ void __launch_bounds__(FBM_THREADS)
 flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -601,6 +669,9 @@ flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q,
     float* do_s = q_s + 2 * TILE;                // two stages
     float* lse_s = do_s + 2 * TILE;              // two stages
     float* dl_s = lse_s + 2 * FBM_ROWS;          // two stages
+    int* id_s = reinterpret_cast<int*>(dl_s + 2 * FBM_ROWS);   // (SEG) two
+    int* kid_s = id_s + 2 * FBM_ROWS;           // (SEG) the block's key ids
+    int* wb_s = kid_s + FS_TILE;                // (SEG) each warp's bounds
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
@@ -612,10 +683,10 @@ flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q,
     const long long k0 = (long long)blockIdx.x * FBM_ROWS;
     const long long kw0 = k0 + warp * 16;       // the warp's first key
 
-    long long i_first = 0;
-    if (s.causal && k0 - s.offset > 0)
-        i_first = (k0 - s.offset) / FBM_ROWS * FBM_ROWS;
-    const long long n_tiles = (s.sq - i_first + FBM_ROWS - 1) / FBM_ROWS;
+    long long i_first, n_tiles;
+    fb_q_range<SEG>(s, b, k0, i_first, n_tiles);
+    if constexpr (SEG)
+        fs_rows(kid_s, wb_s, s.seg.k + b * s.sk, s.sk, k0, tid);
     const long long steps = n_heads * n_tiles;
 
     // step j: q head h_first + j / n_tiles, q tile i_first + 64 (j % n_tiles)
@@ -633,15 +704,21 @@ flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q,
             const long long row = (b * s.heads + h) * s.sq + i;
             lse_s[st * FBM_ROWS + tid] = i < s.sq ? lse[row] : 0.f;
             dl_s[st * FBM_ROWS + tid] = i < s.sq ? delta[row] : 0.f;
+            if constexpr (SEG)
+                id_s[st * FBM_ROWS + tid] =
+                    i < s.sq ? s.seg.q[b * s.sq + i] : 0;
         }
     };
 
-    // group 0: the K and V tiles and step 0's q and dO
-    cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
-        k_s, k + b * s.k_sb + hk * s.k_sh, s.k_ss, k0, s.sk, tid);
-    cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
-        v_s, v + b * s.v_sb + hk * s.v_sh, s.v_ss, k0, s.sk, tid);
-    stage(0, 0);
+    // group 0: the K and V tiles and step 0's q and dO (none where the
+    // pre-pass found no q tile: the block writes zeros)
+    if (!SEG || steps > 0) {
+        cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
+            k_s, k + b * s.k_sb + hk * s.k_sh, s.k_ss, k0, s.sk, tid);
+        cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
+            v_s, v + b * s.v_sb + hk * s.v_sh, s.v_ss, k0, s.sk, tid);
+        stage(0, 0);
+    }
     cp_async_commit();
 
     // the warp's 16 keys are the A operand of S^T = K Q^T, dP^T = V dO^T
@@ -665,11 +742,18 @@ flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q,
         __syncthreads();
 
         const long long i0 = i_first + (j % n_tiles) * FBM_ROWS;
-        if (!s.causal || i0 + FBM_ROWS - 1 + s.offset >= kw0) {
+        bool sees = !s.causal || i0 + FBM_ROWS - 1 + s.offset >= kw0;
+        bool split = false;                     // crosses a segment edge
+        if constexpr (SEG)
+            fs_warp_tile(wb_s + 2 * warp, fs_q_rec(s.seg, b, i0 / FS_TILE),
+                         sees, split);
+        if (sees) {
             const bool edge = (s.causal && i0 + s.offset < kw0 + 15) ||
-                              i0 + FBM_ROWS > s.sq || kw0 + 16 > s.sk;
+                              i0 + FBM_ROWS > s.sq || kw0 + 16 > s.sk ||
+                              split;
             const float* lse_t = lse_s + st * FBM_ROWS;
             const float* dl_t = dl_s + st * FBM_ROWS;
+            const int* id_t = id_s + st * FBM_ROWS;
             const float* q_t = q_s + st * TILE;
             const float* do_t = do_s + st * TILE;
 #pragma unroll
@@ -714,9 +798,12 @@ flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q,
                         if (edge) {
                             const long long key = kw0 + g + 8 * (e >> 1);
                             const long long i = i0 + c;
-                            const bool valid =
-                                key < s.sk && i < s.sq &&
-                                (!s.causal || i + s.offset >= key);
+                            bool valid = key < s.sk && i < s.sq &&
+                                         (!s.causal || i + s.offset >= key);
+                            if constexpr (SEG)
+                                valid = valid &&
+                                        id_t[c] == kid_s[warp * 16 + g +
+                                                         (e >> 1) * 8];
                             p = valid ? p : 0.f;
                         }
                         sc[n][e] = p;
@@ -772,7 +859,7 @@ flash_bwd_dkdv_tf32_kernel(const float* __restrict__ q,
 
 // dQ of one 64-row q tile of q head blockIdx.y % H in float32, as
 // flash_bwd_dq_mma_kernel.
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(FBM_THREADS)
 flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -787,6 +874,8 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
     float* do_s = q_s + FBM_ROWS * LD;
     float* k_s = do_s + FBM_ROWS * LD;          // two stages
     float* v_s = k_s + 2 * TILE;                // two stages
+    int* ids_s = reinterpret_cast<int*>(v_s + 2 * TILE);   // (SEG) row ids
+    int* wb_s = ids_s + FS_TILE;                           // (SEG) bounds
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
@@ -798,22 +887,21 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
     const float* kb = k + b * s.k_sb + hk * s.k_sh;
     const float* vb = v + b * s.v_sb + hk * s.v_sh;
 
-    const long long nk = (s.sk + BK - 1) / BK;
-    long long upper = nk;
-    if (s.causal) {
-        const long long last =
-            (q0 + FBM_ROWS < s.sq ? q0 + FBM_ROWS : s.sq) - 1 + s.offset;
-        upper = last < 0 ? 0 : (last / BK + 1 < nk ? last / BK + 1 : nk);
-    }
+    long long lower, upper;
+    fs_kv_range<SEG, BK>(s, b, q0, lower, upper);
+    if constexpr (SEG)
+        fs_rows(ids_s, wb_s, s.seg.q + b * s.sq, s.sq, q0, tid);
 
-    // group 0: the q and dO tiles and K/V tile 0
+    // group 0: the q and dO tiles and K/V tile `lower`
     cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
         q_s, q + b * s.q_sb + h * s.q_sh, s.q_ss, q0, s.sq, tid);
     cp_async_rows_f32<FBM_ROWS, D, FBM_THREADS>(
         do_s, dout + b * s.do_sb + h * s.do_sh, s.do_ss, q0, s.sq, tid);
-    if (upper > 0) {
-        cp_async_rows_f32<BK, D, FBM_THREADS>(k_s, kb, s.k_ss, 0, s.sk, tid);
-        cp_async_rows_f32<BK, D, FBM_THREADS>(v_s, vb, s.v_ss, 0, s.sk, tid);
+    if (upper > lower) {
+        cp_async_rows_f32<BK, D, FBM_THREADS>(k_s, kb, s.k_ss, lower * BK,
+                                              s.sk, tid);
+        cp_async_rows_f32<BK, D, FBM_THREADS>(v_s, vb, s.v_ss, lower * BK,
+                                              s.sk, tid);
     }
     cp_async_commit();
 
@@ -832,8 +920,8 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
     for (int n = 0; n < D / 8; ++n)
         dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
 
-    for (long long j = 0; j < upper; ++j) {
-        const int st = (int)(j & 1);
+    for (long long j = lower; j < upper; ++j) {
+        const int st = (int)((j - lower) & 1);
         if (j + 1 < upper) {
             const long long next = (j + 1) * BK;
             cp_async_rows_f32<BK, D, FBM_THREADS>(k_s + (st ^ 1) * TILE, kb,
@@ -846,7 +934,12 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
         __syncthreads();
 
         const long long k0 = j * BK;
-        if (!s.causal || k0 <= qw0 + 15 + s.offset) {
+        bool sees = !s.causal || k0 <= qw0 + 15 + s.offset;
+        bool split = false;                     // crosses a segment edge
+        if constexpr (SEG)
+            fs_warp_tile(wb_s + 2 * warp, fs_k_rec(s.seg, b, k0 / FS_TILE),
+                         sees, split);
+        if (sees) {
             // S = Q K^T, dP = dO V^T: 16 q rows x BK keys
             float sc[BK / 8][4], dp[BK / 8][4];
 #pragma unroll
@@ -872,7 +965,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
             }
             // dS = P * (dP - D)
             const bool edge = (s.causal && k0 + BK - 1 > qw0 + s.offset)
-                              || k0 + BK > s.sk || qw0 + 16 > s.sq;
+                              || k0 + BK > s.sk || qw0 + 16 > s.sq || split;
 #pragma unroll
             for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
@@ -881,9 +974,12 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
                     if (edge) {
                         const long long key = k0 + n * 8 + 2 * t + (e & 1);
                         const long long row = qw0 + g + 8 * (e >> 1);
-                        const bool valid =
-                            key < s.sk && row < s.sq &&
-                            (!s.causal || row + s.offset >= key);
+                        bool valid = key < s.sk && row < s.sq &&
+                                     (!s.causal || row + s.offset >= key);
+                        if constexpr (SEG)
+                            valid = valid && s.seg.k[b * s.sk + key] ==
+                                                 ids_s[warp * 16 + g +
+                                                       (e >> 1) * 8];
                         p = valid ? p : 0.f;
                     }
                     dp[n][e] = p * (dp[n][e] - dl_r[e >> 1]);
@@ -946,7 +1042,7 @@ static int launch_smem(Kernel kernel, dim3 grid, size_t smem,
     return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool SEG>
 static int run_mma(const void* q, const void* k, const void* v,
                    const void* o, const float* lse, const void* dout,
                    void* dq, void* dk, void* dv, float* delta, float* part,
@@ -955,17 +1051,17 @@ static int run_mma(const void* q, const void* k, const void* v,
     if (err) return err;
     const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k,
                *vb = (const bf16*)v, *db = (const bf16*)dout;
-    const size_t smem = fbm_smem_bytes<D>();
+    const size_t smem = fbm_smem_bytes<D, SEG>();
     const unsigned k_tiles = (unsigned)((s.sk + FBM_ROWS - 1) / FBM_ROWS);
     if (part == nullptr) {
-        err = launch_smem(flash_bwd_dkdv_mma_kernel<D, bf16>,
+        err = launch_smem(flash_bwd_dkdv_mma_kernel<D, bf16, SEG>,
                           dim3(k_tiles, (unsigned)(batch * s.kv_heads)),
                           smem, stream, qb, kb, vb, db, lse,
                           (const float*)delta, (bf16*)dk, (bf16*)dv, s);
         if (err) return err;
     } else {
         const long long per = batch * s.heads * s.sk * D;
-        err = launch_smem(flash_bwd_dkdv_mma_kernel<D, float>,
+        err = launch_smem(flash_bwd_dkdv_mma_kernel<D, float, SEG>,
                           dim3(k_tiles, (unsigned)(batch * s.heads)), smem,
                           stream, qb, kb, vb, db, lse, (const float*)delta,
                           part, part + per, s);
@@ -978,7 +1074,7 @@ static int run_mma(const void* q, const void* k, const void* v,
         err = (int)cudaGetLastError();
         if (err) return err;
     }
-    return launch_smem(flash_bwd_dq_mma_kernel<D>,
+    return launch_smem(flash_bwd_dq_mma_kernel<D, SEG>,
                        dim3((unsigned)((s.sq + FBM_ROWS - 1) / FBM_ROWS),
                             (unsigned)(batch * s.heads)),
                        smem, stream, qb, kb, vb, db, lse,
@@ -987,29 +1083,29 @@ static int run_mma(const void* q, const void* k, const void* v,
 
 // the dK/dV launches of one backward in float32 (FTB_BOTH at D = 64, a dV
 // and a dK launch at D = 128)
-template <int D, bool SPLIT>
+template <int D, bool SPLIT, bool SEG>
 static int launch_dkdv_tf32(dim3 grid, cudaStream_t stream, const float* q,
                             const float* k, const float* v,
                             const float* dout, const float* lse,
                             const float* delta, float* dk, float* dv,
                             const FbShape& s) {
-    const size_t smem = ftb_dkdv_smem_bytes<D>();
+    const size_t smem = ftb_dkdv_smem_bytes<D, SEG>();
     if constexpr (D == 64) {
-        return launch_smem(flash_bwd_dkdv_tf32_kernel<D, SPLIT, FTB_BOTH>,
-                           grid, smem, stream, q, k, v, dout, lse, delta, dk,
-                           dv, s);
+        return launch_smem(
+            flash_bwd_dkdv_tf32_kernel<D, SPLIT, FTB_BOTH, SEG>, grid, smem,
+            stream, q, k, v, dout, lse, delta, dk, dv, s);
     } else {
         const int err = launch_smem(
-            flash_bwd_dkdv_tf32_kernel<D, SPLIT, FTB_DV>, grid, smem, stream,
-            q, k, v, dout, lse, delta, dk, dv, s);
+            flash_bwd_dkdv_tf32_kernel<D, SPLIT, FTB_DV, SEG>, grid, smem,
+            stream, q, k, v, dout, lse, delta, dk, dv, s);
         if (err) return err;
-        return launch_smem(flash_bwd_dkdv_tf32_kernel<D, SPLIT, FTB_DK>, grid,
-                           smem, stream, q, k, v, dout, lse, delta, dk, dv,
-                           s);
+        return launch_smem(
+            flash_bwd_dkdv_tf32_kernel<D, SPLIT, FTB_DK, SEG>, grid, smem,
+            stream, q, k, v, dout, lse, delta, dk, dv, s);
     }
 }
 
-template <int D>
+template <int D, bool SEG>
 static int run_tf32(const void* q, const void* k, const void* v,
                     const void* o, const float* lse, const void* dout,
                     void* dq, void* dk, void* dv, float* delta, float* part,
@@ -1020,13 +1116,13 @@ static int run_tf32(const void* q, const void* k, const void* v,
                 *vf = (const float*)v, *df = (const float*)dout;
     const unsigned k_tiles = (unsigned)((s.sk + FBM_ROWS - 1) / FBM_ROWS);
     if (part == nullptr) {
-        err = launch_dkdv_tf32<D, false>(
+        err = launch_dkdv_tf32<D, false, SEG>(
             dim3(k_tiles, (unsigned)(batch * s.kv_heads)), stream, qf, kf, vf,
             df, lse, delta, (float*)dk, (float*)dv, s);
         if (err) return err;
     } else {
         const long long per = batch * s.heads * s.sk * D;
-        err = launch_dkdv_tf32<D, true>(
+        err = launch_dkdv_tf32<D, true, SEG>(
             dim3(k_tiles, (unsigned)(batch * s.heads)), stream, qf, kf, vf,
             df, lse, delta, part, part + per, s);
         if (err) return err;
@@ -1038,11 +1134,32 @@ static int run_tf32(const void* q, const void* k, const void* v,
         err = (int)cudaGetLastError();
         if (err) return err;
     }
-    return launch_smem(flash_bwd_dq_tf32_kernel<D>,
+    return launch_smem(flash_bwd_dq_tf32_kernel<D, SEG>,
                        dim3((unsigned)((s.sq + FBM_ROWS - 1) / FBM_ROWS),
                             (unsigned)(batch * s.heads)),
-                       ftb_dq_smem_bytes<D>(), stream, qf, kf, vf, df, lse,
-                       (const float*)delta, (float*)dq, s);
+                       ftb_dq_smem_bytes<D, SEG>(), stream, qf, kf, vf, df,
+                       lse, (const float*)delta, (float*)dq, s);
+}
+
+template <bool SEG>
+static int run_dtype(int dtype, int head_dim, const void* q, const void* k,
+                     const void* v, const void* o, const float* l,
+                     const void* dout, void* dq, void* dk, void* dv,
+                     float* dl, float* pt, const FbShape& s, long long batch,
+                     cudaStream_t st) {
+    if (dtype == 0 && head_dim == 64)
+        return run_tf32<64, SEG>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s,
+                                 batch, st);
+    if (dtype == 0 && head_dim == 128)
+        return run_tf32<128, SEG>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s,
+                                  batch, st);
+    if (dtype == 1 && head_dim == 64)
+        return run_mma<64, SEG>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s,
+                                batch, st);
+    if (dtype == 1 && head_dim == 128)
+        return run_mma<128, SEG>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s,
+                                 batch, st);
+    return -1;
 }
 
 // q, dout: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); each given by the element
@@ -1052,7 +1169,9 @@ static int run_tf32(const void* q, const void* k, const void* v,
 // q's type; lse: (B, H, Sq) fp32 contiguous; delta: (B, H, Sq) fp32
 // scratch.  dq: (B, H, Sq, D), dk, dv: (B, Hkv, Sk, D), contiguous, of q's
 // type.  part: null, or a (2, B, H, Sk, D) fp32 scratch that selects the
-// GQA split.  dtype 0 = float32, 1 = bfloat16; head_dim 64 or 128.  The
+// GQA split.  seg_q, seg_k, tiles: null, or the forward's segment ids and
+// the pre-pass's records (flash_attention.cu), which select the segmented
+// kernels.  dtype 0 = float32, 1 = bfloat16; head_dim 64 or 128.  The
 // caller guarantees B*H, Sq, Sk > 0, H % Hkv == 0 and B*H < 65536.
 // Returns the CUDA error code of the first failing call (0 = success), or
 // -1 for a type or head dimension no kernel is instantiated for.
@@ -1061,7 +1180,9 @@ extern "C" int flash_attention_bwd_launch(
         const void* lse, const void* dout, void* dq, void* dk, void* dv,
         void* delta, void* part, int dtype, int head_dim, long long batch,
         long long heads, long long kv_heads, long long sq, long long sk,
-        const long long* strides, int causal, float scale, void* stream) {
+        const long long* strides, int causal, float scale,
+        const void* seg_q, const void* seg_k, const void* tiles,
+        void* stream) {
     FbShape s;
     s.heads = heads;
     s.kv_heads = kv_heads;
@@ -1075,21 +1196,18 @@ extern "C" int flash_attention_bwd_launch(
     s.do_sb = strides[9]; s.do_sh = strides[10]; s.do_ss = strides[11];
     s.causal = causal;
     s.scale = scale;
+    s.seg.q = (const int*)seg_q;
+    s.seg.k = (const int*)seg_k;
+    s.seg.tiles = (const int*)tiles;
+    s.seg.nq = (sq + FS_TILE - 1) / FS_TILE;
+    s.seg.nk = (sk + FS_TILE - 1) / FS_TILE;
     cudaStream_t st = (cudaStream_t)stream;
     const float* l = (const float*)lse;
     float* dl = (float*)delta;
     float* pt = (float*)part;
-    if (dtype == 0 && head_dim == 64)
-        return run_tf32<64>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s, batch,
-                            st);
-    if (dtype == 0 && head_dim == 128)
-        return run_tf32<128>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s,
-                             batch, st);
-    if (dtype == 1 && head_dim == 64)
-        return run_mma<64>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s, batch,
-                           st);
-    if (dtype == 1 && head_dim == 128)
-        return run_mma<128>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, s,
-                            batch, st);
-    return -1;
+    if (seg_q != nullptr)
+        return run_dtype<true>(dtype, head_dim, q, k, v, o, l, dout, dq, dk,
+                               dv, dl, pt, s, batch, st);
+    return run_dtype<false>(dtype, head_dim, q, k, v, o, l, dout, dq, dk, dv,
+                            dl, pt, s, batch, st);
 }

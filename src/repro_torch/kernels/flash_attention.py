@@ -52,6 +52,31 @@ here, and ``flash_bwd_gqa_sum_kernel`` sums them in head order.
 A call that needs no gradient (every serving call) launches the forward
 alone and keeps no ``lse``.
 
+Segment ids (packed documents): with ``segment_ids`` ``(B, Sq)`` and
+``kv_segment_ids`` ``(B, Sk)`` (int32 on the card) a query sees only the
+keys of its own id, and causal where asked; pads (id 0) see only pads.
+Every kernel above then runs an instantiation of its own (a template flag,
+so a call without ids runs the code it ran before), after one small
+launch, ``flash_seg_tiles_kernel`` (``csrc/flash_attention.cu``), that
+reads the ids once for the whole call: for each 64-row q tile and each
+64-row K tile its least and largest id, up to three distinct ids, and the
+range of rows of the other side whose tiles may share one of them (two
+tiles of at most three ids each meet where two ids are equal, others where
+their id intervals meet; under causal only tiles at or before the
+diagonal).  The forward and dQ kernels loop over their q tile's range of
+keys, the dK/dV kernel over its K tile's range of q rows, each inside the
+causal bound; a warp skips a tile whose id interval misses its own rows';
+the per-pair test of the ids runs only on a tile whose ids are not one
+value on both sides (a segment boundary), beside the causal and Sq / Sk
+edges as before.  The ranges over-approximate the pairs, so any ids are
+right, in any order; on packed documents a tile visits the tiles of its own
+documents.  The pre-pass's result (``tiles``, int32 ``(B, nq + nk, 8)``,
+:func:`~repro_torch.kernels.ref.flash_segment_tiles_ref`) is computed once
+in :class:`FlashAttentionFn`'s forward and handed to the backward (on
+the card only: the CPU's plain versions take the ids alone).
+Segmented forward launches are also counted in
+``flash_attention.launches_segmented``.
+
 Bound on this card at the qwen2-0.5b prefill shape: operations (the
 kernels' source notes have the arithmetic).
 
@@ -77,18 +102,20 @@ from torch.utils.flop_counter import (register_flop_formula,
                                      sdpa_flop_count)
 
 from . import _build
-from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
-                  flash_attention_ref)
+from .ref import (SEG_TILE, flash_attention_bwd_ref,
+                  flash_attention_lse_ref, flash_attention_ref)
 
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-             + [ctypes.c_longlong] * 14 + [ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_void_p])
+             + [ctypes.c_longlong] * 14 + [ctypes.c_int, ctypes.c_float]
+             + [ctypes.c_void_p] * 4)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
                  + [ctypes.c_longlong] * 5 + [ctypes.c_void_p, ctypes.c_int,
-                                              ctypes.c_float,
-                                              ctypes.c_void_p])
+                                              ctypes.c_float]
+                 + [ctypes.c_void_p] * 4)
+_SEG_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+                 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _entry(source: str, symbol: str, argtypes):
@@ -142,14 +169,84 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return float(scale if scale is not None else 1.0 / math.sqrt(d))
 
 
+def _segment_operands(q: torch.Tensor, k: torch.Tensor,
+                      segment_ids: Optional[torch.Tensor],
+                      kv_segment_ids: Optional[torch.Tensor]
+                      ) -> Tuple[Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+    """The ids as the kernels take them: int32 and contiguous, ``(B, Sq)``
+    and ``(B, Sk)`` (the kv ids default to the q ids); ``(None, None)``
+    without ids.  Raises on a shape, type or device they do not fit."""
+    if segment_ids is None:
+        return None, None
+    kv = segment_ids if kv_segment_ids is None else kv_segment_ids
+    if isinstance(segment_ids, DTensor) or isinstance(kv, DTensor):
+        raise TypeError("a DTensor reached the flash kernels as segment "
+                        "ids: pass the whole ids")
+    want = ((q.shape[0], q.shape[2]), (k.shape[0], k.shape[2]))
+    for ids, shape in zip((segment_ids, kv), want):
+        if tuple(ids.shape) != shape:
+            raise ValueError(f"segment ids {tuple(ids.shape)}: need "
+                             f"{shape} (B, Sq) and (B, Sk)")
+        if ids.dtype.is_floating_point or ids.dtype.is_complex or \
+                ids.dtype == torch.bool:
+            raise TypeError(f"segment ids of type {ids.dtype}: need ints")
+        if ids.device != q.device:
+            raise ValueError("segment ids must lie on q's device")
+    return tuple(ids.to(torch.int32).contiguous()
+                 for ids in (segment_ids, kv))
+
+
+def _tiles_shape(segment_ids: torch.Tensor,
+                 kv_segment_ids: torch.Tensor) -> Tuple[int, int, int]:
+    return (segment_ids.shape[0],
+            -(-segment_ids.shape[1] // SEG_TILE)
+            - (-kv_segment_ids.shape[1] // SEG_TILE), 8)
+
+
+def _segment_tiles(segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    """One launch of the segment pre-pass on CUDA ids: ``(B, nq + nk, 8)``
+    int32, as :func:`~repro_torch.kernels.ref.flash_segment_tiles_ref`."""
+    tiles = torch.empty(_tiles_shape(segment_ids, kv_segment_ids),
+                        dtype=torch.int32, device=segment_ids.device)
+    b, sq = segment_ids.shape
+    sk = kv_segment_ids.shape[1]
+    if tiles.numel() == 0:
+        return tiles
+    with torch.cuda.device(segment_ids.device):
+        code = _entry("flash_attention", "flash_segment_tiles_launch",
+                      _SEG_ARGTYPES)(
+            segment_ids.data_ptr(), kv_segment_ids.data_ptr(),
+            tiles.data_ptr(), b, sq, sk, int(bool(causal)),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "flash_segment_tiles")
+    return tiles
+
+
+def _seg_pointers(segment_ids, kv_segment_ids, tiles) -> Tuple[int, ...]:
+    """The C entries' three segment pointers (0, 0, 0 without ids)."""
+    if segment_ids is None:
+        return 0, 0, 0
+    return (segment_ids.data_ptr(), kv_segment_ids.data_ptr(),
+            tiles.data_ptr())
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, scale: float, with_lse: bool
+             causal: bool, scale: float, with_lse: bool,
+             segment_ids: Optional[torch.Tensor] = None,
+             kv_segment_ids: Optional[torch.Tensor] = None,
+             tiles: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the forward kernel on CUDA tensors: the output and,
     when ``with_lse``, each row's log-sum-exp (fp32, ``(B, H, Sq)``; else an
-    empty tensor)."""
+    empty tensor).  With segment ids (int32, contiguous) the segmented
+    instantiation, over ``tiles`` (the pre-pass's result; launched here
+    where not given)."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    if segment_ids is not None and tiles is None:
+        tiles = _segment_tiles(segment_ids, kv_segment_ids, causal)
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     out = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(_lse_shape(q, with_lse), dtype=torch.float32,
@@ -163,10 +260,12 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr() if with_lse else 0, _DTYPES[q.dtype], d, b, h,
             hk, sq, sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(bool(causal)), scale,
+            *_seg_pointers(segment_ids, kv_segment_ids, tiles),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_fp32 += q.dtype == torch.float32
+    flash_attention.launches_segmented += segment_ids is not None
     return out, lse
 
 
@@ -184,11 +283,18 @@ def _lse_shape(q: torch.Tensor, with_lse: bool) -> Tuple[int, ...]:
 # their own (``torch.library.custom_op`` would add a Python one, and its
 # host time, to every call).
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_seg_tiles(Tensor segment_ids, Tensor kv_segment_ids, "
+            "bool causal) -> Tensor")
 _LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
-            "float scale, bool with_lse) -> (Tensor, Tensor)")
-_LIB.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
-            "Tensor dout, bool causal, float scale) -> (Tensor, Tensor, "
+            "float scale, bool with_lse, Tensor? segment_ids=None, "
+            "Tensor? kv_segment_ids=None, Tensor? tiles=None) -> (Tensor, "
             "Tensor)")
+_LIB.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+            "Tensor dout, bool causal, float scale, "
+            "Tensor? segment_ids=None, Tensor? kv_segment_ids=None, "
+            "Tensor? tiles=None) -> (Tensor, Tensor, Tensor)")
+#: The segment pre-pass's ``(B, nq + nk, 8)`` int32 tiles.
+flash_seg_tiles = torch.ops.repro_torch.flash_seg_tiles.default
 #: ``(out, lse)`` of the forward kernel (``lse`` empty unless
 #: ``with_lse``).
 flash_fwd = torch.ops.repro_torch.flash_fwd.default
@@ -197,18 +303,30 @@ flash_fwd = torch.ops.repro_torch.flash_fwd.default
 flash_bwd = torch.ops.repro_torch.flash_bwd.default
 
 
-def _flash_fwd_cpu(q, k, v, causal, scale, with_lse):
+def _flash_fwd_cpu(q, k, v, causal, scale, with_lse, segment_ids=None,
+                   kv_segment_ids=None, tiles=None):
+    ids = dict(segment_ids=segment_ids, kv_segment_ids=kv_segment_ids)
     if with_lse:
-        return flash_attention_lse_ref(q, k, v, causal=causal, scale=scale)
-    return (flash_attention_ref(q, k, v, causal=causal, scale=scale),
+        return flash_attention_lse_ref(q, k, v, causal=causal, scale=scale,
+                                       **ids)
+    return (flash_attention_ref(q, k, v, causal=causal, scale=scale, **ids),
             q.new_empty((0,), dtype=_lse_type(q)))
 
 
-def _flash_fwd_fake(q, k, v, causal, scale, with_lse):
+def _flash_fwd_fake(q, k, v, causal, scale, with_lse, segment_ids=None,
+                    kv_segment_ids=None, tiles=None):
     return (q.new_empty(q.shape),
             q.new_empty(_lse_shape(q, with_lse), dtype=_lse_type(q)))
 
 
+def _flash_seg_tiles_fake(segment_ids, kv_segment_ids, causal):
+    return segment_ids.new_empty(_tiles_shape(segment_ids, kv_segment_ids),
+                                 dtype=torch.int32)
+
+
+_LIB.impl("flash_seg_tiles", _segment_tiles, "CUDA")
+torch.library.register_fake("repro_torch::flash_seg_tiles",
+                            _flash_seg_tiles_fake, lib=_LIB)
 _LIB.impl("flash_fwd", _forward, "CUDA")
 _LIB.impl("flash_fwd", _flash_fwd_cpu, "CPU")
 torch.library.register_fake("repro_torch::flash_fwd", _flash_fwd_fake,
@@ -239,29 +357,39 @@ def _flash_fwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
 class FlashAttentionFn(torch.autograd.Function):
     """The flash route with its gradient.  Forward: the forward kernel with
     ``lse`` (``flash_fwd``; the plain ``flash_attention_lse_ref`` on a CPU
-    tensor); it saves q, k, v, the output and ``lse``.  Backward:
-    :func:`flash_attention_bwd`.  Safe under non-reentrant
-    ``torch.utils.checkpoint``: its recompute runs the forward again and
-    saves afresh."""
+    tensor), after the segment pre-pass where ids are given to the card; it
+    saves q, k, v, the output, ``lse``, the ids and the pre-pass's tiles.
+    Backward: :func:`flash_attention_bwd` over the same tiles.  Safe under
+    non-reentrant ``torch.utils.checkpoint``: its recompute runs the
+    forward again and saves afresh."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        out, lse = flash_fwd(q, k, v, causal, scale, True)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, causal: bool, scale: float, segment_ids=None,
+                kv_segment_ids=None):
+        tiles = (flash_seg_tiles(segment_ids, kv_segment_ids, causal)
+                 if segment_ids is not None and q.is_cuda else None)
+        out, lse = flash_fwd(q, k, v, causal, scale, True, segment_ids,
+                             kv_segment_ids, tiles)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids,
+                              kv_segment_ids, tiles)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+        q, k, v, out, lse, seg_q, seg_k, tiles = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout, causal=ctx.causal, scale=ctx.scale,
+            segment_ids=seg_q, kv_segment_ids=seg_k, tiles=tiles)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    segment_ids: Optional[torch.Tensor] = None,
+                    kv_segment_ids: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """``(B, H, Sq, D)`` attention over ``(B, Hkv, Sk, D)`` keys and values
     -> ``(B, H, Sq, D)`` in q's type.
 
@@ -273,20 +401,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are taken as they are as long as the head dimension is dense and rows
     are 16-byte aligned (else they are copied).  A CUDA
     tensor always goes through the kernels; only a CPU tensor takes the
-    plain versions.  Where autograd needs a gradient of q, k or v the call
-    goes through :class:`FlashAttentionFn`.
+    plain versions.  With ``segment_ids`` ``(B, Sq)`` (and
+    ``kv_segment_ids`` ``(B, Sk)``, default ``segment_ids``) a query sees
+    only the keys of its own id: the segmented kernels over the segment
+    pre-pass (module docstring).  Where autograd needs a gradient of q, k
+    or v the call goes through :class:`FlashAttentionFn`.
     """
     scale = _check(q, k, v, scale)
+    seg = _segment_operands(q, k, segment_ids, kv_segment_ids)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, bool(causal), scale)
-    return flash_fwd(q, k, v, bool(causal), scale, False)[0]
+        return FlashAttentionFn.apply(q, k, v, bool(causal), scale, *seg)
+    return flash_fwd(q, k, v, bool(causal), scale, False, *seg)[0]
 
 
 #: Number of times the forward kernel was launched (CUDA tensors only),
-#: and how many of those launches were float32.
+#: how many of those launches were float32, and how many took segment ids.
 flash_attention.launches = 0
 flash_attention.launches_fp32 = 0
+flash_attention.launches_segmented = 0
 
 
 #: Rows of a K tile of the dK/dV kernels (``FBM_ROWS``).
@@ -308,7 +441,10 @@ def gqa_split(batch: int, kv_heads: int, sk: int, group: int,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, causal: bool = True,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None,
+                        segment_ids: Optional[torch.Tensor] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None,
+                        tiles: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` for the
     output gradient ``dout``, given the forward's output ``o`` and its
@@ -318,7 +454,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (float32 as three TF32 products), with the GQA split of
     :func:`gqa_split`, one count in
     ``flash_attention_bwd.launches`` per call; on CPU tensors the plain
-    :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`."""
+    :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`.  The segment
+    ids are the forward's; ``tiles``, the forward's pre-pass, is launched
+    anew where not given."""
     scale = _check(q, k, v, scale, float64_on_cpu=True)
     b, h, sq, d = q.shape
     if o.shape != q.shape or dout.shape != q.shape or \
@@ -326,16 +464,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"o {tuple(o.shape)}, dout {tuple(dout.shape)}, "
                          f"lse {tuple(lse.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    return flash_bwd(q, k, v, o, lse, dout, bool(causal), scale)
+    seg = _segment_operands(q, k, segment_ids, kv_segment_ids)
+    return flash_bwd(q, k, v, o, lse, dout, bool(causal), scale, *seg,
+                     tiles)
 
 
 def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-              causal: bool, scale: float
+              causal: bool, scale: float,
+              segment_ids: Optional[torch.Tensor] = None,
+              kv_segment_ids: Optional[torch.Tensor] = None,
+              tiles: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One call of the backward kernels on CUDA tensors."""
+    """One call of the backward kernels on CUDA tensors (the segmented
+    instantiations over ``tiles`` where ids are given)."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    if segment_ids is not None and tiles is None:
+        tiles = _segment_tiles(segment_ids, kv_segment_ids, causal)
     if o.dtype != q.dtype or dout.dtype != q.dtype or \
             lse.dtype != torch.float32:
         raise TypeError(f"o {o.dtype}, dout {dout.dtype}, lse {lse.dtype}: "
@@ -366,6 +512,7 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.data_ptr(), delta.data_ptr(),
             0 if part is None else part.data_ptr(), _DTYPES[q.dtype], d, b,
             h, hk, sq, sk, strides, int(bool(causal)), scale,
+            *_seg_pointers(segment_ids, kv_segment_ids, tiles),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
@@ -373,12 +520,15 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-def _flash_bwd_cpu(q, k, v, o, lse, dout, causal, scale):
+def _flash_bwd_cpu(q, k, v, o, lse, dout, causal, scale, segment_ids=None,
+                   kv_segment_ids=None, tiles=None):
     return flash_attention_bwd_ref(q, k, v, o, lse, dout, causal=causal,
-                                   scale=scale)
+                                   scale=scale, segment_ids=segment_ids,
+                                   kv_segment_ids=kv_segment_ids)
 
 
-def _flash_bwd_fake(q, k, v, o, lse, dout, causal, scale):
+def _flash_bwd_fake(q, k, v, o, lse, dout, causal, scale, segment_ids=None,
+                    kv_segment_ids=None, tiles=None):
     return q.new_empty(q.shape), q.new_empty(k.shape), q.new_empty(k.shape)
 
 

@@ -145,14 +145,23 @@ def quantize_rowwise_ref(x: torch.Tensor
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        segment_ids: Optional[torch.Tensor] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Naive attention: ``(B, H, Sq, D)`` over ``(B, Hkv, Sk, D)`` keys and
     values (``H`` a multiple of ``Hkv``; kv head ``h // (H / Hkv)`` serves
     q head ``h``, as ``jnp.repeat`` of the kv heads would) -> ``(B, H, Sq,
     D)`` in q's type.  fp32 softmax; the causal diagonal sits at
-    ``Sk - Sq``.  A row that sees no key (causal, ``Sq > Sk``) comes out
-    NaN, as in the reference's oracle; the kernel gives 0 there."""
-    return flash_attention_lse_ref(q, k, v, causal=causal, scale=scale)[0]
+    ``Sk - Sq``.  With ``segment_ids`` (int, ``(B, Sq)``) a query sees only
+    the keys whose id (``kv_segment_ids``, ``(B, Sk)``, default
+    ``segment_ids``) equals its own, and causal where asked: the model's
+    plain route's rule, so pads (id 0) see only pads.  A row that sees no
+    key (causal, ``Sq > Sk``; or no key of its id) comes out NaN, as in
+    the reference's oracle; the kernel gives 0 there."""
+    return flash_attention_lse_ref(q, k, v, causal=causal, scale=scale,
+                                   segment_ids=segment_ids,
+                                   kv_segment_ids=kv_segment_ids)[0]
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -161,10 +170,11 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _attention_logits(q, k, causal, scale):
+def _attention_logits(q, k, causal, scale, segment_ids=None,
+                      kv_segment_ids=None):
     """Scaled logits ``(B, H, Sq, Sk)`` of q over the kv heads repeated to
-    H, with ``-inf`` where causality hides a key; and the visibility
-    mask."""
+    H, with ``-inf`` where causality or the segment ids hide a key; and
+    the visibility mask (``(Sq, Sk)``, or ``(B, 1, Sq, Sk)`` with ids)."""
     sq, d = q.shape[-2:]
     sk = k.shape[-2]
     group = q.shape[1] // k.shape[1]
@@ -173,19 +183,26 @@ def _attention_logits(q, k, causal, scale):
     visible = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
     if causal:
         visible = visible.tril(sk - sq)
+    if segment_ids is not None:
+        kv = segment_ids if kv_segment_ids is None else kv_segment_ids
+        visible = visible & (segment_ids[:, None, :, None]
+                             == kv[:, None, None, :])
     return torch.where(visible, logits, float("-inf")), visible
 
 
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True,
-                            scale: Optional[float] = None
+                            scale: Optional[float] = None,
+                            segment_ids: Optional[torch.Tensor] = None,
+                            kv_segment_ids: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_ref` and the log-sum-exp of each row's scaled
     logits, ``lse`` ``(B, H, Sq)`` (fp32; float64 for float64 inputs):
     what the forward kernel hands its backward.  ``lse`` is ``-inf`` on a
     row that sees no key."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    logits, _ = _attention_logits(q, k, causal, scale)
+    logits, _ = _attention_logits(q, k, causal, scale, segment_ids,
+                                  kv_segment_ids)
     group = q.shape[1] // k.shape[1]
     vr = v.repeat_interleave(group, dim=1) if group > 1 else v
     probs = torch.softmax(logits, dim=-1)
@@ -197,7 +214,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor,
                             causal: bool = True,
-                            scale: Optional[float] = None
+                            scale: Optional[float] = None,
+                            segment_ids: Optional[torch.Tensor] = None,
+                            kv_segment_ids: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_ref` for
@@ -212,15 +231,17 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         dS = P * (dP - D)
         dQ = dS K * scale,   dK = dS^T Q * scale
 
-    in fp32 (float64 for float64 inputs), each result in its input's type.
-    Under GQA (``H = G * Hkv``) each kv head's dK and dV sum over its G q
-    heads.  A row that sees no key (``lse = -inf``) has no gradient: it
-    adds nothing to dK and dV, and its dQ is 0."""
+    in fp32 (float64 for float64 inputs), each result in its input's type;
+    the mask is the forward's (causal, segment ids).  Under GQA (``H = G *
+    Hkv``) each kv head's dK and dV sum over its G q heads.  A row that
+    sees no key (``lse = -inf``) has no gradient: it adds nothing to dK and
+    dV, and its dQ is 0."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     group = h // hk
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    logits, visible = _attention_logits(q, k, causal, scale)
+    logits, visible = _attention_logits(q, k, causal, scale, segment_ids,
+                                        kv_segment_ids)
     visible = visible & torch.isfinite(lse)[..., None]
     p = torch.where(visible, torch.exp(logits - lse[..., None]), 0.0)
     dof = _wide(do)
@@ -235,6 +256,97 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dk = dk.reshape(b, hk, group, sk, d).sum(dim=2)
     dv = dv.reshape(b, hk, group, sk, d).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: Rows of a tile of the segment pre-pass: the q tiles of the forward and
+#: dQ kernels and the K tiles of the dK/dV kernels.
+SEG_TILE = 64
+#: Distinct ids the pre-pass keeps of a tile; a tile with more is taken as
+#: the interval of its ids.
+SEG_SLOTS = 3
+
+
+def _tile_ids(ids: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Of each ``SEG_TILE``-row tile of ``ids`` ``(B, S)``: the least and
+    the largest id, up to ``SEG_SLOTS`` distinct ids (sorted, the least
+    repeated in unused slots) and their count (``SEG_SLOTS + 1``, the
+    slots all the least, where there are more), each ``(B, n)`` (the
+    slots ``(B, n, SEG_SLOTS)``)."""
+    b, s = ids.shape
+    ids = ids.to(torch.int64)
+    pad = -s % SEG_TILE          # the last tile repeats its last id
+    ids = torch.cat((ids, ids[:, -1:].expand(b, pad)), 1)
+    srt = ids.view(b, -1, SEG_TILE).sort(-1).values
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[..., 1:] = srt[..., 1:] != srt[..., :-1]
+    count = new.sum(-1)
+    rank = new.cumsum(-1) - 1
+    slots = torch.stack([
+        torch.where(count > r, srt.gather(-1, (new & (rank == r)).int()
+                                          .argmax(-1, keepdim=True))[..., 0],
+                    srt[..., 0]) for r in range(SEG_SLOTS)], -1)
+    slots = torch.where((count > SEG_SLOTS)[..., None], srt[..., :1], slots)
+    return (srt[..., 0], srt[..., -1], slots,
+            count.clamp(max=SEG_SLOTS + 1))
+
+
+def _first_last(meet: torch.Tensor, rows: int) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of the other side from the first to the last tile
+    that ``meet`` (``(..., n)`` bool) marks, ``[0, 0)`` where none."""
+    n = meet.shape[-1]
+    any_ = meet.any(-1)
+    first = meet.int().argmax(-1)
+    last = n - 1 - meet.flip(-1).int().argmax(-1)
+    lo = torch.where(any_, first * SEG_TILE, 0)
+    hi = torch.where(any_, ((last + 1) * SEG_TILE).clamp(max=rows), 0)
+    return torch.stack((lo, hi), dim=-1)
+
+
+def flash_segment_tiles_ref(segment_ids: torch.Tensor,
+                            kv_segment_ids: torch.Tensor,
+                            causal: bool) -> torch.Tensor:
+    """What the flash kernels' segment pre-pass computes from the ids:
+    ``(B, nq + nk, 8)`` int32, one row for each ``SEG_TILE``-row q tile
+    (``nq = ceil(Sq / 64)``), then one for each K tile (``nk``), of
+
+        [least id, largest id, lo, hi, id, id, id, count]
+
+    where rows ``lo .. hi - 1`` of the other side (keys for a q tile, q
+    rows for a K tile) hold every pair of the two tiles that may be
+    visible, and the last four are the tile's distinct ids (up to
+    ``SEG_SLOTS``, sorted, the least in unused slots; ``count`` is
+    ``SEG_SLOTS + 1``, and the slots all the least, where there are more:
+    ``csrc/flash_segments.cuh``).
+    A q tile and a K tile may share a segment where both hold at most
+    ``SEG_SLOTS`` ids and two of them are equal, or else where their id
+    intervals meet; under causal, only where the K tile starts at or
+    before the q tile's last row's diagonal.  ``lo`` starts the first such
+    tile of the other side, ``hi`` ends the last (``0, 0`` where none).
+    Any ids are covered, in any order: the range over-approximates the
+    pairs.  On contiguous runs (packed documents, pads of id 0 at the end)
+    it is the span of the tile's own documents."""
+    sq, sk = segment_ids.shape[1], kv_segment_ids.shape[1]
+    qlo, qhi, qset, qn = _tile_ids(segment_ids)
+    klo, khi, kset, kn = _tile_ids(kv_segment_ids)
+    interval = ((qlo[:, :, None] <= khi[:, None, :])
+                & (klo[:, None, :] <= qhi[:, :, None]))
+    shared = (qset[:, :, None, :, None]
+              == kset[:, None, :, None, :]).any(-1).any(-1)
+    exact = ((qn[:, :, None] <= SEG_SLOTS) & (kn[:, None, :] <= SEG_SLOTS))
+    meet = torch.where(exact, shared, interval)
+    if causal:
+        last = (torch.arange(qlo.shape[1], device=meet.device) * SEG_TILE
+                + SEG_TILE - 1).clamp(max=sq - 1) + (sk - sq)
+        start = torch.arange(klo.shape[1], device=meet.device) * SEG_TILE
+        meet = meet & (start[None, :] <= last[:, None])[None]
+    rows = []
+    for lo, hi, ids, n, m, other in ((qlo, qhi, qset, qn, meet, sk),
+                                     (klo, khi, kset, kn,
+                                      meet.transpose(1, 2), sq)):
+        rows.append(torch.cat((torch.stack((lo, hi), -1),
+                               _first_last(m, other), ids,
+                               n[..., None]), -1))
+    return torch.cat(rows, 1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,17 @@
 """GQA attention: chunked-causal (train/prefill), cached decode.
 
 Attention takes the hand-written flash kernel
-(:func:`repro_torch.kernels.ops.flash_attention`) wherever the reference's
-``use_pallas=True`` route does — no ``segment_ids`` and a head dim of 64 or
-128 — and the plain chunked route otherwise.  In training the flash route
+(:func:`repro_torch.kernels.ops.flash_attention`) wherever the head dim is
+64 or 128 and the kv ids (``kv_segment_ids``, else ``segment_ids``), where
+given, have one entry a key: every self attention of ``models/lm.py``,
+packed batches with their ``segment_ids`` included.  The reference takes
+its Pallas kernel only without ids, and plain attention with them (ROADMAP,
+"Deliberate divergences"); the port's kernels take the ids themselves,
+skipping the tiles that share no segment
+(:mod:`repro_torch.kernels.flash_attention`).  Every other call (head dim
+80, kv ids of another length) takes the plain chunked route, counted in
+``chunked_attention.plain_chunks`` (one a query chunk, recompute
+included; :func:`plain_chunked_attention`).  In training the flash route
 is differentiated by its own backward kernels
 (:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`), the plain
 route by autograd, one query chunk at a time under non-reentrant
@@ -43,23 +51,46 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       segment_ids: Optional[torch.Tensor] = None,
                       kv_segment_ids: Optional[torch.Tensor] = None,
                       chunk: int = 512) -> torch.Tensor:
-    """q: (B,Sq,Hq,D); k/v: (B,Sk,K,D) -> (B,Sq,Hq,D)."""
-    b, sq, hq, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    scale = 1.0 / math.sqrt(d)
-
+    """q: (B,Sq,Hq,D); k/v: (B,Sk,K,D) -> (B,Sq,Hq,D); ``segment_ids``
+    (B,Sq) and ``kv_segment_ids`` (B,Sk, default ``segment_ids``) keep
+    each query to the keys of its own id.  The flash route where the head
+    dim allows it and the kv ids (if any) have one entry a key, else
+    :func:`plain_chunked_attention`."""
+    d, sk = q.shape[3], k.shape[1]
     # K/V of another type than q (a bfloat16 cache under float32 weights)
     # meet q in the promoted type, as in the reference
     dt = torch.promote_types(q.dtype, k.dtype)
-    if segment_ids is None and d in HEAD_DIMS:
-        if any(isinstance(x, DTensor) for x in (q, k, v)):
-            return _flash_on_local_heads(q, k, v, causal, dt)
-        # the flash route: (B,H,S,D) views, no copies; the kernel serves
-        # q head h from kv head h // (Hq/K), which is the reference's
-        # jnp.repeat of the kv heads
-        out = kops.flash_attention(*(x.transpose(1, 2).to(dt)
-                                     for x in (q, k, v)), causal=causal)
-        return out.transpose(1, 2).to(q.dtype)
+    kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
+    if d not in HEAD_DIMS or (segment_ids is not None
+                              and kv_seg.shape[-1] != sk):
+        return plain_chunked_attention(q, k, v, causal, segment_ids,
+                                       kv_segment_ids, chunk)
+    ids = ({} if segment_ids is None else
+           {"segment_ids": gather(segment_ids),
+            "kv_segment_ids": gather(kv_seg)})
+    if any(isinstance(x, DTensor) for x in (q, k, v)):
+        return _flash_on_local_heads(q, k, v, causal, dt, **ids)
+    # the flash route: (B,H,S,D) views, no copies; the kernel serves q head
+    # h from kv head h // (Hq/K), which is the reference's jnp.repeat of
+    # the kv heads
+    out = kops.flash_attention(*(x.transpose(1, 2).to(dt) for x in (q, k, v)),
+                               causal=causal, **ids)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def plain_chunked_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            segment_ids: Optional[torch.Tensor] = None,
+                            kv_segment_ids: Optional[torch.Tensor] = None,
+                            chunk: int = 512) -> torch.Tensor:
+    """The plain route of :func:`chunked_attention`, the reference's own:
+    the repeated K/V, one query chunk of fp32 logits at a time, each
+    chunk's ids against all the kv ids."""
+    b, sq, hq, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
 
     # GQA: the kv heads repeated so that the merged head axis splits over
     # the model axis as the q heads do
@@ -70,7 +101,6 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vr = constrain(vr, "batch", None, "act_heads", None)
 
     chunk = min(chunk, sq)
-    kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
     # the backward recomputes each chunk's (chunk, Sk) probabilities
     # instead of keeping them, as the reference's checkpointed scan body
     record = torch.is_grad_enabled() and any(
@@ -86,10 +116,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
-def _flash_on_local_heads(q, k, v, causal: bool, dt) -> DTensor:
+def _flash_on_local_heads(q, k, v, causal: bool, dt, **ids) -> DTensor:
     """The flash route on the ``model`` sub-mesh: each rank runs the
     kernel on its own q heads (all of them where the head count does not
-    split over the axis) and the kv heads those use, as local tensors.
+    split over the axis) and the kv heads those use, as local tensors,
+    with the segment ids (``ids``) whole: they are per row, not per head.
     The kernel serves local q head ``h`` from local kv head ``h // group``,
     so the kv heads handed over are the whole groups of the rank's q heads,
     the one kv head they share, or else each q head's own (gathered, group
@@ -115,7 +146,7 @@ def _flash_on_local_heads(q, k, v, causal: bool, dt) -> DTensor:
             kl, vl = (x.index_select(2, idx) for x in (kl, vl))
     out = kops.flash_attention(*(x.transpose(1, 2).to(dt)
                                  for x in (q.to_local(), kl, vl)),
-                               causal=causal)
+                               causal=causal, **ids)
     return DTensor.from_local(out.transpose(1, 2).to(q.dtype), sub, heads,
                               run_check=False)
 
@@ -124,6 +155,7 @@ def _attend_chunk(qc, kr, vr, start: int, seg_c, kv_seg, causal: bool,
                   offset: int, scale: float, dt) -> torch.Tensor:
     """One query chunk ``qc`` (B, c, Hq, D) of the plain route over the
     repeated K/V (B, Sk, Hq, D)."""
+    chunked_attention.plain_chunks += 1
     b, c = qc.shape[:2]
     sk = kr.shape[1]
     # operands in the model type, products accumulated in f32 and then
@@ -145,6 +177,11 @@ def _attend_chunk(qc, kr, vr, start: int, seg_c, kv_seg, causal: bool,
     out = einsum("bhcs,bshd->bchd", probs.to(vr.dtype), vr)
     out = constrain(out, "batch", None, "act_heads", None)
     return out.to(qc.dtype)
+
+
+#: Number of query chunks the plain route attended (a remat recompute
+#: counts again): 0 in a step whose every attention took the flash route.
+chunked_attention.plain_chunks = 0
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -13,17 +13,19 @@ One :class:`LM` per config exposes
   * ``decode_step(params, cache, tokens, cache_index)``,
   * ``cache_defs(batch, seq)``.
 
-Attention without segment ids — prefill and training alike: the whisper
-encoder's, every cross attention (in decode too, at one query row), and
-self attention given no ``segment_ids`` — runs the hand-written flash
-kernel where the head dim allows it (64 or 128: qwen2, llama4-scout, the
+Attention in prefill and training — the whisper encoder's, every cross
+attention (in decode too, at one query row), and self attention with or
+without ``segment_ids`` — runs the hand-written flash kernel where the
+head dim allows it (64 or 128: qwen2, llama4-scout, the MoE families, the
 vision model, whisper; zamba2's 80 takes the plain chunked route, as in
 the reference), and in training its backward kernels.  Packed training
-batches carry ``segment_ids``, so their self attention is plain, as in the
-reference.  The reference's scanned layer stacks are Python loops over
-the stacked ``(L, ...)`` parameters; with ``cfg.remat != "none"`` each
-training layer runs under non-reentrant ``torch.utils.checkpoint`` where
-the reference checkpoints its scan body.
+batches carry ``segment_ids``: their self attention runs the segmented
+kernels, which visit only the tiles whose documents meet (the reference's
+attention turns plain there; ROADMAP, "Deliberate divergences").  The
+reference's scanned layer stacks are Python loops over the stacked ``(L,
+...)`` parameters; with ``cfg.remat != "none"`` each training layer runs
+under non-reentrant ``torch.utils.checkpoint`` where the reference
+checkpoints its scan body.
 ``decode_step`` updates the cache in place: the KV rows and the recurrent
 (``ssm``, ``conv``) state alike; the cross caches are only read.
 

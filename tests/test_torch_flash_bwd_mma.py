@@ -16,12 +16,21 @@ only on the card; here their blocks are emulated in NumPy, block by block:
 * the GQA sum inside the block, or the split: one q head a block, fp32
   partials (dK times the scale), summed in head order, rounded once.
 
+With segment ids (the segmented instantiations) the blocks take their
+loop bounds from the segment pre-pass's plain version
+(``ref.flash_segment_tiles_ref``: a dK/dV block's range of q rows, a dQ
+block's range of keys, each inside the causal bound), a warp skips a tile
+whose id interval misses its own rows' (keys' in dK/dV), and the per-pair
+test of the ids joins the mask only on a tile that is not one segment on
+both sides.
+
 The emulation is held against the plain ``flash_attention_bwd_ref`` within
 ``chip_smoke.py``'s ``FLASH_BWD_BF16_TOL`` at ``FLASH_BWD_SWEEP``, at one
 reduced case of each of ``TRAIN_SHAPES`` and at a ragged causal case whose
-first rows see no key, both ways of the GQA sum; and, with P and dS kept in
-fp32, within ``FLASH_BWD_FP32_TOL`` of the plain version in fp32: the
-rounding is the only difference.  ``chip_smoke.py`` holds the kernels
+first rows see no key, both ways of the GQA sum; with segment ids on packed
+documents, on ids in no order and on ids whose runs come back; and, with P
+and dS kept in fp32, within ``FLASH_BWD_FP32_TOL`` of the plain version in
+fp32: the rounding is the only difference.  ``chip_smoke.py`` holds the kernels
 themselves against the plain version on the card.
 """
 import importlib.util
@@ -35,6 +44,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+
+from _torch_segments import IDS
 
 _SPEC = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -99,32 +110,62 @@ def dq_edge(causal, k0, qw0, sq, sk, offset):
             or qw0 + WARP_ROWS > sq)
 
 
+def _bounds(ids):
+    """(least, largest) of a warp's valid ids; (big, small) for none."""
+    return (int(ids.min()), int(ids.max())) if ids.size else (2 ** 31 - 1,
+                                                              -2 ** 31)
+
+
+def _seg_warp(seg_ids, first, n, rec):
+    """A warp of ``seg`` ids ``first .. first + 15`` (those below ``n``)
+    against a tile's record: (sees, one segment) by the kernels' rules."""
+    lo, hi = _bounds(seg_ids[first:min(first + WARP_ROWS, n)])
+    return (lo <= rec[1] and rec[0] <= hi,
+            lo == hi and rec[0] == rec[1] and lo == rec[0])
+
+
 def _dkdv_block(q, k, v, do, lse, delta, b, heads, hk, k0, sh, scale,
-                rounding):
+                rounding, seg=None):
     """One ``flash_bwd_dkdv_mma_kernel`` block: dK (times the scale) and dV
-    of keys k0 .. k0 + 63 summed over ``heads``, fp32 (64, D) each."""
+    of keys k0 .. k0 + 63 summed over ``heads``, fp32 (64, D) each.  With
+    ``seg`` (row b's q ids, kv ids and pre-pass records) the segmented
+    instantiation."""
     sq, sk, causal, offset = sh
     keys = k0 + np.arange(ROWS)
     kt, vt = _tile(k[b, hk], k0), _tile(v[b, hk], k0)
     first = 0
     if causal and k0 - offset > 0:
         first = (k0 - offset) // ROWS * ROWS
+    end = sq
+    if seg is not None:
+        seg_q, seg_k, tiles = seg
+        nq = -(-sq // ROWS)
+        rec = tiles[nq + k0 // ROWS]
+        first, end = max(first, rec[2]), rec[3]
     dk = np.zeros_like(kt)
     dv = np.zeros_like(vt)
     for h in heads:
-        for i0 in range(first, sq, ROWS):
+        for i0 in range(first, end, ROWS):
             rows = i0 + np.arange(ROWS)
             qt, dot = _tile(q[b, h], i0), _tile(do[b, h], i0)
             lse_t, dl_t = _rows(lse[b, h], i0), _rows(delta[b, h], i0)
             valid = ((keys[:, None] < sk) & (rows[None, :] < sq)
                      & ((not causal)
                         | (rows[None, :] + offset >= keys[:, None])))
+            if seg is not None:
+                valid &= (seg_k[np.minimum(keys, sk - 1)][:, None]
+                          == seg_q[np.minimum(rows, sq - 1)][None, :])
             keep = np.zeros((ROWS, ROWS), bool)
             for w in range(ROWS // WARP_ROWS):
                 kw0 = k0 + WARP_ROWS * w
                 if causal and i0 + ROWS - 1 + offset < kw0:
                     continue                    # the warp skips the tile
                 edge = dkdv_edge(causal, i0, kw0, sq, sk, offset)
+                if seg is not None:
+                    sees, one = _seg_warp(seg_k, kw0, sk, tiles[i0 // ROWS])
+                    if not sees:
+                        continue
+                    edge = edge or not one
                 part = slice(WARP_ROWS * w, WARP_ROWS * (w + 1))
                 keep[part] = valid[part] if edge else True
             p = _p(kt @ qt.T, lse_t[None, :], scale, keep)
@@ -136,9 +177,10 @@ def _dkdv_block(q, k, v, do, lse, delta, b, heads, hk, k0, sh, scale,
     return dk * np.float32(scale), dv
 
 
-def _dq_block(q, k, v, do, lse, delta, b, h, hk, q0, sh, scale, rounding):
+def _dq_block(q, k, v, do, lse, delta, b, h, hk, q0, sh, scale, rounding,
+              seg=None):
     """One ``flash_bwd_dq_mma_kernel`` block: dQ (times the scale) of q
-    rows q0 .. q0 + 63, fp32 (64, D)."""
+    rows q0 .. q0 + 63, fp32 (64, D); with ``seg`` as ``_dkdv_block``."""
     sq, sk, causal, offset = sh
     rows = q0 + np.arange(ROWS)
     qt, dot = _tile(q[b, h], q0), _tile(do[b, h], q0)
@@ -148,20 +190,34 @@ def _dq_block(q, k, v, do, lse, delta, b, h, hk, q0, sh, scale, rounding):
     if causal:
         last = min(q0 + ROWS, sq) - 1 + offset
         upper = 0 if last < 0 else min(last // ROWS + 1, nk)
+    lower = 0
+    if seg is not None:
+        seg_q, seg_k, tiles = seg
+        nq = -(-sq // ROWS)
+        rec = tiles[q0 // ROWS]
+        lower, upper = rec[2] // ROWS, min(upper, -(-rec[3] // ROWS))
     dq = np.zeros_like(qt)
-    for j in range(upper):
+    for j in range(lower, upper):
         k0 = j * ROWS
         keys = k0 + np.arange(ROWS)
         kt, vt = _tile(k[b, hk], k0), _tile(v[b, hk], k0)
         valid = ((keys[None, :] < sk) & (rows[:, None] < sq)
                  & ((not causal) | (rows[:, None] + offset >= keys[None, :]))
                  )
+        if seg is not None:
+            valid &= (seg_q[np.minimum(rows, sq - 1)][:, None]
+                      == seg_k[np.minimum(keys, sk - 1)][None, :])
         keep = np.zeros((ROWS, ROWS), bool)
         for w in range(ROWS // WARP_ROWS):
             qw0 = q0 + WARP_ROWS * w
             if causal and k0 > qw0 + 15 + offset:
                 continue
             edge = dq_edge(causal, k0, qw0, sq, sk, offset)
+            if seg is not None:
+                sees, one = _seg_warp(seg_q, qw0, sq, tiles[nq + k0 // ROWS])
+                if not sees:
+                    continue
+                edge = edge or not one
             part = slice(WARP_ROWS * w, WARP_ROWS * (w + 1))
             keep[part] = valid[part] if edge else True
         p = _p(qt @ kt.T, lse_r[:, None], scale, keep)
@@ -173,14 +229,19 @@ def _dq_block(q, k, v, do, lse, delta, b, h, hk, q0, sh, scale, rounding):
 
 
 def emulate_backward_mma(q, k, v, o, lse, do, causal, scale, split,
-                         rounding=True):
+                         rounding=True, seg=None):
     """The bf16 kernels on float32 arrays holding bf16 values: ``(dq, dk,
     dv)`` as float32 arrays, rounded to bf16 when ``rounding`` (which also
-    rounds P and dS before their products)."""
+    rounds P and dS before their products).  ``seg``: ``(q ids, kv ids,
+    pre-pass records)``, each indexed by the batch row first."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     group = h // hk
     sh = (sq, sk, causal, sk - sq)
+
+    def row(bb):
+        return None if seg is None else tuple(x[bb] for x in seg)
+
     delta = (do * o).sum(-1, dtype=np.float32)
     out = _bf16 if rounding else (lambda x: x)
     dk, dv = np.zeros_like(k), np.zeros_like(v)
@@ -190,7 +251,8 @@ def emulate_backward_mma(q, k, v, o, lse, do, causal, scale, split,
                 n = min(ROWS, sk - k0)
                 if split:               # fp32 partials, summed in order
                     parts = [_dkdv_block(q, k, v, do, lse, delta, bb, [hh],
-                                         kh, k0, sh, scale, rounding)
+                                         kh, k0, sh, scale, rounding,
+                                         row(bb))
                              for hh in range(kh * group, (kh + 1) * group)]
                     bk, bv = parts[0]
                     for pk, pv in parts[1:]:
@@ -199,7 +261,7 @@ def emulate_backward_mma(q, k, v, o, lse, do, causal, scale, split,
                     bk, bv = _dkdv_block(
                         q, k, v, do, lse, delta, bb,
                         range(kh * group, (kh + 1) * group), kh, k0, sh,
-                        scale, rounding)
+                        scale, rounding, row(bb))
                 dk[bb, kh, k0:k0 + n] = out(bk[:n])
                 dv[bb, kh, k0:k0 + n] = out(bv[:n])
     dq = np.zeros_like(q)
@@ -209,11 +271,11 @@ def emulate_backward_mma(q, k, v, o, lse, do, causal, scale, split,
                 n = min(ROWS, sq - q0)
                 dq[bb, hh, q0:q0 + n] = out(_dq_block(
                     q, k, v, do, lse, delta, bb, hh, hh // group, q0, sh,
-                    scale, rounding)[:n])
+                    scale, rounding, row(bb))[:n])
     return dq, dk, dv
 
 
-def _inputs(shape, seed):
+def _inputs(shape, seed, ids=None):
     """bf16 q, k, v, dO (as float32 arrays), the plain forward's o in bf16
     (0 on rows that see no key, as the forward kernel gives) and lse."""
     b, h, hk, sq, sk, d, causal = shape
@@ -223,16 +285,18 @@ def _inputs(shape, seed):
     k, v = (_bf16(rng.standard_normal((b, hk, sk, d)).astype(np.float32))
             for _ in range(2))
     o, lse = ref.flash_attention_lse_ref(
-        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), causal=causal)
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), causal=causal,
+        segment_ids=None if ids is None else torch.from_numpy(ids))
     o = torch.nan_to_num(o.float(), nan=0.0).numpy()
     return q, k, v, o, lse.numpy(), do
 
 
-def _plain(q, k, v, o, lse, do, causal, dtype):
+def _plain(q, k, v, o, lse, do, causal, dtype, ids=None):
     return [g.float().numpy() for g in ref.flash_attention_bwd_ref(
         *(torch.from_numpy(x).to(dtype) for x in (q, k, v, o)),
         torch.from_numpy(lse), torch.from_numpy(do).to(dtype),
-        causal=causal)]
+        causal=causal,
+        segment_ids=None if ids is None else torch.from_numpy(ids))]
 
 
 def _assert_within(got, want, tol, what):
@@ -259,6 +323,51 @@ def test_mma_backward_emulated_holds_the_card_limit(name, shape, split):
                                  rounding=False)
     want32 = _plain(q, k, v, o, lse, do, causal, torch.float32)
     _assert_within(exact, want32, chip_smoke.FLASH_BWD_FP32_TOL, name)
+
+
+SEG_CASES = [("packed", True), ("packed", False), ("unordered", True),
+             ("repeated", True)]
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("kind,causal", SEG_CASES)
+def test_mma_backward_with_segment_ids_emulated_holds_the_card_limit(
+        kind, causal, split):
+    """The segmented blocks (7 q heads over one kv head, three 64-row tiles
+    of ids) against the plain backward with the same ids, in bf16 within
+    the card's limit and, nothing rounded, in fp32."""
+    shape = (2, 7, 1, 150, 150, 64, causal)
+    ids = IDS[kind](2, 150)
+    q, k, v, o, lse, do = _inputs(shape, seed=21, ids=ids)
+    tiles = ref.flash_segment_tiles_ref(*(torch.from_numpy(ids),) * 2,
+                                        causal).numpy()
+    seg = (ids, ids, tiles)
+    want = _plain(q, k, v, o, lse, do, causal, torch.bfloat16, ids)
+    got = emulate_backward_mma(q, k, v, o, lse, do, causal, 0.125, split,
+                               seg=seg)
+    _assert_within(got, want, chip_smoke.FLASH_BWD_BF16_TOL, kind)
+    exact = emulate_backward_mma(q, k, v, o, lse, do, causal, 0.125, split,
+                                 rounding=False, seg=seg)
+    want32 = _plain(q, k, v, o, lse, do, causal, torch.float32, ids)
+    _assert_within(exact, want32, chip_smoke.FLASH_BWD_FP32_TOL, kind)
+
+
+def test_a_missing_segment_edge_is_caught(monkeypatch):
+    """With every tile taken as one segment (no per-pair test of the ids),
+    the segmented blocks leave the limit."""
+    shape = (1, 2, 1, 150, 150, 64, True)
+    ids = IDS["packed"](1, 150)
+    q, k, v, o, lse, do = _inputs(shape, seed=8, ids=ids)
+    tiles = ref.flash_segment_tiles_ref(*(torch.from_numpy(ids),) * 2,
+                                        True).numpy()
+    want = _plain(q, k, v, o, lse, do, True, torch.bfloat16, ids)
+    rule = _seg_warp
+    monkeypatch.setitem(globals(), "_seg_warp",
+                        lambda *a: (rule(*a)[0], True))
+    got = emulate_backward_mma(q, k, v, o, lse, do, True, 0.125, False,
+                               seg=(ids, ids, tiles))
+    with pytest.raises(AssertionError):
+        _assert_within(got, want, chip_smoke.FLASH_BWD_BF16_TOL, "segments")
 
 
 def test_rows_that_see_no_key_get_no_gradient():

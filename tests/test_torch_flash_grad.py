@@ -22,8 +22,9 @@
 * ``LM.loss`` through the flash route: the reduced dense, vlm and encdec
   configs at ``head_dim=64``, with and without ``segment_ids``, against
   ``jax.value_and_grad`` of the reference's loss (its plain attention, its
-  training path), with the flash calls of the forward, of the remat
-  recompute and of the backward counted exactly.
+  training path; with ids the reference's attention is plain, the port's
+  the flash route with the ids), with the flash calls of the forward, of
+  the remat recompute and of the backward counted exactly.
 
 The kernels themselves run only on the card: ``chip_smoke.py`` holds them
 against the same plain versions there.
@@ -44,6 +45,7 @@ from repro.models import attention as ref_attention
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
+from repro_torch.models import attention
 
 from _torch_train import (check_against_reference, port_loss,
                           reference_params, train_batch)
@@ -268,12 +270,12 @@ FLASH_ARCHS = ("qwen2-0.5b", "llama-3.2-vision-11b", "whisper-base")
 
 def flash_calls(cfg, segments):
     """Flash calls of one loss: (forward, remat recompute, backward).  Self
-    attention takes the route without segment ids (whisper's decoder never
-    passes them), cross attention and whisper's encoder always; with
-    remat the checkpointed layers (every decoder layer; not whisper's
-    encoder) run their attention again in the backward."""
+    attention takes the route with and without segment ids (whisper's
+    decoder never passes them), cross attention and whisper's encoder
+    always; with remat the checkpointed layers (every decoder layer; not
+    whisper's encoder) run their attention again in the backward."""
     L = cfg.num_layers
-    self_attn = 0 if segments and cfg.family != "encdec" else L
+    self_attn = L
     cross = {"vlm": L // max(cfg.cross_attn_every, 1),
              "encdec": L}.get(cfg.family, 0)
     enc = cfg.encoder_layers if cfg.family == "encdec" else 0
@@ -288,25 +290,34 @@ def test_loss_through_the_flash_route_matches_the_reference(
         arch, segments, monkeypatch):
     cfg = dataclasses.replace(ref_get_config(arch, reduced=True),
                               head_dim=64)
-    counts = {"fwd": 0, "bwd": 0}
+    counts = {"fwd": 0, "bwd": 0, "fwd_ids": 0, "bwd_ids": 0}
     fwd, bwd = kops.flash_attention, fa.flash_attention_bwd
 
     def counting_fwd(*args, **kwargs):
         counts["fwd"] += 1
+        counts["fwd_ids"] += kwargs.get("segment_ids") is not None
         return fwd(*args, **kwargs)
 
     def counting_bwd(*args, **kwargs):
         counts["bwd"] += 1
+        counts["bwd_ids"] += kwargs.get("segment_ids") is not None
         return bwd(*args, **kwargs)
 
     monkeypatch.setattr(kops, "flash_attention", counting_fwd)
     monkeypatch.setattr(fa, "flash_attention_bwd", counting_bwd)
+    plain = attention.chunked_attention.plain_chunks
     batch = train_batch(cfg, seed=4, segments=segments)
     check_against_reference(cfg, batch)
     forward, recompute, backward = flash_calls(cfg, segments)
-    # packed dense batches take the plain route alone, as the reference's
-    assert counts == {"fwd": forward + recompute, "bwd": backward}, counts
-    assert (backward == 0) == (segments and cfg.family == "dense")
+    # packed batches take the flash route with their ids in every self
+    # attention but whisper's (its decoder passes none), and no plain chunk
+    with_ids = segments and cfg.family != "encdec"
+    L = cfg.num_layers
+    assert counts == {"fwd": forward + recompute, "bwd": backward,
+                      "fwd_ids": L * (1 + (cfg.remat != "none"))
+                      if with_ids else 0,
+                      "bwd_ids": L if with_ids else 0}, counts
+    assert attention.chunked_attention.plain_chunks == plain
 
 
 def test_flash_route_counts_without_remat(monkeypatch):

@@ -23,7 +23,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitplane_gemm import bitplane_matmul, int8_matmul
 from repro_torch.kernels.flash_attention import (_kernel_operand,
                                                  flash_attention)
-from repro_torch.models.attention import chunked_attention
+from repro_torch.models.attention import (chunked_attention,
+                                         plain_chunked_attention)
 
 from _torch_parity import assert_bits_equal
 
@@ -111,7 +112,7 @@ def test_flash_route_matches_chunked_route():
     q = torch.from_numpy(_normal(rng, (2, 64, 8, 64)))
     k, v = (torch.from_numpy(_normal(rng, (2, 64, 2, 64))) for _ in range(2))
     ones = torch.ones(2, 64, dtype=torch.int32)
-    plain = chunked_attention(q, k, v, segment_ids=ones, chunk=16)
+    plain = plain_chunked_attention(q, k, v, segment_ids=ones, chunk=16)
     flash = chunked_attention(q, k, v)
     np.testing.assert_allclose(plain.numpy(), flash.numpy(), rtol=2e-5,
                                atol=2e-5)

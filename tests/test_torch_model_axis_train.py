@@ -12,13 +12,16 @@ reduced width (float32 parameters drawn from a seed):
   groups of 64);
 * the flash route's GQA mapping on a 4-way ``model`` axis at head dim 64
   (8 q over 2 kv heads: each rank's 2 q heads share one kv head; 12 over
-  6: a rank's 3 q heads span two groups), train, prefill and decode;
+  6: a rank's 3 q heads span two groups), train, prefill and decode; and
+  on packed rows with their segment ids (each rank hands the kernel the
+  whole ids);
 * ``remat="dots"``: the selective-checkpoint policy still sees (and
   keeps) the matrix products, which are DTensors' ``aten.mm``;
 * ``(pod 2, data 1, model 2)`` for qwen2 and whisper;
 * a ``(data 1, model 1)`` mesh on one rank, which runs every ``constrain``
   site as ``DTensor`` redistributions that move nothing: the same bits as
-  the unsharded steps (the card runs this path at full width).
+  the unsharded steps (the card runs this path at full width), also on
+  packed rows through the flash route with their ids.
 
 Every process group lives in subprocesses with their own timeouts.
 """
@@ -83,7 +86,8 @@ def diff(got, want):
     return float((gather(got).float() - want.float()).abs().max())
 
 
-for name, arch, over, fmts in CASES:
+for name, arch, over, fmts, *segments in CASES:
+    segments = segments[0] if segments else SEGMENTS
     cfg = dataclasses.replace(get_config(arch, reduced=True), **over)
     model = LM(cfg)
     params = tree_map(lambda p: p.float(), model.init_params(
@@ -93,7 +97,7 @@ for name, arch, over, fmts in CASES:
     batch.pop("next_doc")
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     batch.update(extras(cfg, B, torch.Generator().manual_seed(3)))
-    if not SEGMENTS:
+    if not segments:
         batch.pop("segment_ids")
     for fmt in fmts:
         opt = AdamWConfig(state_format=fmt)
@@ -146,6 +150,8 @@ if RANK == 0:
 
 
 def _run(cases, mesh, world, segments=True):
+    """Each case ``(name, arch, overrides, formats[, segments])`` on
+    ``world`` ranks; a case's own ``segments`` overrides the run's."""
     outs = run_ranks(
         f"S, B = {S}, {B}\nMOE_ROWS, MOE_SEQ = {MOE_ROWS}, "
         f"{MOE_SEQ}\nDECODE_STEPS = {DECODE_STEPS}\nMETRICS = {METRICS!r}\n"
@@ -212,7 +218,9 @@ def gqa():
     over = {"head_dim": 64, "num_heads": 8, "num_kv_heads": 2}
     cases = [("gqa8x2", "qwen2-72b", over, ["fp32"]),
              ("gqa12x6", "qwen2-72b", dict(over, num_heads=12,
-                                          num_kv_heads=6), ["fp32"])]
+                                          num_kv_heads=6), ["fp32"]),
+             # packed rows: self attention takes the flash route with ids
+             ("gqa8x2-ids", "qwen2-72b", over, ["fp32"], True)]
     # no segment ids: self attention takes the flash route
     return _run(cases, {"data": 1, "model": 4}, 4, segments=False)
 
@@ -221,6 +229,14 @@ def gqa():
 def test_flash_route_on_local_heads_matches_one_device(gqa, name):
     _check_train(gqa, name, "fp32")
     _check_serve(gqa, name)
+
+
+def test_flash_route_with_segment_ids_on_local_heads_matches_one_device(
+        gqa):
+    """The ids are per row: every rank hands them whole to the kernel with
+    its own q heads."""
+    _check_train(gqa, "gqa8x2-ids", "fp32")
+    _check_serve(gqa, "gqa8x2-ids")
 
 
 @pytest.fixture(scope="module")
@@ -241,7 +257,18 @@ def test_pod_data_model_mesh_matches_one_device(pod, arch):
 def one_rank():
     cases = [(a, a, {"head_dim": 64} if a == "whisper-base" else {},
               ["fp32"]) for a in ("qwen2-0.5b", "whisper-base")]
+    # packed rows at head dim 64: the flash route with the ids
+    cases.append(("qwen2-64", "qwen2-0.5b", {"head_dim": 64}, ["fp32"], True))
     return _run(cases, {"data": 1, "model": 1}, 1, segments=False)
+
+
+def test_model_1_mesh_with_segment_ids_gives_the_unsharded_bits(one_rank):
+    """qwen2 at head dim 64 on packed rows: the flash route with the ids
+    on a (data 1, model 1) mesh, the same bits as the unsharded step."""
+    for k in METRICS:
+        a, b = one_rank[f"qwen2-64/fp32/{k}"]
+        assert a == b, (k, a, b)
+    assert one_rank["qwen2-64/fp32/params"] == 0.0
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "whisper-base"])
