@@ -19,6 +19,7 @@ def _round_up(x: int, m: int) -> int:
 class ModelConfig:
     name: str
     family: str                  # dense | moe | ssm | hybrid | encdec | vlm
+    #                              (| zamba2: PublishedConfig)
     num_layers: int
     d_model: int
     num_heads: int
@@ -149,6 +150,48 @@ class ModelConfig:
         active_moe = self.experts_per_token * (3 * d * ff)
         return int(self.param_count() - self.num_layers *
                    (full_moe - active_moe))
+
+
+@dataclasses.dataclass(frozen=True)
+class PublishedConfig(ModelConfig):
+    """A model as published where it departs from the reference's ten
+    architectures, whose :class:`ModelConfig` stays equal to the
+    reference's field for field.
+
+    * ``tie_embeddings``: the output head is the embedding's transpose
+      (any family; ``lm_head`` is then no parameter of its own).
+    * family ``zamba2`` (Zyphra's Zamba2 as ``modeling_zamba2.py`` has it):
+      ``num_layers`` Mamba2 layers; before each layer in
+      ``hybrid_layer_ids`` one application of shared block ``app %
+      num_shared_blocks`` over the concatenation of the hidden state and
+      the embedding, with a rank-``adapter_rank`` MLP adapter and a
+      ``d x d`` linear of the application's own.
+    """
+    tie_embeddings: bool = False
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    adapter_rank: int = 0
+
+    def param_count(self) -> int:
+        """Every parameter, the head once where it is tied (``zamba2``:
+        each leaf counted exactly, norms and biases included)."""
+        v, d = self.padded_vocab, self.d_model
+        total = (self._zamba2_params() if self.family == "zamba2"
+                 else super().param_count())
+        return total - v * d if self.tie_embeddings else total
+
+    def _zamba2_params(self) -> int:
+        d, ff, h = self.d_model, self.d_ff, self.ssm_heads
+        din, conv = self.d_inner, self.conv_dim
+        nq = self.num_heads * self.resolved_head_dim
+        nkv = self.num_kv_heads * self.resolved_head_dim
+        mamba = (d + d * (2 * din + 2 * self.ssm_ngroups * self.ssm_state + h)
+                 + (self.ssm_conv + 1) * conv + 3 * h + din + din * d)
+        shared = (2 * d + 2 * d * (nq + 2 * nkv) + nq * d    # attention
+                  + d + d * 2 * ff + ff * d)                # MLP
+        application = d * d + self.adapter_rank * (d + 2 * ff)
+        return (2 * self.padded_vocab * d + d + self.num_layers * mamba
+                + self.num_shared_blocks * shared
+                + len(self.hybrid_layer_ids) * application)
 
 
 @dataclasses.dataclass(frozen=True)

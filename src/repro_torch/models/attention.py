@@ -82,13 +82,17 @@ def plain_chunked_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True,
                             segment_ids: Optional[torch.Tensor] = None,
                             kv_segment_ids: Optional[torch.Tensor] = None,
-                            chunk: int = 512) -> torch.Tensor:
+                            chunk: int = 512,
+                            scale: Optional[float] = None) -> torch.Tensor:
     """The plain route of :func:`chunked_attention`, the reference's own:
     the repeated K/V, one query chunk of fp32 logits at a time, each
-    chunk's ids against all the kv ids."""
+    chunk's ids against all the kv ids.  The logits' scale is ``scale``,
+    by default ``1/sqrt(D)`` (Zamba2's shared attention takes
+    ``(D/2)^-1/2``)."""
     b, sq, hq, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     dt = torch.promote_types(q.dtype, k.dtype)
     kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
 

@@ -2,7 +2,9 @@
 families: dense (GQA transformer), MoE, SSM (Mamba2), hybrid (zamba2
 shared blocks), vlm (gated cross attention to image embeddings every
 ``cross_attn_every`` layers) and encdec (whisper: an encoder over audio
-frames, a decoder with cross attention to it).
+frames, a decoder with cross attention to it); and the port's own
+``zamba2`` family, Zamba2 as published (:class:`PublishedConfig`; training
+only), and a head tied to the embedding for any family.
 
 One :class:`LM` per config exposes
 
@@ -52,18 +54,19 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import obs
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, PublishedConfig
 from ..core.machine import resolve_device
 from ..parallel.axes import (constrain, einsum, matmul, merge_heads,
                              on_model_mesh, settled, unflatten)
-from .attention import chunked_attention, decode_attention, update_cache
+from .attention import (chunked_attention, decode_attention,
+                        plain_chunked_attention, update_cache)
 from .common import (DTYPES, ParamDef, abstract_tree, activation_fn,
                      axes_tree, chunked_cross_entropy, materialize_tree,
                      rmsnorm, rope, sinusoidal_positions)
 from .moe import moe_ffn
-from .ssm import mamba_block
+from .ssm import mamba_block, mamba_mixer
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec", "zamba2")
 POSITION_TABLE = 8192          # encdec token positions are clipped into it
 
 
@@ -166,6 +169,36 @@ def _ssm_defs(cfg: ModelConfig, L: int) -> Dict:
     }
 
 
+def _zamba2_defs(cfg: PublishedConfig) -> Dict:
+    """The shared blocks (``shared``: attention over ``2 d``, its norm, and
+    the MLP with gate and up in one ``w_gu``) and each application's own
+    linear and MLP adapter (``hybrid``)."""
+    d, ff, nb = cfg.d_model, cfg.d_ff, cfg.num_shared_blocks
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    n, r = len(cfg.hybrid_layer_ids), cfg.adapter_rank
+    attn = {"norm": ParamDef((nb, 2 * d), ("layers", None), init="ones"),
+            "wq": ParamDef((nb, 2 * d, nq), ("layers", "embed", "heads")),
+            "wk": ParamDef((nb, 2 * d, nkv), ("layers", "embed", "kv")),
+            "wv": ParamDef((nb, 2 * d, nkv), ("layers", "embed", "kv")),
+            "wo": ParamDef((nb, nq, d), ("layers", "heads", "embed"))}
+    mlp = {"norm": ParamDef((nb, d), ("layers", None), init="ones"),
+           "w_gu": ParamDef((nb, d, 2 * ff), ("layers", "embed", "mlp")),
+           "wo": ParamDef((nb, ff, d), ("layers", "mlp", "embed"))}
+    hybrid = {"linear": ParamDef((n, d, d), ("layers", "embed", None)),
+              "adapter_a": ParamDef((n, d, r), ("layers", "embed", None)),
+              "adapter_b": ParamDef((n, r, 2 * ff), ("layers", None, "mlp"))}
+    return {"blocks": _ssm_defs(cfg, cfg.num_layers),
+            "shared": {"attn": attn, "mlp": mlp}, "hybrid": hybrid}
+
+
+def _tied(cfg: ModelConfig) -> bool:
+    """Whether the output head is the embedding's transpose (a
+    :class:`PublishedConfig` that says so; the reference's ten are
+    untied)."""
+    return getattr(cfg, "tie_embeddings", False)
+
+
 def build_param_defs(cfg: ModelConfig) -> Dict:
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
@@ -174,8 +207,9 @@ def build_param_defs(cfg: ModelConfig) -> Dict:
     defs = {
         "embed": ParamDef((v, d), ("vocab", "embed")),
         "final_norm": ParamDef((d,), (None,), init="ones"),
-        "lm_head": ParamDef((d, v), ("embed", "vocab")),
     }
+    if not _tied(cfg):
+        defs["lm_head"] = ParamDef((d, v), ("embed", "vocab"))
     fam = cfg.family
     if fam in ("dense", "vlm"):
         defs["blocks"] = {"attn": _attn_defs(cfg, L),
@@ -193,6 +227,8 @@ def build_param_defs(cfg: ModelConfig) -> Dict:
         nb = cfg.num_shared_blocks
         defs["shared"] = {"attn": _attn_defs(cfg, nb),
                           "mlp": _mlp_defs(cfg, nb)}
+    elif fam == "zamba2":
+        defs.update(_zamba2_defs(cfg))
     else:                                               # encdec
         le = cfg.encoder_layers
         defs["enc_blocks"] = {"attn": _attn_defs(cfg, le),
@@ -385,7 +421,12 @@ class LM:
         :func:`~repro_torch.models.common.materialize_tree`."""
         return materialize_tree(self.defs, generator, resolve_device(device))
 
-    # ---- embedding ----
+    # ---- embedding and head ----
+    def _head(self, params) -> torch.Tensor:
+        """The output head (d, V): ``lm_head``, or tied, the embedding's
+        transpose (a view: its gradient joins the lookup's)."""
+        return params["embed"].t() if _tied(self.cfg) else params["lm_head"]
+
     def _embed(self, params, tokens: torch.Tensor,
                positions=None) -> torch.Tensor:
         h = _lookup(params["embed"], tokens)
@@ -545,6 +586,71 @@ class LM:
         return h, {**self._stacked_states(states),
                    "shared_k": torch.stack(ks), "shared_v": torch.stack(vs)}
 
+    def _zamba2_stack(self, params, h, positions, segment_ids):
+        """Zamba2 in training: every layer is a Mamba2 layer; before each
+        of ``hybrid_layer_ids`` one application of a shared block gives the
+        term ``t`` that that layer's Mamba2 input adds (``h + mamba(norm(h
+        + t))``: ``t`` never enters the residual stream).  Each
+        application and each Mamba2 layer is checkpointed by
+        :meth:`_remat`."""
+        cfg = self.cfg
+        original = h
+        apps = {layer: a for a, layer in enumerate(cfg.hybrid_layer_ids)}
+        for i in range(cfg.num_layers):
+            t = None
+            if i in apps:
+                t = self._shared_application(params, apps[i], h, original,
+                                             positions, segment_ids)
+            h = self._remat(self._zamba2_mamba, _layer(params["blocks"], i),
+                            h, t, segment_ids)
+        return h
+
+    def _shared_application(self, params, a: int, h, original, positions,
+                            segment_ids):
+        """Application ``a`` of shared block ``a % num_shared_blocks`` with
+        its own adapter and linear, in the ``model.shared`` span: outside
+        the checkpoint, so that its ``.backward`` holds the recompute and
+        the backward once each."""
+        sp = _layer(params["shared"], a % self.cfg.num_shared_blocks)
+        ap = _layer(params["hybrid"], a)
+        with obs.span("model.shared", device=True, grad=True) as s:
+            h, original = s.inputs(h, original)
+            return s.output(self._remat(self._zamba2_shared, sp, ap, h,
+                                        original, positions, segment_ids))
+
+    def _zamba2_shared(self, sp, ap, h, original, positions, segment_ids):
+        """``linear(MLP(norm(attention(norm(concat(h, original))))))`` with
+        no residual inside: causal attention over head dim ``2 d / heads``
+        at the scale ``(D/2)^-1/2`` (the plain route: no flash instance
+        takes that head dim), RoPE over every dim, then the gated MLP whose
+        gate and up projections add the application's rank-``r`` adapter,
+        with the exact (erf) GELU."""
+        cfg = self.cfg
+        x = rmsnorm(torch.cat([h, original], dim=-1), sp["attn"]["norm"],
+                    cfg.norm_eps)
+        q, k, v = _proj_qkv(cfg, sp["attn"], x)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        with obs.span("model.attention", device=True, grad=True) as s:
+            q, k, v = s.inputs(q, k, v)
+            out = s.output(plain_chunked_attention(
+                q, k, v, True, segment_ids, chunk=cfg.attn_chunk,
+                scale=(cfg.resolved_head_dim / 2) ** -0.5))
+        a = rmsnorm(matmul(merge_heads(out), sp["attn"]["wo"]),
+                    sp["mlp"]["norm"], cfg.norm_eps)
+        gu = (matmul(a, sp["mlp"]["w_gu"])
+              + matmul(matmul(a, ap["adapter_a"]), ap["adapter_b"]))
+        gate, up = torch.chunk(gu, 2, dim=-1)
+        return matmul(matmul(F.gelu(gate) * up, sp["mlp"]["wo"]),
+                      ap["linear"])
+
+    def _zamba2_mamba(self, p, h, t, segment_ids):
+        """One Zamba2 Mamba2 layer: ``h + mixer(norm(h + t))``."""
+        x = h if t is None else h + t
+        out, _ = mamba_mixer(p, rmsnorm(x, p["in_norm"], self.cfg.norm_eps),
+                             self.cfg, segment_ids=segment_ids)
+        return h + out
+
     def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """Whisper's encoder: the frames plus the sinusoidal table, then
         ``encoder_layers`` blocks of non-causal self attention (no RoPE)
@@ -627,6 +733,11 @@ class LM:
         elif fam == "hybrid":
             h, new_cache = self._hybrid_stack(
                 params, h, positions, segment_ids, mode, cache, cache_index)
+        elif fam == "zamba2":
+            if mode != "train":
+                raise NotImplementedError("the zamba2 family trains only")
+            h, new_cache = self._zamba2_stack(params, h, positions,
+                                              segment_ids), None
         else:
             h, new_cache = self._encdec_stack(
                 params, h, positions, mode, cross_kv=cross_kv, cache=cache,
@@ -653,7 +764,7 @@ class LM:
             image_embeds=batch.get("image_embeds"),
             frames=batch.get("frames"))
         ce, count = chunked_cross_entropy(
-            h, params["lm_head"], batch["targets"], batch["loss_mask"],
+            h, self._head(params), batch["targets"], batch["loss_mask"],
             cfg.vocab_size, cfg.ce_chunk)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": count}
 
@@ -672,7 +783,7 @@ class LM:
                                      batch.get("segment_ids"), "prefill",
                                      image_embeds=batch.get("image_embeds"),
                                      frames=batch.get("frames"))
-        return h[:, -1] @ params["lm_head"], cache
+        return h[:, -1] @ self._head(params), cache
 
     def decode_step(self, params, cache, tokens, cache_index
                     ) -> Tuple[torch.Tensor, Dict]:
@@ -693,12 +804,15 @@ class LM:
         h, _, cache = self._backbone(params, tokens, positions, None,
                                      "decode", cache=cache,
                                      cache_index=cache_index)
-        logits = constrain(h[:, -1] @ params["lm_head"], "batch", "act_vocab")
+        logits = constrain(h[:, -1] @ self._head(params), "batch",
+                           "act_vocab")
         return logits, cache
 
     # ---- cache declaration ----
     def cache_defs(self, batch: int, seq: int) -> Dict:
         cfg = self.cfg
+        if cfg.family == "zamba2":
+            raise NotImplementedError("the zamba2 family trains only")
         hd = cfg.resolved_head_dim if cfg.num_heads else 0
 
         def kv(n_layers, t=seq):
