@@ -267,6 +267,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -1506,6 +1507,190 @@ def time_flash_segments(ref, flash_attention, flash_attention_bwd) -> dict:
         library_ms=None, library="none computes these records",
         timed_at=f"ids ({b}, {s}) of the packed rows, both sides, causal")
     del qs, ks, vs, so, qm, km, vm
+    return rows
+
+
+# The SSD's intra-chunk term (csrc/ssd_chunk.cu) at Zamba2-7B's training
+# shape: B, S, chunk, groups, heads a group, head dim, state.
+SSD_SHAPE = (4, 4096, 256, 2, 56, 64, 64)
+# a ragged small one: 3 tiles a chunk, 11 heads (a whole block of 8 and 3),
+# state 128, one group
+SSD_SMALL = (3, 384, 192, 1, 11, 64, 128)
+# (rtol, share of the largest entry): float32 sums of up to 256 terms (and
+# dS's of 56 heads), each product three TF32 ones (2^-22 of a product left
+# out), against the plain versions in float32 with TF32 off
+SSD_TOL = (1e-4, 1e-5)
+
+
+def ssd_inputs(shape, seed: int, runs: bool):
+    """The term's operands on the card as ``ssd_chunked`` forms them at
+    ``shape``: C and B at the conv's scale, x dt, the log decay dt A (dt
+    from a softplus, A = -exp(a_log) with a_log 1 as the port's init) and
+    its cumulative sum within each chunk; with ``runs`` the packed rows'
+    runs (``packed_ids``) cut into chunks."""
+    from repro_torch.models.ssm import document_runs
+
+    b, s, cs, g, hg, p, n = shape
+    nc = s // cs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*size):
+        return torch.randn(*size, generator=gen, device="cuda")
+
+    cc, bc = (draw(b, nc, cs, g, n) * 0.5 for _ in range(2))
+    dt = torch.nn.functional.softplus(draw(b, nc, cs, g, hg) - 2)
+    xf = draw(b, nc, cs, g, hg, p) * dt[..., None]
+    da_cum = torch.cumsum(dt * -math.e, 2)
+    if not runs:
+        return cc, bc, xf, da_cum, None
+    if s >= 4096:
+        ids = packed_ids(b, s, seed)
+    else:                   # short documents, ids that come back, pads (0)
+        rng = np.random.default_rng(seed)
+        ids = torch.from_numpy(np.stack([
+            np.repeat(np.arange(s) % 5, rng.integers(5, 80, size=s))[:s]
+            for _ in range(b)])).to(device="cuda", dtype=torch.int32)
+    return cc, bc, xf, da_cum, document_runs(ids).view(b, nc, cs)
+
+
+def _ssd_close(what, got, want) -> float:
+    rtol, step = SSD_TOL
+    top = float(want.abs().max())
+    if got.shape != want.shape or got.dtype != torch.float32 or not \
+            torch.allclose(got, want, rtol=rtol, atol=step * top):
+        raise AssertionError(f"ssd_chunk {what} != plain: max_abs_err "
+                             f"{max_abs_err(got, want)} (largest entry "
+                             f"{top})")
+    return max_abs_err(got, want) / top
+
+
+def check_ssd_chunk(ref) -> tuple:
+    """The SSD kernels on the card against the plain versions in float32
+    (TF32 off), at ``SSD_SHAPE`` with the packed rows' runs and at
+    ``SSD_SMALL`` with and without runs: y, then dC, dB, dX and dA (the
+    wrapper's products and sums included), and the state kernels (gather,
+    apply with a base, cross), within ``SSD_TOL``; all-equal runs bit-equal
+    to no runs, forward and backward.  Returns (cases, the largest
+    |difference| as a share of its largest entry)."""
+    from repro_torch.kernels import ssd_chunk as sk
+
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst, cases = 0.0, 0
+    try:
+        for shape, with_runs in ((SSD_SHAPE, True), (SSD_SMALL, True),
+                                 (SSD_SMALL, False)):
+            cc, bc, xf, da_cum, rc = ssd_inputs(shape, 21, with_runs)
+            dy = torch.randn_like(xf)
+            y = sk.ssd_chunk_fwd(cc, bc, xf, da_cum, rc)
+            runs = () if rc is None else (rc,)
+            want = _by_row(lambda *t: (ref.ssd_chunk_ref(*t),), cc, bc, xf,
+                           da_cum, *runs)[0]
+            worst = max(worst, _ssd_close("y", y, want))
+            del want
+            got = sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy, rc)
+            want = _by_row(ref.ssd_chunk_bwd_ref, cc, bc, xf, da_cum, dy,
+                           *runs)
+            for what, g_, w_ in zip(("dC", "dB", "dX", "dA"), got, want):
+                worst = max(worst, _ssd_close(what, g_, w_))
+            del got, want
+            cases += 2
+            # the state kernels: w a decay in (0, 1], W an entering state
+            w = torch.exp(da_cum[:, :, -1:] - da_cum)
+            wm = torch.randn(xf.shape[:2] + xf.shape[3:] + cc.shape[-1:],
+                             device="cuda") * 0.1
+            for what, got, want in (
+                    ("gather", sk.ssd_gather(xf, bc, w),
+                     ref.ssd_gather_ref(xf, bc, w)),
+                    ("apply", sk.ssd_apply(cc, wm, w, dy),
+                     ref.ssd_apply_ref(cc, wm, w, dy)),
+                    *zip(("cross dV", "cross dw"), sk.ssd_cross(dy, wm, cc, w),
+                         ref.ssd_cross_ref(dy, wm, cc, w))):
+                worst = max(worst, _ssd_close(what, got, want))
+            del w, wm
+            cases += 3
+            if with_runs:
+                same = torch.full_like(rc, 7)
+                plain = (sk.ssd_chunk_fwd(cc, bc, xf, da_cum),
+                         *sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy))
+                seg = (sk.ssd_chunk_fwd(cc, bc, xf, da_cum, same),
+                       *sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy, same))
+                if not all(torch.equal(bits(a), bits(b))
+                           for a, b in zip(plain, seg)):
+                    raise AssertionError("ssd_chunk: all-equal runs != no "
+                                         f"runs at {shape}")
+                cases += 1
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    return cases, worst
+
+
+def ssd_counts(shape) -> dict:
+    """The term's work at ``shape`` as ``portbench``'s count has it (whole
+    chunks) and its bytes (inputs read once, outputs written once)."""
+    b, s, cs, g, hg, p, n = shape
+    unit = 2 * b * (s // cs) * g * cs * cs
+    small = b * s * g * (2 * n + hg) * 4            # C, B, the log decay
+    big = b * s * g * hg * p * 4                    # xf, y, dy, dx
+    return dict(fwd_flops=unit * (n + hg * p),
+                bwd_flops=unit * (3 * n + 2 * hg * p),
+                fwd_bytes=small + 2 * big + b * s * 4,
+                bwd_bytes=2 * small + 3 * big + b * s * 4)
+
+
+def time_ssd_chunk() -> dict:
+    """The SSD kernels at ``SSD_SHAPE`` with the packed rows' runs, each
+    beside its bound (``ssd_counts`` at ``FP32_WORK_FLOPS`` or at
+    ``HBM_BYTES_PER_S``, whichever is longer) and the einsum route's same
+    term (``models.ssm._diag_einsum``: its forward without grad; for the
+    backward its forward and backward less its forward).  Rows
+    ``ssd_chunk_fwd`` and ``ssd_chunk_bwd``."""
+    from repro_torch.kernels import ssd_chunk as sk
+    from repro_torch.models import ssm
+
+    cc, bc, xf, da_cum, rc = ssd_inputs(SSD_SHAPE, 23, True)
+    dy = torch.randn_like(xf)
+    da = torch.cat([da_cum[:, :, :1], da_cum.diff(dim=2)], dim=2)
+    leaves = [t.detach().requires_grad_() for t in (da, cc, bc, xf)]
+
+    def plain_fwd():
+        with torch.no_grad():
+            ssm._diag_einsum(*leaves, rc)
+
+    def plain_fwd_bwd():
+        torch.autograd.grad(ssm._diag_einsum(*leaves, rc), leaves, dy)
+
+    plain_ms, plain_both_ms = time_ms(plain_fwd, 3), time_ms(plain_fwd_bwd, 3)
+    counts = ssd_counts(SSD_SHAPE)
+    b, s, cs, g, hg, p, n = SSD_SHAPE
+    shape = (f"fp32, B {b}, S {s}, chunk {cs}, {g} groups of {hg} heads of "
+             f"{p}, state {n}, runs of the packed rows "
+             f"({int((rc.flatten(1).diff(dim=1) != 0).sum()) + b} runs)")
+    rows = {}
+    for name, fn, flops, nbytes, plain, note in (
+            ("ssd_chunk_fwd",
+             lambda: sk.ssd_chunk_fwd(cc, bc, xf, da_cum, rc),
+             counts["fwd_flops"], counts["fwd_bytes"], plain_ms,
+             "models.ssm._diag_einsum (no grad)"),
+            ("ssd_chunk_bwd",
+             lambda: sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy, rc),
+             counts["bwd_flops"], counts["bwd_bytes"],
+             plain_both_ms - plain_ms,
+             "models.ssm._diag_einsum: its forward and backward less its "
+             "forward")):
+        by_ops = flops / FP32_WORK_FLOPS * 1e3
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = dict(
+            ms=time_ms(fn, 10), device_ms=device_ms(fn, 10),
+            bound_ms=max(by_ops, by_bytes),
+            bound_by="operations" if by_ops > by_bytes else "bytes",
+            flops=flops, bytes=nbytes, plain_ms=plain, plain=note,
+            library_ms=None, library="none computes this term",
+            timed_at=shape + ("; backward: both kernels, dC = dS B, "
+                              "dB = dS^T C and dA's sum"
+                              if name == "ssd_chunk_bwd" else ""))
+    rows["ssd_chunk_bwd"]["plain_ms_fwd_bwd"] = plain_both_ms
     return rows
 
 
@@ -4251,7 +4436,13 @@ def main() -> int:
                      ("flash_attention_bwd", "flash_bwd_gqa_sum_kernel"),
                      ("flash_attention_bwd", "flash_bwd_dq_mma_kernel"),
                      ("flash_attention_bwd", "flash_bwd_dkdv_tf32_kernel"),
-                     ("flash_attention_bwd", "flash_bwd_dq_tf32_kernel"))}
+                     ("flash_attention_bwd", "flash_bwd_dq_tf32_kernel"),
+                     ("ssd_chunk", "ssd_fwd_kernel"),
+                     ("ssd_chunk", "ssd_bwd_dx_kernel"),
+                     ("ssd_chunk", "ssd_bwd_ds_kernel"),
+                     ("ssd_chunk", "ssd_gather_kernel"),
+                     ("ssd_chunk", "ssd_apply_kernel"),
+                     ("ssd_chunk", "ssd_cross_kernel"))}
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(str(p.relative_to(ROOT)) for p in libs.values()),
          ptxas=logs, flash_no_spills=flash_usage,
@@ -4281,8 +4472,11 @@ def main() -> int:
         check_flash_segments(ref, flash_attention_bwd)
     timings.update(time_flash_segments(ref, flash_attention,
                                        flash_attention_bwd))
+    ssd_cases, worst["ssd_chunk"] = check_ssd_chunk(ref)
+    timings.update(time_ssd_chunk())
     emit("kernels", seconds=time.perf_counter() - t0,
-         cases=cases + lm_cases + float_cases + bwd_cases + seg_cases,
+         cases=cases + lm_cases + float_cases + bwd_cases + seg_cases
+         + ssd_cases,
          tolerance={"mdgather, mdscatter, int8_matmul, bitplane_matmul, "
                     "float_binary, float_convert":
                     "bit-equal (max_abs_err must be 0)",
@@ -4297,7 +4491,10 @@ def main() -> int:
                                                  "backward's limits at "
                                                  "SEG_SHAPE; flash_seg_tiles"
                                                  " and ids all equal: "
-                                                 "bit-equal"},
+                                                 "bit-equal",
+                    "ssd_chunk": f"(rtol, share of the largest entry) "
+                                 f"{SSD_TOL}; max_abs_err as that share; "
+                                 f"all-equal runs: bit-equal"},
          flash_lse_max_abs_err=lse_err, flash_bwd_gqa_split=bwd_split,
          flash_segmented_lse_max_abs_err=seg_lse_err,
          max_abs_err=worst, mdgather_routes=gather_routes,

@@ -12,6 +12,9 @@
   float_ops  — MVE float add/sub/mul and float32 <-> float16 conversions
                with the reference's (x86's) NaN and denormal bits (CUDA
                C++, ``csrc/float_ops.cu``)
+  ssd_chunk  — Mamba2's chunked scan (SSD): the intra-chunk term forward
+               and backward, and the chunk states and entering states'
+               term (CUDA C++, ``csrc/ssd_chunk.cu``)
 
 Each kernel has its plain PyTorch version in ``ref.py``; ``ops.py`` holds
 the wrappers the executors call.  A wrapper takes the plain version only
@@ -22,7 +25,7 @@ Submodules import lazily (PEP 562) and nothing here compiles at import:
 ``_build`` runs ``nvcc`` at the first launch.
 """
 _LAZY = {"ops", "ref", "mdgather", "mdscatter", "bitplane_gemm",
-         "flash_attention", "float_ops", "_build"}
+         "flash_attention", "float_ops", "ssd_chunk", "_build"}
 
 
 def __getattr__(name):

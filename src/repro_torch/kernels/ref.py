@@ -7,7 +7,8 @@ promises one (attention).  The kernel wrappers
 (:mod:`~repro_torch.kernels.mdgather`, :mod:`~repro_torch.kernels.mdscatter`,
 :mod:`~repro_torch.kernels.bitplane_gemm`,
 :mod:`~repro_torch.kernels.flash_attention`,
-:mod:`~repro_torch.kernels.float_ops`) take these versions for CPU
+:mod:`~repro_torch.kernels.float_ops`,
+:mod:`~repro_torch.kernels.ssd_chunk`) take these versions for CPU
 tensors, and the on-card smoke run holds each kernel against them on the
 same inputs.
 """
@@ -442,6 +443,93 @@ def float_convert_ref(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     # unsigned pattern -> the signed view's value (two's complement)
     nan_bits = (nan_bits - ((nan_bits >> (width - 1)) << width)).to(view)
     return torch.where(nan, nan_bits, x.to(dtype).view(view)).view(dtype)
+
+
+# ---------------------------------------------------------------------------
+# The SSD's intra-chunk term (csrc/ssd_chunk.cu).
+# ---------------------------------------------------------------------------
+
+def _ssd_decay(da_cum: torch.Tensor, runs: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """``(B, C, L, G, H)`` cumulative log decay -> ``(B, C, G, H, L, L)``
+    decay blocks ``L_h[l, s] = exp(A[l] - A[s])`` for ``s <= l`` in one
+    run of ``runs`` ``(B, C, L)`` (every pair without runs), else 0."""
+    cs = da_cum.shape[2]
+    a = da_cum.permute(0, 1, 3, 4, 2)
+    diff = a[..., :, None] - a[..., None, :]
+    mask = torch.ones(cs, cs, dtype=torch.bool, device=a.device).tril()
+    if runs is not None:
+        mask = mask & (runs[..., :, None] == runs[..., None, :])[:, :, None,
+                                                                  None]
+    return torch.exp(torch.where(mask, diff, float("-inf")))
+
+
+def ssd_chunk_ref(cc: torch.Tensor, bc: torch.Tensor, xf: torch.Tensor,
+                  da_cum: torch.Tensor,
+                  runs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The intra-chunk (diagonal-block) term of the SSD scan as the kernel
+    computes it: ``S = C B^T`` once for each group, ``M_h = S o L_h``
+    (:func:`_ssd_decay`), ``y_h = M_h X_h``.
+
+    ``cc``, ``bc`` ``(B, C, L, G, N)``; ``xf`` ``(B, C, L, G, H, P)`` (x
+    times dt); ``da_cum`` ``(B, C, L, G, H)``, the cumulative log decay
+    within each chunk; ``runs`` ``(B, C, L)`` the run index of each
+    position (``models.ssm.document_runs``) or None.  Returns ``(B, C, L,
+    G, H, P)`` in the inputs' type (float32 or float64)."""
+    scores = torch.einsum("bclgn,bcsgn->bcgls", cc, bc)
+    m = scores[:, :, :, None] * _ssd_decay(da_cum, runs)
+    return torch.einsum("bcghls,bcsghp->bclghp", m, xf)
+
+
+def ssd_chunk_bwd_ref(cc: torch.Tensor, bc: torch.Tensor, xf: torch.Tensor,
+                      da_cum: torch.Tensor, dy: torch.Tensor,
+                      runs: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The gradients ``(dcc, dbc, dxf, dda_cum)`` of :func:`ssd_chunk_ref`
+    for the output gradient ``dy``, derived by hand as the kernels compute
+    them: ``dX_h = M_h^T dy_h``; ``dM_h = dy_h X_h^T``; ``dS = sum_h dM_h o
+    L_h``, ``dC = dS B``, ``dB = dS^T C``; ``dA_h[l]`` the row sum less the
+    column sum of ``dM_h o M_h`` at ``l``."""
+    scores = torch.einsum("bclgn,bcsgn->bcgls", cc, bc)
+    lmat = _ssd_decay(da_cum, runs)
+    m = scores[:, :, :, None] * lmat
+    dm = torch.einsum("bclghp,bcsghp->bcghls", dy, xf)
+    dxf = torch.einsum("bcghls,bclghp->bcsghp", m, dy)
+    ds = (dm * lmat).sum(3)
+    dcc = torch.einsum("bcgls,bcsgn->bclgn", ds, bc)
+    dbc = torch.einsum("bcgls,bclgn->bcsgn", ds, cc)
+    p = dm * m
+    dda = (p.sum(-1) - p.sum(-2)).permute(0, 1, 4, 2, 3)
+    return dcc, dbc, dxf, dda
+
+
+def ssd_gather_ref(u: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """``R_h = sum_l w[l, h] U_h[l]^T V[l]`` within each chunk: ``u`` ``(B,
+    C, L, G, H, P)``, ``v`` ``(B, C, L, G, N)``, ``w`` ``(B, C, L, G, H)`` ->
+    ``(B, C, G, H, P, N)`` (the state a chunk leaves, and the gradient of
+    the state entering it)."""
+    return torch.einsum("bclghp,bclgn->bcghpn", u * w[..., None], v)
+
+
+def ssd_apply_ref(v: torch.Tensor, wm: torch.Tensor, w: torch.Tensor,
+                  base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``base + w[l, h] V[l] W_h^T``: ``v`` ``(B, C, L, G, N)``, ``wm`` ``(B,
+    C, G, H, P, N)``, ``w`` ``(B, C, L, G, H)`` -> ``(B, C, L, G, H, P)``
+    (the entering state's term, and the states' gradient of x dt)."""
+    out = w[..., None] * torch.einsum("bclgn,bcghpn->bclghp", v, wm)
+    return out if base is None else base + out
+
+
+def ssd_cross_ref(u: torch.Tensor, wm: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """With ``Z_h = U_h W_h``: ``(sum_h w[l, h] Z_h[l], V[l] . Z_h[l])``,
+    ``(B, C, L, G, N)`` and ``(B, C, L, G, H)`` (the gradients of an
+    :func:`ssd_apply_ref` term's V and w, or of a :func:`ssd_gather_ref`
+    state's V and w)."""
+    z = torch.einsum("bclghp,bcghpn->bclghn", u, wm)
+    return (torch.einsum("bclgh,bclghn->bclgn", w, z),
+            torch.einsum("bclgn,bclghn->bclgh", v, z))
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,12 @@ restart wherever the id changes from one position to the next, as
 no state and no conv tap crosses a document's first token (padding, id 0,
 is a stretch of its own).  Without ids they run the code they ran before.
 
+On the card the scan goes to hand-written kernels
+(:mod:`repro_torch.kernels.ssd_chunk`: the intra-chunk term, the chunk
+states and the entering states' term; the 16-step recurrence stays here)
+where they take the call's sizes (:func:`_takes_kernel`); every other
+call, every CPU and ``DTensor`` call among them, runs the einsums below.
+
 Oracle for tests: :func:`ssd_naive` (step-by-step recurrence).
 """
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .. import obs
+from ..kernels import ssd_chunk as _ssd_kernel
 from ..parallel.axes import cumsum, grad_as_forward, matmul, unflatten
 from .common import rmsnorm
 
@@ -50,6 +57,21 @@ def document_runs(segment_ids: torch.Tensor) -> torch.Tensor:
     return F.pad(change, (1, 0)).cumsum(1, dtype=torch.int32)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _takes_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                  chunk: int) -> bool:
+    """Whether :func:`ssd_chunked` takes the kernels: plain tensors on the
+    card, at a chunk, head dim and state size they take.  A ``DTensor``
+    (the ``model`` axis) keeps the einsums."""
+    if any(isinstance(t, DTensor) for t in (x, b, c)):
+        return False
+    return _on_card(x) and _ssd_kernel.supports(chunk, x.shape[-1],
+                                                b.shape[-1])
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it (no
     threshold)."""
@@ -73,6 +95,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     and the state entering a chunk reaches only the positions of the run
     it came from (``initial_state`` is the first run's).  Such calls are
     counted in ``ssd_chunked.segmented``.
+
+    The intra-chunk term, the chunk states and the entering states' term
+    take the kernels where :func:`_takes_kernel` says so (counted in
+    ``ssd_chunked.kernel``); elsewhere the einsums.
     """
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -100,6 +126,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         c = F.pad(c, (0, 0, 0, 0, 0, pad))
     sp = s + pad
     nc = sp // chunk
+    rc = None
     if runs is not None:
         rc = runs.view(bsz, nc, chunk)                      # (B,C,L)
         run_end = rc[:, :, -1]                              # (B,C)
@@ -120,12 +147,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     da_cum = cumsum(da, 2)                                  # (B,C,L,G,H)
 
     # intra-chunk (diagonal blocks): decay matrix L then dual attention
-    same = (None if runs is None else
-            (rc[..., :, None] == rc[..., None, :])[:, :, None, None])
-    lmat = torch.exp(_segsum(da.permute(0, 1, 3, 4, 2), same))
-    scores = torch.einsum("bclgn,bcsgn->bcgls", cc_, bc_)
-    y_diag = torch.einsum("bcgls,bcghls,bcsghp->bclghp", scores, lmat, xf)
-    del lmat
+    kernel = _takes_kernel(x, b, c, chunk)
+    if kernel:
+        ssd_chunked.kernel += 1
+        y_diag = _ssd_kernel.ssd_chunk(cc_, bc_, xf, da_cum, rc)
+    else:
+        y_diag = _diag_einsum(da, cc_, bc_, xf, rc)
 
     # per-chunk input -> end-of-chunk state
     da_last = da_cum[:, :, -1:]                             # (B,C,1,G,H)
@@ -133,8 +160,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if runs is not None:
         decay_states = decay_states * (rc == run_end[..., None])[..., None,
                                                                   None]
-    states = torch.einsum("bclgn,bclgh,bclghp->bcghpn",
-                          bc_, decay_states, xf)
+    if kernel:
+        states = _ssd_kernel.ssd_states(xf, bc_, decay_states)
+    else:
+        states = torch.einsum("bclgn,bclgh,bclghp->bcghpn",
+                              bc_, decay_states, xf)
 
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(da_last[:, :, 0])               # (B,C,G,H)
@@ -144,26 +174,50 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     prev = (initial_state.float() if initial_state is not None
             else torch.zeros(bsz, g, hg, p, n, dtype=torch.float32,
                              device=x.device))
+    if kernel:          # one gradient copy each, not a zero tensor a chunk
+        states_at, decay_at = states.unbind(1), chunk_decay.unbind(1)
+    else:
+        states_at = [states[:, ci] for ci in range(nc)]
+        decay_at = [chunk_decay[:, ci] for ci in range(nc)]
     entering = []
     for ci in range(nc):
         entering.append(prev)
-        prev = prev * chunk_decay[:, ci, ..., None, None] + states[:, ci]
+        prev = prev * decay_at[ci][..., None, None] + states_at[ci]
     prev_states = torch.stack(entering, dim=1)              # (B,C,G,H,P,N)
 
     # contribution of the incoming state to each position
     state_decay = torch.exp(da_cum)                         # (B,C,L,G,H)
     if runs is not None:
         state_decay = state_decay * (rc == run_in[..., None])[..., None, None]
-    y_off = torch.einsum("bclgn,bcghpn,bclgh->bclghp",
-                         cc_, prev_states, state_decay)
+    if kernel:
+        y = _ssd_kernel.ssd_add_entering(y_diag, cc_, prev_states,
+                                         state_decay)
+    else:
+        y = y_diag + torch.einsum("bclgn,bcghpn,bclgh->bclghp",
+                                  cc_, prev_states, state_decay)
 
-    y = grad_as_forward((y_diag + y_off).reshape(bsz, sp, h, p))[:, :s]
+    y = grad_as_forward(y.reshape(bsz, sp, h, p))
+    if pad:
+        y = y[:, :s]
     return y.to(x.dtype), prev
 
 
-#: Calls of :func:`ssd_chunked` that took segment ids (remat's recompute
-#: counts again).
+def _diag_einsum(da: torch.Tensor, cc_: torch.Tensor, bc_: torch.Tensor,
+                 xf: torch.Tensor, rc: Optional[torch.Tensor]) -> torch.Tensor:
+    """The intra-chunk term off the kernel: the decay matrix from the log
+    decay ``da`` (B,C,L,G,H), cut between runs ``rc`` (B,C,L), then the
+    dual attention.  Returns ``y_diag`` (B,C,L,G,H,P)."""
+    same = (None if rc is None else
+            (rc[..., :, None] == rc[..., None, :])[:, :, None, None])
+    lmat = torch.exp(_segsum(da.permute(0, 1, 3, 4, 2), same))
+    scores = torch.einsum("bclgn,bcsgn->bcgls", cc_, bc_)
+    return torch.einsum("bcgls,bcghls,bcsghp->bclghp", scores, lmat, xf)
+
+
+#: Calls of :func:`ssd_chunked` that took segment ids, and calls that took
+#: the kernels (remat's recompute counts again).
 ssd_chunked.segmented = 0
+ssd_chunked.kernel = 0
 
 
 def ssd_naive(x, dt, a_log, b, c,
