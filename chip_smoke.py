@@ -6,73 +6,20 @@ and PyTorch built for CUDA::
 
     python3 chip_smoke.py
 
-It needs no arguments, no network and no file beyond the checkout.  Phases,
-each printing one JSON line; any failure raises and the exit code is
-non-zero:
+It needs no arguments, no network and no file beyond the checkout.  It
+drives the port's main paths on the card, each held against its reference
+there or on the CPU; the kernels themselves are held against their plain
+versions by the ``card`` tests (``python -m pytest -m card
+tests/test_torch_<module>_card.py``: the build, ``mdv``, ``float_ops``,
+``gemm``, ``flash``, ``flash_segments``, ``ssd_chunk``), which it runs
+first, and timed by ``python -m benchmarks.torch_kernel_ab --src src``.  Phases, each printing
+one JSON line; any failure raises and the exit code is non-zero:
 
 1. ``device``  — ``torch.cuda`` must be available; the card's name and
    power limit as ``nvidia-smi`` gives them.
-2. ``build``   — every CUDA kernel (``mdgather``, ``mdscatter``,
-   ``flash_attention``, ``flash_attention_bwd``, ``bitplane_gemm``,
-   ``float_ops``) is built from
-   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
-   compiler process per source, started together; ``cuobjdump`` counts the
-   HMMA/IMMA instructions of each kernel, and the bf16 flash kernel and
-   both instances of the int8 tensor-core GEMM (``int8_matmul``'s and
-   ``bitplane_matmul``'s) must have them.
-3. ``kernels`` — each kernel's wrapper against its plain PyTorch version on
-   the card, at the shapes the main paths give it: the MVE gather/scatter
-   bit for bit (8192 lanes; 1-4 dims with a stride-0 dim; every load shape
-   of the patterns; colliding stores; contiguous runs whose tail runs past
-   the image or whose negative base wraps; a dimension mask; negative
-   addresses; fp32/int32/bf16/uint8/int64; one image and a batch of 1024),
-   each of the gather's three routes (contiguous, walk, tiled) and of the
-   scatter's three (contiguous, distinct, colliding) taken at least once,
-   and a profiled call of every gather route and of the scatter's
-   contiguous and distinct routes issuing exactly one device kernel and no
-   memset; flash attention
-   on the reference's test shapes
-   (fp32 and bf16), a bf16 view that is not 16-byte aligned, and at
-   qwen2-0.5b's prefill shapes (4 x 14 q heads over 2 kv heads, S = 1024
-   and 1025, D = 64, and D = 128 in bf16), and at the vlm and encdec
-   families' shapes (``FAMILY_SHAPES``: llama-3.2-vision's causal self
-   attention and its non-causal cross layers, 4 x 32 q heads over 8 kv
-   heads, D = 128, S = 1024 over 1024 image tokens; whisper-base's
-   non-causal encoder over 1500 frames, its causal decoder self attention
-   over 384 tokens and its cross attention from them; both decode-cross
-   shapes at one query row), fp32 within 3e-5 on the test shapes and 1e-4
-   on the prefill and family shapes, bf16 within one bf16 rounding step of the output (rtol 1e-2,
-   atol 8e-3);
-   the int8 and bit-plane products bit for bit on the reference's test
-   shapes, qwen2-0.5b's MLP shape (x 4096x896 @ w 896x4864) and a
-   16 x 131104 @ 131104 x 16 product whose int32 sums wrap (x = w = -128,
-   and random), 4 and 8 planes, and every plane count 1..8 on an aligned
-   and a ragged shape.  Each is timed with CUDA events at its
-   main-path shape beside its plain version, one PyTorch library call
-   (timed only, the port never calls it) and the card's bound for the same
-   work; the gather at the ``transpose`` pattern's load walk and at a
-   contiguous and a replicating walk, the scatter at the pattern's store
-   walk and at one walk of each other route, the float32 flash kernel
-   beside the bf16 one (its bound at ``FP32_WORK_FLOPS``), and each
-   of ``FAMILY_SHAPES`` in bf16 and fp32 beside
-   ``scaled_dot_product_attention`` and its bound.  ``float_ops`` (the MVE
-   float arithmetic and
-   float32 <-> float16 conversions with x86's NaN and denormal bits, ROADMAP
-   C7): add/sub/mul of float32 and float16 and both conversions on random
-   bit patterns (NaNs with payloads, signalling, infinities, denormals)
-   and every NaN case of the trap programs, at one image and at 1024 x
-   8192 lanes, bit-equal to the plain version on the card and on the CPU;
-   every float16 value widened; timed beside ``torch.add`` /
-   ``Tensor.to`` and the bytes bound.  The flash backward
-   (``flash_attention_bwd``: ``D = rowsum(dO O)``, dK/dV, dQ) and the
-   forward kernel's ``lse`` against ``flash_attention_bwd_ref`` /
-   ``flash_attention_lse_ref`` on the same q, k, v, o, lse, dO, fp32 and
-   bf16, at ``FLASH_BWD_SWEEP`` (GQA, ragged Sq != Sk both ways, rows that
-   see no key) and the training shapes ``TRAIN_SHAPES`` (whisper-base's
-   encoder over 1500 frames and its cross attention from 384 tokens,
-   llama-3.2-vision's cross attention, GQA 4, qwen2-0.5b's causal self
-   attention, GQA 7); timed there beside its bound, the plain version and
-   the backward of ``scaled_dot_product_attention`` (timed only).
+2. ``card``    — the ``card`` tests above, all of them, run in this
+   process by ``pytest.main``: every kernel the drives below launch is
+   first held against its plain version; a failure or a skip raises.
 4. ``path``    — the MVE main path at the Table IV geometry
    (``MVEConfig()``, 8192 lanes): every one of the 14 Section-IV patterns
    at its default size through ``compile_program(..., mode="fused").run``
@@ -112,7 +59,7 @@ non-zero:
    NaN payloads included; a CUDA tensor reaching a plain version of
    ``mdgather``/``mdscatter`` or of the float ops fails.  Prints
    the VM's and fused's ``run`` ms (one image) and ``run_batch`` ms (1024),
-   host clock and device time.
+   the mean of back-to-back calls (``time_ms``) and device time.
 4c. ``targets`` — each of the 13 registered targets compiles and runs the
    14 patterns on ``cuda``, memory bit-equal to fused; the modeled cycles
    per target and pattern.
@@ -203,7 +150,7 @@ non-zero:
    backward); one step profiled; a float32 copy of the first step at
    batch 1 on the card against the same step on the CPU (loss within
    1e-4, grad norm within 1e-3 relative; the worst gradient leaf
-   printed).  qwen2-0.5b's options (ROADMAP queue E item 3), one 8 x 1024
+   printed).  qwen2-0.5b's options (remat and int8 moments), one 8 x 1024
    batch without segment ids: the loss and every gradient leaf under
    remat "dots" and "none" bit-equal to "full" (and "full" to itself),
    48 / 24, 48 / 24 and 24 / 24 flash launches a step; AdamW with int8
@@ -247,8 +194,9 @@ non-zero:
    torch (ROADMAP C14, C15); in another (``benchmarks/torch_moe_span_bytes.py``), the
    collective bytes that llama4-scout's gather of its group adds to one
    layer must be the prediction, 128 tokens x 5120 x 2 bytes.
-7. the card line, the ``{"kernels": [...]}`` line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+7. the card line, the ``{"kernels": [...]}`` line (each kernel's source,
+   the TPU kernel it replaces and its launches over the phases), and the
+   final ``{"ok": true, "device": {...}}`` line.
 
 Phases 4, 4b, 4d, 4e, 4f, 4g, 5, 5b, 5c, 5d, 5e and 6 are the main
 paths: the launch counters of the kernels each runs are set to 0 just
@@ -267,7 +215,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
-import math
 import os
 import re
 import shutil
@@ -281,15 +228,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device-memory rate (data sheet)
-BF16_FLOPS = 989e12            # dense tensor-core peaks (data sheet)
-INT8_OPS = 1979e12
-FP32_FLOPS = 67e12             # float32 outside the tensor cores (data sheet)
-TF32_FLOPS = 495e12            # dense TF32 tensor cores (data sheet)
-# float32-accurate work: the lesser time of one product on the CUDA cores
-# and three TF32 products on the tensor cores (3xTF32), 165 TFLOP/s
-FP32_WORK_FLOPS = max(FP32_FLOPS, TF32_FLOPS / 3)
+from benchmarks.torch_kernel_ab import (  # noqa: E402
+    BATCH, HBM_BYTES_PER_S, HEAD_DIM, KV_HEADS, LANES, LM_BATCH, LM_SEQ,
+    MLP_SHAPE, Q_HEADS, device_ms, device_profile, time_ms)
+
 KERNELS = {                    # name: (CUDA source, the TPU kernel replaced)
     "mdgather": ("mdgather", "src/repro/kernels/mdgather.py:33"),
     "mdscatter": ("mdscatter", "src/repro/kernels/mdscatter.py:24"),
@@ -307,9 +251,6 @@ KERNELS = {                    # name: (CUDA source, the TPU kernel replaced)
     "float_binary": ("float_ops", "src/repro/core/interp.py:214"),
     "float_convert": ("float_ops", "src/repro/core/interp.py:156"),
 }
-LANES = 8192
-CAPTURE_TRIES = 3      # profiler captures of one call, see device_ops
-BATCH = 1024
 SAMPLE = (0, BATCH // 2, BATCH - 1)
 
 
@@ -325,104 +266,6 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-# the kernels that must run on the tensor cores (a substring of their
-# mangled names: bitplane_gemm_kernel<true> is int8_matmul's instance,
-# <false> bitplane_matmul's), and the SASS mnemonic of their matrix
-# instructions (the float32 flash kernels': HMMA.1688.F32.TF32)
-TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": "HMMA",
-                       "flash_bwd_dkdv_mma_kernel": "HMMA",
-                       "flash_bwd_dq_mma_kernel": "HMMA",
-                       "flash_fwd_tf32_kernel": "TF32",
-                       "flash_bwd_dkdv_tf32_kernel": "TF32",
-                       "flash_bwd_dq_tf32_kernel": "TF32",
-                       "bitplane_gemm_kernelILb1E": "IMMA",
-                       "bitplane_gemm_kernelILb0E": "IMMA"}
-
-
-def sass_mma_counts(build, libs) -> dict:
-    """HMMA / IMMA instructions (and the TF32 ones among the HMMA) per
-    kernel in the built libraries' SASS (``cuobjdump --dump-sass``, beside
-    ``nvcc`` in the CUDA toolkit); fails if a kernel of
-    ``TENSOR_CORE_KERNELS`` has none of its mnemonic."""
-    tool = Path(build._nvcc()).with_name("cuobjdump")
-    counts = {}
-    for path in libs.values():
-        sass = subprocess.run([str(tool), "--dump-sass", str(path)],
-                              check=True, capture_output=True, text=True,
-                              timeout=300).stdout
-        for block in sass.split("Function : ")[1:]:
-            fn = block.split(None, 1)[0]
-            counts[fn] = {op: block.count(op) for op in ("HMMA", "IMMA")}
-            counts[fn]["TF32"] = block.count(".TF32")
-    for kernel, op in TENSOR_CORE_KERNELS.items():
-        mine = {fn: c for fn, c in counts.items() if kernel in fn}
-        if not mine or not all(c[op] for c in mine.values()):
-            raise AssertionError(f"{kernel}: no {op} in its SASS: {mine}")
-    return counts
-
-
-def ptxas_usage(log: str) -> dict:
-    """``{kernel: "registers ...; spills ..."}`` from ``nvcc -Xptxas -v``
-    output."""
-    usage, fn = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1]
-            usage[fn] = []
-        elif fn and ("spill" in line or "registers" in line):
-            usage[fn].append(line.split(":", 1)[-1].strip())
-    return {fn: "; ".join(parts) for fn, parts in usage.items()}
-
-
-def check_no_spills(usage: dict, kernel: str) -> dict:
-    """The ``ptxas_usage`` lines of every instance of ``kernel`` (a
-    substring of the mangled names); fails if an instance has none or
-    spills."""
-    mine = {fn: u for fn, u in usage.items() if kernel in fn}
-    if not mine:
-        raise AssertionError(f"{kernel}: no instance in the ptxas log")
-    for fn, u in mine.items():
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", u)
-        if spill is None or any(int(x) for x in spill.groups()):
-            raise AssertionError(f"{fn} spills: {u}")
-    return mine
-
-
-def time_ms(fn, iters: int) -> float:
-    """Mean time of ``fn()`` over ``iters`` back-to-back calls, on the
-    device's clock: the host's overhead per call shows where it is longer
-    than the device's work."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int) -> float:
-    """Device time of ``fn()`` alone: ``iters`` calls queued behind a
-    sleeping kernel (about 0.1 s, longer than the host takes to queue
-    them), so the device runs them back to back."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bits(x: torch.Tensor) -> torch.Tensor:
     """Integer view of a tensor, for bit-for-bit comparison."""
     view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -431,1267 +274,6 @@ def bits(x: torch.Tensor) -> torch.Tensor:
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
-
-
-def random_tensor(shape, dtype, gen) -> torch.Tensor:
-    if dtype.is_floating_point:
-        return torch.randn(shape, generator=gen, device="cuda",
-                           dtype=torch.float32).to(dtype)
-    hi = 255 if dtype == torch.uint8 else 1 << 20
-    return torch.randint(0, hi, shape, generator=gen, device="cuda",
-                         dtype=torch.int64).to(dtype)
-
-
-# ---------------------------------------------------------------------------
-# phase 3: each kernel against its plain version
-# ---------------------------------------------------------------------------
-
-IMAGE = 1 << 16
-# (dims, strides, base): the access shapes of the patterns at 8192 lanes —
-# unit stride (daxpy), row replication (gemm), a transposing CR stride, a
-# 3-D and a 4-D walk with a stride-0 dimension each, and a short vector
-# (fewer active lanes than the register holds: a zero tail); then two walks
-# that leave the image, past its end and before its start (loads clamp,
-# stores drop); then the rest of the patterns' load shapes (gemm's column
-# replication, intra_pred's, rgb2gray's stride 3) and a contiguous run
-# whose tail clamps past the image.  Between them the loads take all three
-# routes of mdgather (contiguous, walk, tiled).
-WALKS = [
-    ((8192,), (1,), 0),
-    ((64, 128), (0, 16), 5),
-    ((512, 16), (49, 1), 0),
-    ((16, 8, 64), (1, 0, 16), 3),
-    ((8, 4, 16, 16), (1, 8, 0, 32), 7),
-    ((100, 3), (1, 100), 11),
-    ((8192,), (9,), 100),
-    ((64, 128), (-3, 1), 50),
-    ((64, 128), (1, 0), 0),
-    ((3, 3, 256), (1, 0, 3), 0),
-    ((8192,), (3,), 0),
-    ((8192,), (1,), IMAGE - 2536),
-]
-# store walks add collisions: a stride-0 dimension makes whole rows collide
-# (the highest lane must win), and a partial overlap (2x + 3y); then a
-# contiguous run whose negative base wraps to +N (the run whose tail
-# leaves the image is in WALKS).  Between them they take all three routes
-# of mdscatter_ (contiguous, distinct, colliding).
-STORE_WALKS = WALKS + [((3, 2), (1, 0), 2), ((64, 128), (2, 3), 0),
-                       ((8192,), (1,), 100 - IMAGE)]
-DTYPES = [torch.float32, torch.int32, torch.bfloat16, torch.uint8,
-          torch.int64]
-
-
-def check_kernels(ref, mdgather, mdscatter_):
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = {"mdgather": 0.0, "mdscatter": 0.0}
-    cases = 0
-    gather_routes = dict(mdgather.routes)
-    routes = dict(mdscatter_.routes)
-    for batch in (1, BATCH):
-        for dtype in DTYPES:
-            shape = (IMAGE,) if batch == 1 else (batch, IMAGE)
-            lshape = shape[:-1] + (LANES,)
-            src = random_tensor(shape, dtype, gen)
-            vals = random_tensor(lshape, dtype, gen)
-            mask = torch.rand(LANES, generator=gen, device="cuda") < 0.7
-            for dims, strides, base in WALKS:
-                got = mdgather(src, dims, strides, base, lanes=LANES)
-                want = ref.mdgather_ref(src, dims, strides, base, LANES)
-                torch.cuda.synchronize()
-                if not torch.equal(bits(got), bits(want)):
-                    raise AssertionError(
-                        f"mdgather != plain: {dims} {strides} {dtype} "
-                        f"B={batch}")
-                worst["mdgather"] = max(worst["mdgather"],
-                                        max_abs_err(got, want))
-                cases += 1
-            for dims, strides, base in STORE_WALKS:
-                for m in (None, mask):
-                    got = mdscatter_(src.clone(), vals, dims, strides, base,
-                                     m)
-                    want = ref.mdscatter_ref(src, vals, dims, strides, base,
-                                             m)
-                    torch.cuda.synchronize()
-                    if not torch.equal(bits(got), bits(want)):
-                        raise AssertionError(
-                            f"mdscatter != plain: {dims} {strides} {dtype} "
-                            f"B={batch} mask={m is not None}")
-                    worst["mdscatter"] = max(worst["mdscatter"],
-                                             max_abs_err(got, want))
-                    cases += 1
-    # determinism of the colliding store, run to run
-    dst = torch.zeros(BATCH, 4096, device="cuda")
-    vals = random_tensor((BATCH, LANES), torch.float32, gen)
-    first = mdscatter_(dst.clone(), vals, (64, 128), (1, 0), 0)
-    for _ in range(5):
-        again = mdscatter_(dst.clone(), vals, (64, 128), (1, 0), 0)
-        if not torch.equal(first, again):
-            raise AssertionError("mdscatter is not deterministic")
-    gather_routes = {r: mdgather.routes[r] - gather_routes[r]
-                     for r in gather_routes}
-    if not all(gather_routes.values()):
-        raise AssertionError(f"a route of mdgather never ran: "
-                             f"{gather_routes}")
-    routes = {r: mdscatter_.routes[r] - routes[r] for r in routes}
-    if not all(routes.values()):
-        raise AssertionError(f"a route of mdscatter never ran: {routes}")
-    return cases, worst, gather_routes, routes
-
-
-def device_ops(fn) -> tuple[dict, int]:
-    """``{name: count}`` of the device operations (kernels, memsets,
-    copies) one call of ``fn`` issues, under ``torch.profiler``, and the
-    number of calls made.  A capture that holds no device operation at all
-    is taken again, up to ``CAPTURE_TRIES`` calls: the profiler's CUDA
-    activity records can come back empty for a call of a few microseconds
-    that did launch (its route counter moved)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for calls in range(1, CAPTURE_TRIES + 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ops = {ev.key[:60]: ev.count for ev in prof.key_averages()
-               if getattr(ev, "self_device_time_total", 0.0)
-               and ev.device_type.name != "CPU"}
-        if ops:
-            break
-    return ops, calls
-
-
-def check_scatter_launches(mdscatter_):
-    """A call of the contiguous and of the distinct route is one device
-    kernel and nothing else (no memset), for one image and for a batch;
-    the colliding route's operations are recorded.  Each walk is called
-    once before: its first call uploads the walk's lane order (the distinct
-    and colliding routes' thread order), once per walk and device."""
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    out = {}
-    for batch in (1, BATCH):
-        for route, (dims, strides, base, n) in SCATTER_SHAPES.items():
-            shape = (n,) if batch == 1 else (batch, n)
-            dst = random_tensor(shape, torch.float32, gen)
-            vals = random_tensor(shape[:-1] + (LANES,), torch.float32, gen)
-            mask = torch.rand(LANES, generator=gen, device="cuda") < 0.7
-            mdscatter_(dst, vals, dims, strides, base, mask)
-            before = mdscatter_.routes[route]
-            ops, calls = device_ops(lambda: mdscatter_(dst, vals, dims,
-                                                       strides, base, mask))
-            if mdscatter_.routes[route] != before + calls:
-                raise AssertionError(f"{dims} {strides} did not take the "
-                                     f"{route} route")
-            if route != "colliding" and (
-                    sum(ops.values()) != 1 or any(
-                        "emset" in k or "mdscatter" not in k for k in ops)):
-                raise AssertionError(f"mdscatter {route} route, B={batch}: "
-                                     f"device operations {ops}")
-            out[f"{route}, B={batch}"] = (ops if calls == 1 else
-                                          {**ops, "captures": calls})
-    return out
-
-
-def check_gather_launches(mdgather):
-    """A call of each route of mdgather is one device kernel and nothing
-    else (no memset), for one image and for a batch."""
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    out = {}
-    for batch in (1, BATCH):
-        for tag, (route, (dims, strides, base, n)) in GATHER_SHAPES.items():
-            shape = (n,) if batch == 1 else (batch, n)
-            src = random_tensor(shape, torch.float32, gen)
-            mdgather(src, dims, strides, base, lanes=LANES)
-            before = mdgather.routes[route]
-            ops, calls = device_ops(lambda: mdgather(src, dims, strides,
-                                                     base, lanes=LANES))
-            if mdgather.routes[route] != before + calls:
-                raise AssertionError(f"{dims} {strides} did not take the "
-                                     f"{route} route")
-            if sum(ops.values()) != 1 or any(
-                    "emset" in k or "mdgather" not in k for k in ops):
-                raise AssertionError(f"mdgather {route} route, B={batch}: "
-                                     f"device operations {ops}")
-            out[f"{tag} ({route}), B={batch}"] = (
-                ops if calls == 1 else {**ops, "captures": calls})
-    return out
-
-
-# The load shapes timed, over the transpose pattern's image of 50176 fp32,
-# with the route each takes: its transposing load walk (the kernel table's
-# main shape), a contiguous run (daxpy's, memcpy's) and gemm's replicating
-# row walk.
-GATHER_SHAPES = {"transposing": ("tiled", ((512, 16), (49, 1), 0, 50176)),
-                 "contiguous": ("contiguous", ((8192,), (1,), 0, 50176)),
-                 "replicating": ("walk", ((64, 128), (0, 16), 0, 50176))}
-
-# The store shapes of the three routes of mdscatter_, over the transpose
-# pattern's image of 50176 fp32: its real store (contiguous; the kernel
-# table's main shape), its transposing load walk stored back (distinct),
-# and whole rows colliding on one address each (colliding).
-SCATTER_SHAPES = {"contiguous": ((512, 16), (1, 512), 0, 50176),
-                  "distinct": ((512, 16), (49, 1), 0, 50176),
-                  "colliding": ((64, 128), (1, 0), 0, 50176)}
-
-
-def time_kernels(ref, mdgather, mdscatter_):
-    """Time both kernels for a batch of 1024 images (the ``ms`` keys) and
-    for one image (``_single``), fp32, 8192 lanes, over the ``transpose``
-    pattern's image: the gather at its transposing load walk (``ms``) and
-    at a contiguous and a replicating walk (``ms_contiguous``,
-    ``ms_replicating``), the scatter at its store walk (``ms``) and at the
-    other two routes' walks (``ms_distinct``, ``ms_colliding``);
-    ``device_ms*`` is the device time without the host's overhead per
-    call.  Bounds count each needed element read once and each stored
-    element written once, plus the lane mask."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [("mdgather", "" if tag == "transposing" else f"_{tag}", walk)
-              for tag, (_, walk) in GATHER_SHAPES.items()] + [
-        ("mdscatter", "" if route == "contiguous" else f"_{route}", walk)
-        for route, walk in SCATTER_SHAPES.items()]
-    out, notes = {}, {}
-    for name, tag, (dims, strides, base, n) in shapes:
-        addr_host = np.asarray(
-            ref.mdv_lane_addresses(dims, strides, base, LANES).cpu())
-        unique = int(np.unique(addr_host).size)
-        addr = torch.from_numpy(addr_host).cuda()
-        mask = torch.ones(LANES, dtype=torch.bool, device="cuda")
-        for batch, iters in ((BATCH, 30), (1, 300)):
-            shape = (n,) if batch == 1 else (batch, n)
-            image = random_tensor(shape, torch.float32, gen)
-            vals = random_tensor(shape[:-1] + (LANES,), torch.float32, gen)
-            elem = image.element_size()
-            if name == "mdgather":
-                nbytes = batch * (unique + LANES) * elem
-                row = dict(
-                    ms=time_ms(lambda: mdgather(image, dims, strides, base,
-                                                lanes=LANES), iters),
-                    device_ms=device_ms(lambda: mdgather(
-                        image, dims, strides, base, lanes=LANES), 100),
-                    plain_ms=time_ms(lambda: ref.mdgather_ref(
-                        image, dims, strides, base, LANES), iters),
-                    library_ms=time_ms(lambda: torch.index_select(
-                        image, -1, addr), iters))
-            else:
-                # every lane is active, so each address has one winner:
-                # read the mask and each winner's value, write the address
-                nbytes = 2 * batch * unique * elem + LANES
-                dst = image.clone()
-                row = dict(
-                    ms=time_ms(lambda: mdscatter_(dst, vals, dims, strides,
-                                                  base, mask), iters),
-                    device_ms=device_ms(lambda: mdscatter_(
-                        dst, vals, dims, strides, base, mask), 100),
-                    plain_ms=time_ms(lambda: ref.mdscatter_ref(
-                        dst, vals, dims, strides, base, mask), iters),
-                    library_ms=time_ms(lambda: dst.index_copy_(
-                        -1, addr, vals), iters))
-            row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-            suffix = tag + ("" if batch == BATCH else "_single")
-            for key, value in row.items():
-                out.setdefault(name, {})[key + suffix] = value
-        notes[name + tag] = f"dims {dims}, strides {strides}, image {n}"
-    shape_note = (f"fp32, {LANES} lanes, batch {BATCH} (ms) / 1 "
-                  f"(ms_single); {notes}")
-    return out, shape_note
-
-
-# ---------------------------------------------------------------------------
-# phase 3b: float_ops, the MVE float arithmetic with x86's bits (ROADMAP C7)
-# ---------------------------------------------------------------------------
-
-def float_operands(np_dtype, shape, rng) -> torch.Tensor:
-    """Random bit patterns of ``np_dtype``: a quarter NaN or infinite (some
-    signalling), for float32 a sixteenth denormal, the rest anything; the
-    NaN and denormal pairs of the trap programs at the front."""
-    nbits = 8 * np.dtype(np_dtype).itemsize
-    ut = np.uint32 if nbits == 32 else np.uint16
-    n = int(np.prod(shape))
-    u = rng.integers(0, 2 ** nbits, n, dtype=np.uint64).astype(ut)
-    q = n // 16
-    u[:4 * q] |= ut(0x7F800000 if nbits == 32 else 0x7C00)
-    u[:q] &= ut(~(0x00400000 if nbits == 32 else 0x0200) & (2 ** nbits - 1))
-    if nbits == 32:
-        u[4 * q:5 * q] &= ut(0x807FFFFF)
-    u = u[rng.permutation(n)]
-    return torch.from_numpy(u.view(np_dtype).reshape(shape).copy())
-
-
-def _special_pairs(np_dtype):
-    a, b = (np.array(col, np.uint32).view(np.float32)
-            for col in zip(*(NAN_PAIRS + DENORMAL_PAIRS)))
-    return (a, b) if np_dtype == np.float32 else \
-        (a.astype(np.float16), b.astype(np.float16))
-
-
-def check_float_ops(ref, float_binary, float_convert):
-    """Each kernel against its plain version on the same CUDA tensors and
-    against the plain version on the CPU (the reference's bits), bit for
-    bit: add/sub/mul of float32 and float16 operands and both conversions,
-    random and special values, one image and a batch of 1024 images; every
-    float16 value widened."""
-    rng = np.random.default_rng(7)
-    cases = 0
-    for np_dtype in (np.float32, np.float16):
-        for shape in ((LANES,), (BATCH, LANES)):
-            a_h = float_operands(np_dtype, shape, rng)
-            b_h = float_operands(np_dtype, shape, rng)
-            sa, sb = _special_pairs(np_dtype)
-            a_h.view(-1)[:len(sa)] = torch.from_numpy(sa)
-            b_h.view(-1)[:len(sb)] = torch.from_numpy(sb)
-            a, b = a_h.cuda(), b_h.cuda()
-            for op in ref.FLOAT_BINARY_OPS:
-                got = float_binary(op, a, b)
-                for where, want in (
-                        ("plain on the card", ref.float_binary_ref(op, a, b)),
-                        ("plain on the cpu",
-                         ref.float_binary_ref(op, a_h, b_h).cuda())):
-                    torch.cuda.synchronize()
-                    if not torch.equal(bits(got), bits(want)):
-                        raise AssertionError(
-                            f"float_binary({op}) != {where}: {np_dtype} "
-                            f"{shape}")
-                    cases += 1
-            dst = torch.float16 if np_dtype == np.float32 else torch.float32
-            got = float_convert(a, dst)
-            for where, want in (
-                    ("plain on the card", ref.float_convert_ref(a, dst)),
-                    ("plain on the cpu",
-                     ref.float_convert_ref(a_h, dst).cuda())):
-                torch.cuda.synchronize()
-                if not torch.equal(bits(got), bits(want)):
-                    raise AssertionError(f"float_convert != {where}: "
-                                         f"{np_dtype} -> {dst} {shape}")
-                cases += 1
-    every_half = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
-        torch.int16).view(torch.float16)
-    got = float_convert(every_half.cuda(), torch.float32)
-    if not torch.equal(bits(got.cpu()), bits(ref.float_convert_ref(
-            every_half, torch.float32))):
-        raise AssertionError("float_convert != plain on every float16")
-    return cases + 1
-
-
-def time_float_ops(ref, float_binary, float_convert):
-    """float32 add and the float32 -> float16 conversion at one image and
-    at 1024 images of 8192 lanes: the kernel, its plain version, the
-    torch op it replaces, and the bound (bytes: operands read once, the
-    result written once)."""
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    out = {"float_binary": {}, "float_convert": {}}
-    for batch, iters, suffix in ((BATCH, 30, ""), (1, 300, "_single")):
-        a = torch.randn(batch, LANES, generator=gen, device="cuda")
-        b = torch.randn(batch, LANES, generator=gen, device="cuda")
-        n = a.numel()
-        rows = {
-            "float_binary": dict(
-                ms=time_ms(lambda: float_binary("add", a, b), iters),
-                device_ms=device_ms(lambda: float_binary("add", a, b), 100),
-                plain_ms=time_ms(lambda: ref.float_binary_ref("add", a, b),
-                                 iters),
-                library_ms=time_ms(lambda: torch.add(a, b), iters),
-                bound_ms=3 * 4 * n / HBM_BYTES_PER_S * 1e3),
-            "float_convert": dict(
-                ms=time_ms(lambda: float_convert(a, torch.float16), iters),
-                device_ms=device_ms(
-                    lambda: float_convert(a, torch.float16), 100),
-                plain_ms=time_ms(
-                    lambda: ref.float_convert_ref(a, torch.float16), iters),
-                library_ms=time_ms(lambda: a.to(torch.float16), iters),
-                bound_ms=(4 + 2) * n / HBM_BYTES_PER_S * 1e3)}
-        for name, row in rows.items():
-            for key, value in row.items():
-                out[name][key + suffix] = value
-    for name, what in (("float_binary", "float32 add (torch.add)"),
-                       ("float_convert", "float32 -> float16 "
-                                         "(Tensor.to)")):
-        out[name].update(bound_by="bytes", timed_at=(
-            f"{what}, {LANES} lanes, batch {BATCH} (ms) / 1 (ms_single)"))
-    return out
-
-
-# the LM slice's kernels: the reference's test shapes, then the main path's
-FLASH_SWEEP = [(128, 128, True, 64), (1, 128, True, 64), (77, 200, True, 64),
-               (64, 64, False, 128), (128, 128, True, 128),
-               (33, 95, False, 64)]
-# Both sides accumulate in fp32 and differ only in the order of their sums
-# (and, in bf16, in which way the output rounds), so the limits sit a few
-# times over that, far under a typical output value.
-FLASH_FP32_TOL = dict(rtol=3e-5, atol=3e-5)     # tests/test_kernels.py, fp32
-FLASH_FP32_PATH_TOL = dict(rtol=1e-4, atol=1e-4)  # 1024-long fp32 sums
-# one bf16 step of the output is at most 2**-7 of it: rtol covers a step the
-# other way, atol the same near 0
-FLASH_BF16_TOL = dict(rtol=1e-2, atol=8e-3)
-# qwen2-0.5b prefill: 4 requests x 1024 tokens, 14 q heads over 2 kv heads
-LM_BATCH, LM_SEQ, Q_HEADS, KV_HEADS, HEAD_DIM = 4, 1024, 14, 2, 64
-# the shapes of the vlm and encdec families' serving, (B, H, Hkv, Sq, Sk, D,
-# causal): llama-3.2-vision-11b's self attention and its cross layers over
-# 1024 image tokens (prefill, and decode at one query row), whisper-base's
-# encoder over 1500 frames, its decoder's self attention over a 384-token
-# prompt and its cross attention (prefill, and decode)
-FAMILY_SHAPES = {
-    "vision_self": (LM_BATCH, 32, 8, 1024, 1024, 128, True),
-    "vision_cross": (LM_BATCH, 32, 8, 1024, 1024, 128, False),
-    "whisper_encoder": (LM_BATCH, 8, 8, 1500, 1500, 64, False),
-    "whisper_self": (LM_BATCH, 8, 8, 384, 384, 64, True),
-    "whisper_cross": (LM_BATCH, 8, 8, 384, 1500, 64, False),
-    "vision_decode_cross": (LM_BATCH, 32, 8, 1, 1024, 128, False),
-    "whisper_decode_cross": (LM_BATCH, 8, 8, 1, 1500, 64, False),
-}
-GEMM_SHAPES = [(8, 16, 8), (128, 128, 128), (100, 60, 200), (130, 96, 257)]
-MLP_SHAPE = (LM_BATCH * LM_SEQ, 896, 4864)       # x (M, K) @ w (K, N)
-WRAP_SHAPE = (16, 131104, 16)       # 16384 * K > 2**31: int32 sums wrap
-
-
-def flash_bound(b, h, hk, sq, sk, d, elem, causal=True, peak=BF16_FLOPS):
-    """Least time for one attention call: the larger of its operations (two
-    products over the visible (q, k) pairs, at ``peak``: the bf16
-    tensor-core peak, or ``FP32_WORK_FLOPS`` for float32: three TF32
-    products on the tensor cores or one on the CUDA cores, the faster) and
-    its bytes (q, k, v read once, o
-    written once; k/v have ``hk`` heads) over the memory rate."""
-    rows = np.arange(sq) + (sk - sq)
-    pairs = int(np.clip(rows + 1, 0, sk).sum()) if causal else sq * sk
-    flops = 4.0 * d * b * h * pairs
-    nbytes = elem * d * (2 * b * h * sq + 2 * b * hk * sk)
-    by_ops, by_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"
-
-
-def gemm_bound(m, k, n):
-    """Least time for an int8 product (the bit-plane kernel's function
-    too: its planes sum to one such product): 2*M*N*K operations at the
-    int8 peak, or M*K + K*N bytes read and 4*M*N written at the memory
-    rate."""
-    by_ops = 2.0 * m * n * k / INT8_OPS * 1e3
-    by_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
-    return max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"
-
-
-def randint8(shape, gen, lo=-128, hi=128) -> torch.Tensor:
-    return torch.randint(lo, hi, shape, generator=gen, device="cuda",
-                         dtype=torch.int16).to(torch.int8)
-
-
-def check_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
-    """Flash attention within the reference's tolerances and the integer
-    products bit for bit, each against its plain version on the card.  Rows
-    that see no key (causal, Sq > Sk) are left out: there the plain version
-    is NaN and the kernel 0, as the reference's two versions are."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = {"flash_attention": 0.0, "int8_matmul": 0.0,
-             "bitplane_matmul": 0.0}
-    cases = 0
-
-    def flash_case(q, k, v, causal, tol, what):
-        nonlocal cases
-        got = flash_attention(q, k, v, causal=causal)
-        want = ref.flash_attention_ref(q, k, v, causal=causal)
-        err = max_abs_err(got, want)
-        ok = torch.allclose(got.float(), want.float(), **tol)
-        if not ok or got.dtype != q.dtype or got.shape != q.shape:
-            raise AssertionError(f"flash_attention != plain: {what} "
-                                 f"max_abs_err {err}")
-        worst["flash_attention"] = max(worst["flash_attention"], err)
-        cases += 1
-
-    for sq, sk, causal, d in FLASH_SWEEP:
-        q, k, v = (torch.randn(2, 3, n, d, generator=gen, device="cuda")
-                   for n in (sq, sk, sk))
-        flash_case(q, k, v, causal, FLASH_FP32_TOL, (sq, sk, causal, d))
-        flash_case(*(x.to(torch.bfloat16) for x in (q, k, v)), causal,
-                   FLASH_BF16_TOL, ("bf16", sq, sk, causal, d))
-    q, k, v = (torch.randn(1, 2, 96, 64, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    flash_case(q, k, v, True, FLASH_BF16_TOL, "bf16 (1, 2, 96, 64)")
-    # a view whose base is not 16-byte aligned: the wrapper copies it
-    flat = torch.randn(2 * 3 * 80 * 64 + 1, generator=gen, device="cuda")
-    odd = flat.to(torch.bfloat16)[1:].view(2, 3, 80, 64)
-    flash_case(odd, odd, odd, True, FLASH_BF16_TOL, "bf16 unaligned view")
-    for s in (LM_SEQ, LM_SEQ + 1):
-        q = torch.randn(LM_BATCH, Q_HEADS, s, HEAD_DIM, generator=gen,
-                        device="cuda")
-        k, v = (torch.randn(LM_BATCH, KV_HEADS, s, HEAD_DIM, generator=gen,
-                            device="cuda") for _ in range(2))
-        flash_case(q, k, v, True, FLASH_FP32_PATH_TOL,
-                   f"qwen2-0.5b fp32 S={s}")
-        flash_case(*(x.to(torch.bfloat16) for x in (q, k, v)), True,
-                   FLASH_BF16_TOL, f"qwen2-0.5b bf16 S={s}")
-        q, k, v = (torch.randn(LM_BATCH, n, s, 128, generator=gen,
-                               device="cuda").bfloat16()
-                   for n in (Q_HEADS, KV_HEADS, KV_HEADS))
-        flash_case(q, k, v, True, FLASH_BF16_TOL,
-                   f"qwen2-0.5b heads, D=128, bf16 S={s}")
-    for name, (b, h, hk, sq, sk, d, causal) in FAMILY_SHAPES.items():
-        q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
-        k, v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda")
-                for _ in range(2))
-        flash_case(q, k, v, causal, FLASH_FP32_PATH_TOL, f"{name} fp32")
-        flash_case(*(x.to(torch.bfloat16) for x in (q, k, v)), causal,
-                   FLASH_BF16_TOL, f"{name} bf16")
-
-    def gemm_case(name, got, want, what):
-        nonlocal cases
-        torch.cuda.synchronize()
-        if got.dtype != torch.int32 or not torch.equal(got, want):
-            raise AssertionError(f"{name} != plain: {what}")
-        worst[name] = max(worst[name], max_abs_err(got, want))
-        cases += 1
-
-    for m, k, n in GEMM_SHAPES + [MLP_SHAPE, WRAP_SHAPE]:
-        x, w = randint8((m, k), gen), randint8((k, n), gen)
-        w4 = randint8((k, n), gen, -8, 8)
-        want = ref.int8_matmul_ref(x, w)
-        gemm_case("int8_matmul", int8_matmul(x, w), want, (m, k, n))
-        gemm_case("bitplane_matmul", bitplane_matmul(x, w), want,
-                  (m, k, n, 8))
-        gemm_case("bitplane_matmul", bitplane_matmul(x, w4, 4),
-                  ref.int8_matmul_ref(x, w4), (m, k, n, "4-bit weights"))
-        gemm_case("bitplane_matmul", bitplane_matmul(x, w, 4),
-                  ref.bitplane_matmul_ref(x, w, 4), (m, k, n, "4 planes"))
-    # every plane count, staged by cp.async (K, N multiples of 16) and by
-    # scalar loads (not)
-    for m, k, n in ((256, 320, 384), GEMM_SHAPES[-1]):
-        x, w = randint8((m, k), gen), randint8((k, n), gen)
-        for nbits in range(1, 9):
-            gemm_case("bitplane_matmul", bitplane_matmul(x, w, nbits),
-                      ref.bitplane_matmul_ref(x, w, nbits), (m, k, n, nbits))
-    # int32 wrap: 16384 * K > 2**31, so every sum of x = w = -128 wraps in
-    # the plain version; the tensor cores' s32 accumulators (no .satfinite)
-    # must wrap alike, not saturate
-    m, k, n = WRAP_SHAPE
-    x, w = (torch.full(shape, -128, dtype=torch.int8, device="cuda")
-            for shape in ((m, k), (k, n)))
-    want = ref.int8_matmul_ref(x, w)
-    wrapped = int(want[0, 0])
-    if wrapped != 16384 * k - 2**32:
-        raise AssertionError(f"the plain int8 product did not wrap: {wrapped}")
-    what = ("int32 wrap", m, k, n)
-    gemm_case("int8_matmul", int8_matmul(x, w), want, what)
-    gemm_case("bitplane_matmul", bitplane_matmul(x, w), want, what + (8,))
-    gemm_case("bitplane_matmul", bitplane_matmul(x, w, 4),
-              ref.bitplane_matmul_ref(x, w, 4), what + (4,))
-    return cases, worst, wrapped
-
-
-def time_family_shapes(ref, flash_attention, gen) -> dict:
-    """The flash kernel at each of ``FAMILY_SHAPES``: bf16 (``ms``, and
-    ``device_ms`` queued behind a sleep, so the device's own time shows
-    under a one-row call's host overhead) and float32, each beside
-    ``scaled_dot_product_attention`` with ``enable_gqa`` (timed only;
-    back to back and, ``library_device_ms``, behind a sleep) and its
-    bound; the plain version in bf16."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = {}
-    for name, (b, h, hk, sq, sk, d, causal) in FAMILY_SHAPES.items():
-        q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
-        k, v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda")
-                for _ in range(2))
-        q16, k16, v16 = (x.bfloat16() for x in (q, k, v))
-        bound, by = flash_bound(b, h, hk, sq, sk, d, 2, causal=causal)
-        bound32, by32 = flash_bound(b, h, hk, sq, sk, d, 4, causal=causal,
-                                    peak=FP32_WORK_FLOPS)
-        out[name] = dict(
-            shape=f"q ({b}, {h}, {sq}, {d}), k/v ({b}, {hk}, {sk}, {d})",
-            causal=causal,
-            ms=time_ms(lambda: flash_attention(q16, k16, v16, causal=causal),
-                       50),
-            device_ms=device_ms(lambda: flash_attention(
-                q16, k16, v16, causal=causal), 50),
-            library_ms=time_ms(lambda: sdpa(q16, k16, v16, is_causal=causal,
-                                            enable_gqa=True), 50),
-            library_device_ms=device_ms(lambda: sdpa(
-                q16, k16, v16, is_causal=causal, enable_gqa=True), 50),
-            bound_ms=bound, bound_by=by,
-            plain_ms=time_ms(lambda: ref.flash_attention_ref(
-                q16, k16, v16, causal=causal), 5),
-            ms_fp32=time_ms(lambda: flash_attention(q, k, v, causal=causal),
-                            10),
-            device_ms_fp32=device_ms(lambda: flash_attention(
-                q, k, v, causal=causal), 10),
-            library_ms_fp32=time_ms(lambda: sdpa(q, k, v, is_causal=causal,
-                                                 enable_gqa=True), 10),
-            library_device_ms_fp32=device_ms(lambda: sdpa(
-                q, k, v, is_causal=causal, enable_gqa=True), 10),
-            bound_ms_fp32=bound32, bound_by_fp32=by32)
-    return out
-
-
-def time_lm_kernels(ref, flash_attention, int8_matmul, bitplane_matmul):
-    """Each LM kernel at its main-path shape: the kernel, its plain
-    version, one PyTorch library call for the same function (timed only;
-    the port never calls it) and the card's bound."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    b, h, hk, s, d = LM_BATCH, Q_HEADS, KV_HEADS, LM_SEQ, HEAD_DIM
-    q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
-            for _ in range(2))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    bound, by = flash_bound(b, h, hk, s, s, d, 2)
-    q32, k32, v32 = (x.float() for x in (q, k, v))
-    q128, k128, v128 = (torch.randn(b, n, s, 128, generator=gen,
-                                    device="cuda").bfloat16()
-                        for n in (h, hk, hk))
-    rows = {"flash_attention": dict(
-        ms=time_ms(lambda: flash_attention(q, k, v), 50),
-        ms_fp32=time_ms(lambda: flash_attention(q32, k32, v32), 10),
-        device_ms_fp32=device_ms(lambda: flash_attention(q32, k32, v32), 10),
-        bound_ms_fp32=flash_bound(b, h, hk, s, s, d, 4,
-                                  peak=FP32_WORK_FLOPS)[0],
-        library_ms_fp32=time_ms(lambda: sdpa(q32, k32, v32, is_causal=True,
-                                             enable_gqa=True), 10),
-        ms_d128=time_ms(lambda: flash_attention(q128, k128, v128), 50),
-        bound_ms_d128=flash_bound(b, h, hk, s, s, 128, 2)[0],
-        library_ms_d128=time_ms(lambda: sdpa(q128, k128, v128,
-                                             is_causal=True,
-                                             enable_gqa=True), 50),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), 5),
-        library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                        enable_gqa=True), 50),
-        library="torch.nn.functional.scaled_dot_product_attention "
-                "(is_causal, enable_gqa)",
-        bound_ms=bound, bound_by=by,
-        cases=time_family_shapes(ref, flash_attention, gen),
-        timed_at=f"bf16 q ({b}, {h}, {s}, {d}), k/v ({b}, {hk}, {s}, {d}), "
-                 "causal (ms); the same in float32 (ms_fp32, 3xTF32; its "
-                 "bound at FP32_WORK_FLOPS) and in bf16 at D = 128 "
-                 "(ms_d128); cases: "
-                 "the vlm and encdec FAMILY_SHAPES")}
-    m, kk, n = MLP_SHAPE
-    x, w = randint8((m, kk), gen), randint8((kk, n), gen)
-    try:                      # the library call only where it takes the shape
-        torch._int_mm(x, w)
-        int_mm_ms = time_ms(lambda: torch._int_mm(x, w), 50)
-    except RuntimeError:
-        int_mm_ms = None
-    shape = f"int8 x ({m}, {kk}) @ w ({kk}, {n}) -> int32"
-    bound, by = gemm_bound(m, kk, n)
-    rows["int8_matmul"] = dict(
-        ms=time_ms(lambda: int8_matmul(x, w), 20),
-        plain_ms=time_ms(lambda: ref.int8_matmul_ref(x, w), 5),
-        library_ms=int_mm_ms, library="torch._int_mm", bound_ms=bound,
-        bound_by=by, timed_at=shape)
-    rows["bitplane_matmul"] = dict(
-        ms=time_ms(lambda: bitplane_matmul(x, w), 20),
-        plain_ms=time_ms(lambda: ref.bitplane_matmul_ref(x, w), 3),
-        library_ms=int_mm_ms, library="torch._int_mm (the 8-plane product)",
-        bound_ms=bound, bound_by=by,
-        ms_nbits4=time_ms(lambda: bitplane_matmul(x, w, 4), 20),
-        timed_at=shape + ", 8 planes (ms) / 4 planes (ms_nbits4); the "
-                 "bound is the one product either computes")
-    return rows
-
-
-# the training slice's flash backward: the test shapes, then the shapes its
-# main path and the slice's other models give it, (B, H, Hkv, Sq, Sk, D,
-# causal): whisper-base's encoder self attention over 1500 frames and its
-# cross attention from 384 text tokens, llama-3.2-vision's cross attention
-# over 1024 image tokens (GQA 4), qwen2-0.5b's causal self attention (GQA 7)
-FLASH_BWD_SWEEP = [(2, 4, 2, 40, 40, 64, True), (1, 6, 2, 17, 70, 64, True),
-                   (1, 6, 3, 33, 95, 128, False), (2, 2, 1, 70, 33, 64, True),
-                   (1, 4, 1, 65, 129, 128, True),
-                   (2, 3, 1, 200, 130, 128, True)]
-TRAIN_SHAPES = {
-    "whisper_encoder": (LM_BATCH, 8, 8, 1500, 1500, 64, False),
-    "whisper_cross": (LM_BATCH, 8, 8, 384, 1500, 64, False),
-    "vision_cross": (LM_BATCH, 32, 8, 1024, 1024, 128, False),
-    "qwen2_causal": (LM_BATCH, Q_HEADS, KV_HEADS, LM_SEQ, LM_SEQ, HEAD_DIM,
-                     True),
-}
-# dq, dk, dv against the plain backward on the same q, k, v, o, lse, dO:
-# both sum in fp32 and differ in the order of their sums (a few 1e-6 of the
-# largest entry measured in fp32), and in bf16 each side rounds its result
-# once, so within rtol and a share of the gradient's largest entry: fp32
-# 1e-4 of it; bf16 one bf16 step of each entry (rtol 1e-2) and 8e-3 of the
-# largest (the forward's bf16 limits, scaled to the gradient)
-FLASH_BWD_FP32_TOL = (1e-4, 1e-4)
-FLASH_BWD_BF16_TOL = (1e-2, 8e-3)
-LSE_TOL = 1e-4                  # |lse - plain lse| on rows that see a key
-
-
-def flash_bwd_bound(b, h, hk, sq, sk, d, elem, causal, peak=BF16_FLOPS):
-    """Least time for one backward: the five ``2 * D`` products of each
-    visible (q, k) pair (S and dP, dV, dK, dQ; the kernels recompute S and
-    dP in both passes, which is their cost, not the function's) at
-    ``peak``, or the bytes of q, k, v, o, dO and lse read once and dq, dk,
-    dv written once at the memory rate."""
-    rows = np.arange(sq) + (sk - sq)
-    pairs = int(np.clip(rows + 1, 0, sk).sum()) if causal else sq * sk
-    flops = 10.0 * d * b * h * pairs
-    nbytes = elem * d * (4 * b * h * sq + 4 * b * hk * sk) + 4 * b * h * sq
-    by_ops, by_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"
-
-
-def _bwd_inputs(shape, dtype, gen):
-    """q, k, v, dO drawn on the card, and the forward kernel's o and lse."""
-    from repro_torch.kernels.flash_attention import _forward
-
-    b, h, hk, sq, sk, d, causal = shape
-    q, do = (torch.randn(b, h, sq, d, generator=gen, device="cuda")
-             .to(dtype) for _ in range(2))
-    k, v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda")
-            .to(dtype) for _ in range(2))
-    o, lse = _forward(q, k, v, causal, 1.0 / d ** 0.5, with_lse=True)
-    return q, k, v, o, lse, do
-
-
-def check_flash_bwd(ref, flash_attention_bwd):
-    """The forward kernel's ``lse`` and the backward kernels' dq, dk, dv
-    against the plain versions on the card, in fp32 and bf16, at
-    ``FLASH_BWD_SWEEP`` and ``TRAIN_SHAPES``; both ways of the GQA sum, in
-    the dK/dV block and split over blocks (``flash_attention.gqa_split``
-    forced each way; a shape whose q heads do not share a kv head has one
-    way).  Returns (cases, the
-    largest |difference|, the largest |lse difference|, the split each
-    case took unforced)."""
-    from unittest import mock
-
-    from repro_torch.kernels import flash_attention as fa
-
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    worst = lse_worst = 0.0
-    cases, taken = 0, {}
-    shapes = [(f"test {s}", s) for s in FLASH_BWD_SWEEP] + list(
-        TRAIN_SHAPES.items())
-    for name, shape in shapes:
-        b, h, hk, _, sk, _, causal = shape
-        taken[name] = fa.gqa_split(b, hk, sk, h // hk, torch.cuda.
-                                   get_device_properties(0).
-                                   multi_processor_count)
-        for dtype, (rtol, step) in ((torch.float32, FLASH_BWD_FP32_TOL),
-                                    (torch.bfloat16, FLASH_BWD_BF16_TOL)):
-            q, k, v, o, lse, do = _bwd_inputs(shape, dtype, gen)
-            _, want_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal)
-            seen = torch.isfinite(want_lse)
-            if not torch.equal(torch.isneginf(lse), ~seen):
-                raise AssertionError(f"lse: rows without a key differ at "
-                                     f"{name} {dtype}")
-            lse_err = float((lse - want_lse)[seen].abs().max())
-            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                               causal=causal)
-            ways = (None,) if h == hk else (False, True)
-            for split in ways:
-                with mock.patch.object(
-                        fa, "gqa_split",
-                        fa.gqa_split if split is None
-                        else (lambda *a, split=split: split)):
-                    got = flash_attention_bwd(q, k, v, o, lse, do,
-                                              causal=causal)
-                torch.cuda.synchronize()
-                for what, g, w in zip(("dq", "dk", "dv"), got, want):
-                    scale = float(w.float().abs().max())
-                    if g.dtype != dtype or g.shape != w.shape or not \
-                            torch.allclose(g.float(), w.float(), rtol=rtol,
-                                           atol=step * scale):
-                        raise AssertionError(
-                            f"flash_attention_bwd != plain: {what} at "
-                            f"{name} {dtype} (split {split}): max_abs_err "
-                            f"{max_abs_err(g, w)} (largest entry {scale})")
-                    worst = max(worst, max_abs_err(g, w))
-                cases += 1
-            if lse_err > LSE_TOL:
-                raise AssertionError(f"lse != plain at {name} {dtype}: "
-                                     f"{lse_err}")
-            lse_worst = max(lse_worst, lse_err)
-    return cases, worst, lse_worst, taken
-
-
-def time_flash_bwd(ref, flash_attention_bwd) -> dict:
-    """The backward kernels at each of ``TRAIN_SHAPES``: bf16 (``ms``,
-    ``device_ms``) and fp32, each beside its bound, the plain version (bf16)
-    and the backward of ``scaled_dot_product_attention`` with
-    ``enable_gqa`` on the same inputs (timed only; the port never calls
-    it).  The row's own numbers are whisper-base's encoder, the largest
-    call of the training path that runs the kernels.  Where q heads share
-    a kv head, both types are also timed with ``gqa_split`` forced each
-    way (``device_ms_in_block``, ``device_ms_split``, ``device_ms_fp32_*``):
-    the evidence for the wrapper's rule."""
-    from unittest import mock
-
-    from repro_torch.kernels import flash_attention as fa
-
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = {}
-    for name, shape in TRAIN_SHAPES.items():
-        b, h, hk, sq, sk, d, causal = shape
-        q, k, v, o, lse, do = _bwd_inputs(shape, torch.bfloat16, gen)
-        q32, k32, v32, o32, lse32, do32 = _bwd_inputs(shape, torch.float32,
-                                                      gen)
-        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-        so = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
-        q32s, k32s, v32s = (x.detach().requires_grad_()
-                            for x in (q32, k32, v32))
-        so32 = sdpa(q32s, k32s, v32s, is_causal=causal, enable_gqa=True)
-        bound, by = flash_bwd_bound(*shape[:6], 2, causal)
-        bound32, by32 = flash_bwd_bound(*shape[:6], 4, causal,
-                                        peak=FP32_WORK_FLOPS)
-        cases[name] = dict(
-            shape=f"q ({b}, {h}, {sq}, {d}), k/v ({b}, {hk}, {sk}, {d})",
-            causal=causal, gqa_split=fa.gqa_split(
-                b, hk, sk, h // hk,
-                torch.cuda.get_device_properties(0).multi_processor_count),
-            ms=time_ms(lambda: flash_attention_bwd(
-                q, k, v, o, lse, do, causal=causal), 10),
-            device_ms=device_ms(lambda: flash_attention_bwd(
-                q, k, v, o, lse, do, causal=causal), 10),
-            bound_ms=bound, bound_by=by,
-            plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
-                q, k, v, o, lse, do, causal=causal), 3),
-            # the device's time: back to back, the host's autograd call
-            # (about 0.5 ms) is longer than the device's work
-            library_ms=device_ms(lambda: torch.autograd.grad(
-                so, (qs, ks, vs), do, retain_graph=True), 10),
-            library_ms_back_to_back=time_ms(lambda: torch.autograd.grad(
-                so, (qs, ks, vs), do, retain_graph=True), 10),
-            ms_fp32=time_ms(lambda: flash_attention_bwd(
-                q32, k32, v32, o32, lse32, do32, causal=causal), 3),
-            device_ms_fp32=device_ms(lambda: flash_attention_bwd(
-                q32, k32, v32, o32, lse32, do32, causal=causal), 5),
-            library_ms_fp32=device_ms(lambda: torch.autograd.grad(
-                so32, (q32s, k32s, v32s), do32, retain_graph=True), 5),
-            bound_ms_fp32=bound32, bound_by_fp32=by32)
-        ways = () if h == hk else (("in_block", False), ("split", True))
-        for way, split in ways:
-            with mock.patch.object(fa, "gqa_split",
-                                   lambda *a, split=split: split):
-                cases[name][f"device_ms_{way}"] = device_ms(
-                    lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                causal=causal), 10)
-                cases[name][f"device_ms_fp32_{way}"] = device_ms(
-                    lambda: flash_attention_bwd(q32, k32, v32, o32, lse32,
-                                                do32, causal=causal), 5)
-        del qs, ks, vs, so, q32s, k32s, v32s, so32
-    row = {key: cases["whisper_encoder"][key] for key in (
-        "ms", "device_ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
-    row.update(library="the backward of torch.nn.functional.scaled_dot_"
-                       "product_attention (enable_gqa)", cases=cases,
-               timed_at="bf16 whisper_encoder (ms); cases: TRAIN_SHAPES in "
-                        "bf16 and fp32 (ms_fp32, device_ms_fp32: 3xTF32; "
-                        "its bound at FP32_WORK_FLOPS; library_ms_fp32: "
-                        "SDPA's fp32 backward)")
-    return row
-
-
-# the packed training cell's self attention (qwen2-7b, portbench's
-# train-packed-4k): q (4, 28, 4096, 128) over 4 kv heads, causal, with the
-# segment ids of Poisson documents (mean 512, at least 16) packed into rows
-SEG_SHAPE = (4, 28, 4, 4096, 128)             # B, H, Hkv, S, D
-
-
-def packed_ids(b: int, s: int, seed: int) -> torch.Tensor:
-    """``(b, s)`` int32 ids on the card: ``pack_documents`` over Poisson
-    documents of mean 512 (at least 16), pads of id 0 at a row's end."""
-    from repro_torch.core.packing import pack_documents
-
-    rng = np.random.default_rng(seed)
-    docs = [np.zeros(max(16, int(rng.poisson(512))), np.int32)
-            for _ in range(4 * b * s // 512)]
-    return torch.from_numpy(pack_documents(docs, s)[1][:b]).to(
-        device="cuda", dtype=torch.int32)
-
-
-def _by_row(fn, *tensors) -> tuple:
-    """``fn`` over one batch row at a time (the plain versions' fp32
-    logits of the whole packed shape would take tens of GB), the results
-    joined on dim 0."""
-    outs = [fn(*(t[i:i + 1] for t in tensors))
-            for i in range(tensors[0].shape[0])]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
-
-
-def segmented_bound(ids, h, hk, d, elem, per_pair):
-    """Least time for one causal call over contiguous segments: the
-    ``per_pair * D`` operations of each visible pair (a key at or before
-    its query in the query's own segment: ``c (c + 1) / 2`` pairs for a
-    run of ``c`` equal ids, pads included) for each q head at the bf16
-    peak, or the bytes of q, k, v and o (the forward; the backward's
-    ``flash_bwd_bound`` bytes are a few times more, and still far under
-    its operations here) over the memory rate."""
-    b, s = ids.shape
-    pairs = 0
-    for row in ids.cpu().numpy():
-        runs = np.diff(np.flatnonzero(np.diff(row, prepend=-1,
-                                              append=-1) != 0))
-        pairs += int((runs * (runs + 1) // 2).sum())
-    flops = float(per_pair) * d * h * pairs
-    nbytes = elem * d * (2 * b * h * s + 2 * b * hk * s) + 8 * b * s
-    by_ops, by_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (max(by_ops, by_bytes),
-            "operations" if by_ops > by_bytes else "bytes", pairs)
-
-
-def check_flash_segments(ref, flash_attention_bwd):
-    """The segmented flash kernels on the card at ``SEG_SHAPE``, in fp32
-    and bf16: the forward's output and ``lse`` against the plain versions
-    given the same ids (``FLASH_FP32_PATH_TOL`` / ``FLASH_BF16_TOL``,
-    ``LSE_TOL``), the backward's dq, dk, dv (``FLASH_BWD_*_TOL``) with the
-    GQA sum in the block and split; the pre-pass kernel bit-equal to
-    ``flash_segment_tiles_ref``, causal and not, on the packed ids and on
-    ids in no order with kv ids of another length; a call whose ids are
-    all equal bit-equal to the call without ids, forward and backward.
-    Returns (cases, the largest |difference|, the largest |lse
-    difference|)."""
-    from unittest import mock
-
-    from repro_torch.kernels import flash_attention as fa
-
-    b, h, hk, s, d = SEG_SHAPE
-    scale = d ** -0.5
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    ids = packed_ids(b, s, seed=11)
-    worst = lse_worst = 0.0
-    cases = 0
-    for dtype, fwd_tol, (rtol, step) in (
-            (torch.float32, FLASH_FP32_PATH_TOL, FLASH_BWD_FP32_TOL),
-            (torch.bfloat16, FLASH_BF16_TOL, FLASH_BWD_BF16_TOL)):
-        q, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
-                 .to(dtype) for _ in range(2))
-        k, v = (torch.randn(b, hk, s, d, generator=gen, device="cuda")
-                .to(dtype) for _ in range(2))
-        o, lse = fa._forward(q, k, v, True, scale, True, ids, ids)
-        want, want_lse = _by_row(
-            lambda q, k, v, i: ref.flash_attention_lse_ref(
-                q, k, v, causal=True, segment_ids=i, kv_segment_ids=i),
-            q, k, v, ids)
-        seen = torch.isfinite(want_lse)
-        if not torch.equal(torch.isneginf(lse), ~seen) or o[~seen].any():
-            raise AssertionError(f"segmented forward: rows without a key "
-                                 f"differ ({dtype})")
-        lse_err = float((lse - want_lse)[seen].abs().max())
-        if lse_err > LSE_TOL:
-            raise AssertionError(f"segmented lse != plain ({dtype}): "
-                                 f"{lse_err}")
-        lse_worst = max(lse_worst, lse_err)
-        if o.dtype != dtype or not torch.allclose(
-                o[seen].float(), want[seen].float(), **fwd_tol):
-            raise AssertionError(f"segmented forward != plain ({dtype}): "
-                                 f"max_abs_err {max_abs_err(o, want)}")
-        worst = max(worst, max_abs_err(o, want))
-        cases += 1
-        del want, want_lse
-        want = _by_row(
-            lambda *t: ref.flash_attention_bwd_ref(
-                *t[:6], causal=True, segment_ids=t[6], kv_segment_ids=t[6]),
-            q, k, v, o, lse, do, ids)
-        for split in (False, True):
-            with mock.patch.object(fa, "gqa_split",
-                                   lambda *a, split=split: split):
-                got = flash_attention_bwd(q, k, v, o, lse, do,
-                                          segment_ids=ids)
-            torch.cuda.synchronize()
-            for what, g, w in zip(("dq", "dk", "dv"), got, want):
-                top = float(w.float().abs().max())
-                if g.dtype != dtype or g.shape != w.shape or not \
-                        torch.allclose(g.float(), w.float(), rtol=rtol,
-                                       atol=step * top):
-                    raise AssertionError(
-                        f"segmented backward != plain: {what} {dtype} "
-                        f"(split {split}): max_abs_err {max_abs_err(g, w)} "
-                        f"(largest entry {top})")
-                worst = max(worst, max_abs_err(g, w))
-            cases += 1
-        del want, got
-        ones = torch.ones_like(ids)
-        plain = fa._forward(q, k, v, True, scale, True)
-        seg = fa._forward(q, k, v, True, scale, True, ones, ones)
-        grads = (flash_attention_bwd(q, k, v, *plain, do),
-                 flash_attention_bwd(q, k, v, *plain, do, segment_ids=ones))
-        if not all(torch.equal(bits(x), bits(y))
-                   for x, y in zip(plain + grads[0], seg + grads[1])):
-            raise AssertionError(f"equal ids != no ids ({dtype})")
-        cases += 1
-    rng = np.random.default_rng(12)
-    unordered = [torch.from_numpy(rng.integers(0, 5, shape)).to(
-        device="cuda", dtype=torch.int32) for shape in ((3, 300), (3, 70))]
-    for seg_q, seg_k in ((ids, ids), (unordered[0], unordered[0]),
-                         unordered):
-        for causal in (True, False):
-            got = fa._segment_tiles(seg_q, seg_k, causal)
-            want = ref.flash_segment_tiles_ref(seg_q.cpu(), seg_k.cpu(),
-                                               causal)
-            if not torch.equal(got.cpu(), want):
-                raise AssertionError(
-                    f"flash_seg_tiles_kernel != flash_segment_tiles_ref at "
-                    f"ids {tuple(seg_q.shape)} / {tuple(seg_k.shape)}, "
-                    f"causal {causal}")
-            cases += 1
-    return cases, worst, lse_worst
-
-
-def time_flash_segments(ref, flash_attention, flash_attention_bwd) -> dict:
-    """The segmented kernels at ``SEG_SHAPE`` in bf16, each beside its
-    bound over the visible pairs (``segmented_bound``), the plain chunked
-    route that packed calls took before (``plain_chunked_attention``:
-    the forward, and for the backward the forward and backward less the
-    forward; it recomputes each chunk in the backward, as in training) and
-    ``scaled_dot_product_attention`` with the boolean document mask on K/V
-    repeated to the q heads beforehand (the same function; timed only, the
-    port never calls it).  The pre-pass alone as its own row."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.attention import plain_chunked_attention
-
-    b, h, hk, s, d = SEG_SHAPE
-    scale = d ** -0.5
-    gen = torch.Generator(device="cuda").manual_seed(17)
-    ids = packed_ids(b, s, seed=11)
-    q, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
-             .bfloat16() for _ in range(2))
-    k, v = (torch.randn(b, hk, s, d, generator=gen, device="cuda")
-            .bfloat16() for _ in range(2))
-    tiles = fa._segment_tiles(ids, ids, True)
-    o, lse = fa._forward(q, k, v, True, scale, True, ids, ids, tiles)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
-    mask = (ids[:, None, :, None] == ids[:, None, None, :]) & causal
-    qs, ks, vs = (x.detach().requires_grad_() for x in (
-        q, k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1)))
-    so = sdpa(qs, ks, vs, attn_mask=mask)
-    qm, km, vm = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    dom = do.transpose(1, 2)
-
-    def plain_fwd():
-        with torch.no_grad():
-            plain_chunked_attention(qm, km, vm, True, ids)
-
-    def plain_fwd_bwd():
-        torch.autograd.grad(plain_chunked_attention(qm, km, vm, True, ids),
-                            (qm, km, vm), dom)
-
-    plain_ms, plain_both_ms = time_ms(plain_fwd, 3), time_ms(plain_fwd_bwd, 3)
-    shape = (f"bf16 q ({b}, {h}, {s}, {d}), k/v ({b}, {hk}, {s}, {d}), "
-             f"causal, ids of {int((ids.diff(dim=1) != 0).sum()) + b} runs "
-             "(packed Poisson-512 documents and pads)")
-    library = ("torch.nn.functional.scaled_dot_product_attention (attn_mask:"
-               " the boolean document mask, K/V repeated to the q heads "
-               "before the timing)")
-    bound, by, pairs = segmented_bound(ids, h, hk, d, 2, 4)
-    rows = {"flash_attention_segmented": dict(
-        ms=time_ms(lambda: flash_attention(q, k, v, segment_ids=ids), 20),
-        device_ms=device_ms(
-            lambda: flash_attention(q, k, v, segment_ids=ids), 20),
-        device_ms_no_pre_pass=device_ms(lambda: fa._forward(
-            q, k, v, True, scale, False, ids, ids, tiles), 20),
-        bound_ms=bound, bound_by=by, visible_pairs=pairs,
-        causal_pairs=b * s * (s + 1) // 2,
-        plain_ms=plain_ms, plain="models.attention.plain_chunked_attention "
-                                 "(no grad)",
-        library_ms=device_ms(lambda: sdpa(q, ks, vs, attn_mask=mask), 10),
-        library=library, timed_at=shape + "; ms, device_ms: the pre-pass "
-                                          "and the forward")}
-    bound, by, _ = segmented_bound(ids, h, hk, d, 2, 10)
-    rows["flash_attention_bwd_segmented"] = dict(
-        ms=time_ms(lambda: flash_attention_bwd(
-            q, k, v, o, lse, do, segment_ids=ids, tiles=tiles), 10),
-        device_ms=device_ms(lambda: flash_attention_bwd(
-            q, k, v, o, lse, do, segment_ids=ids, tiles=tiles), 10),
-        bound_ms=bound, bound_by=by,
-        plain_ms=plain_both_ms - plain_ms, plain_ms_fwd_bwd=plain_both_ms,
-        plain="models.attention.plain_chunked_attention: its forward and "
-              "backward less its forward",
-        library_ms=device_ms(lambda: torch.autograd.grad(
-            so, (qs, ks, vs), do, retain_graph=True), 10),
-        library="the backward of " + library,
-        timed_at=shape + "; the forward's tiles given, as in training")
-    nq = -(-s // fa.SEG_TILE)
-    rows["flash_seg_tiles"] = dict(
-        ms=time_ms(lambda: fa._segment_tiles(ids, ids, True), 50),
-        device_ms=device_ms(lambda: fa._segment_tiles(ids, ids, True), 50),
-        bound_ms=(2 * 4 * b * s + 4 * 8 * b * 2 * nq) / HBM_BYTES_PER_S
-        * 1e3, bound_by="bytes",
-        plain_ms=time_ms(lambda: ref.flash_segment_tiles_ref(ids, ids, True),
-                         5),
-        plain="kernels.ref.flash_segment_tiles_ref on the card",
-        library_ms=None, library="none computes these records",
-        timed_at=f"ids ({b}, {s}) of the packed rows, both sides, causal")
-    del qs, ks, vs, so, qm, km, vm
-    return rows
-
-
-# The SSD's intra-chunk term (csrc/ssd_chunk.cu) at Zamba2-7B's training
-# shape: B, S, chunk, groups, heads a group, head dim, state.
-SSD_SHAPE = (4, 4096, 256, 2, 56, 64, 64)
-# a ragged small one: 3 tiles a chunk, 11 heads (a whole block of 8 and 3),
-# state 128, one group
-SSD_SMALL = (3, 384, 192, 1, 11, 64, 128)
-# (rtol, share of the largest entry): float32 sums of up to 256 terms (and
-# dS's of 56 heads), each product three TF32 ones (2^-22 of a product left
-# out), against the plain versions in float32 with TF32 off
-SSD_TOL = (1e-4, 1e-5)
-
-
-def ssd_inputs(shape, seed: int, runs: bool):
-    """The term's operands on the card as ``ssd_chunked`` forms them at
-    ``shape``: C and B at the conv's scale, x dt, the log decay dt A (dt
-    from a softplus, A = -exp(a_log) with a_log 1 as the port's init) and
-    its cumulative sum within each chunk; with ``runs`` the packed rows'
-    runs (``packed_ids``) cut into chunks."""
-    from repro_torch.models.ssm import document_runs
-
-    b, s, cs, g, hg, p, n = shape
-    nc = s // cs
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def draw(*size):
-        return torch.randn(*size, generator=gen, device="cuda")
-
-    cc, bc = (draw(b, nc, cs, g, n) * 0.5 for _ in range(2))
-    dt = torch.nn.functional.softplus(draw(b, nc, cs, g, hg) - 2)
-    xf = draw(b, nc, cs, g, hg, p) * dt[..., None]
-    da_cum = torch.cumsum(dt * -math.e, 2)
-    if not runs:
-        return cc, bc, xf, da_cum, None
-    if s >= 4096:
-        ids = packed_ids(b, s, seed)
-    else:                   # short documents, ids that come back, pads (0)
-        rng = np.random.default_rng(seed)
-        ids = torch.from_numpy(np.stack([
-            np.repeat(np.arange(s) % 5, rng.integers(5, 80, size=s))[:s]
-            for _ in range(b)])).to(device="cuda", dtype=torch.int32)
-    return cc, bc, xf, da_cum, document_runs(ids).view(b, nc, cs)
-
-
-def _ssd_close(what, got, want) -> float:
-    rtol, step = SSD_TOL
-    top = float(want.abs().max())
-    if got.shape != want.shape or got.dtype != torch.float32 or not \
-            torch.allclose(got, want, rtol=rtol, atol=step * top):
-        raise AssertionError(f"ssd_chunk {what} != plain: max_abs_err "
-                             f"{max_abs_err(got, want)} (largest entry "
-                             f"{top})")
-    return max_abs_err(got, want) / top
-
-
-def check_ssd_chunk(ref) -> tuple:
-    """The SSD kernels on the card against the plain versions in float32
-    (TF32 off), at ``SSD_SHAPE`` with the packed rows' runs and at
-    ``SSD_SMALL`` with and without runs: y, then dC, dB, dX and dA (the
-    wrapper's products and sums included), and the state kernels (gather,
-    apply with a base, cross), within ``SSD_TOL``; all-equal runs bit-equal
-    to no runs, forward and backward.  Returns (cases, the largest
-    |difference| as a share of its largest entry)."""
-    from repro_torch.kernels import ssd_chunk as sk
-
-    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    worst, cases = 0.0, 0
-    try:
-        for shape, with_runs in ((SSD_SHAPE, True), (SSD_SMALL, True),
-                                 (SSD_SMALL, False)):
-            cc, bc, xf, da_cum, rc = ssd_inputs(shape, 21, with_runs)
-            dy = torch.randn_like(xf)
-            y = sk.ssd_chunk_fwd(cc, bc, xf, da_cum, rc)
-            runs = () if rc is None else (rc,)
-            want = _by_row(lambda *t: (ref.ssd_chunk_ref(*t),), cc, bc, xf,
-                           da_cum, *runs)[0]
-            worst = max(worst, _ssd_close("y", y, want))
-            del want
-            got = sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy, rc)
-            want = _by_row(ref.ssd_chunk_bwd_ref, cc, bc, xf, da_cum, dy,
-                           *runs)
-            for what, g_, w_ in zip(("dC", "dB", "dX", "dA"), got, want):
-                worst = max(worst, _ssd_close(what, g_, w_))
-            del got, want
-            cases += 2
-            # the state kernels: w a decay in (0, 1], W an entering state
-            w = torch.exp(da_cum[:, :, -1:] - da_cum)
-            wm = torch.randn(xf.shape[:2] + xf.shape[3:] + cc.shape[-1:],
-                             device="cuda") * 0.1
-            for what, got, want in (
-                    ("gather", sk.ssd_gather(xf, bc, w),
-                     ref.ssd_gather_ref(xf, bc, w)),
-                    ("apply", sk.ssd_apply(cc, wm, w, dy),
-                     ref.ssd_apply_ref(cc, wm, w, dy)),
-                    *zip(("cross dV", "cross dw"), sk.ssd_cross(dy, wm, cc, w),
-                         ref.ssd_cross_ref(dy, wm, cc, w))):
-                worst = max(worst, _ssd_close(what, got, want))
-            del w, wm
-            cases += 3
-            if with_runs:
-                same = torch.full_like(rc, 7)
-                plain = (sk.ssd_chunk_fwd(cc, bc, xf, da_cum),
-                         *sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy))
-                seg = (sk.ssd_chunk_fwd(cc, bc, xf, da_cum, same),
-                       *sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy, same))
-                if not all(torch.equal(bits(a), bits(b))
-                           for a, b in zip(plain, seg)):
-                    raise AssertionError("ssd_chunk: all-equal runs != no "
-                                         f"runs at {shape}")
-                cases += 1
-            torch.cuda.synchronize()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
-    return cases, worst
-
-
-def ssd_counts(shape) -> dict:
-    """The term's work at ``shape`` as ``portbench``'s count has it (whole
-    chunks) and its bytes (inputs read once, outputs written once)."""
-    b, s, cs, g, hg, p, n = shape
-    unit = 2 * b * (s // cs) * g * cs * cs
-    small = b * s * g * (2 * n + hg) * 4            # C, B, the log decay
-    big = b * s * g * hg * p * 4                    # xf, y, dy, dx
-    return dict(fwd_flops=unit * (n + hg * p),
-                bwd_flops=unit * (3 * n + 2 * hg * p),
-                fwd_bytes=small + 2 * big + b * s * 4,
-                bwd_bytes=2 * small + 3 * big + b * s * 4)
-
-
-def time_ssd_chunk() -> dict:
-    """The SSD kernels at ``SSD_SHAPE`` with the packed rows' runs, each
-    beside its bound (``ssd_counts`` at ``FP32_WORK_FLOPS`` or at
-    ``HBM_BYTES_PER_S``, whichever is longer) and the einsum route's same
-    term (``models.ssm._diag_einsum``: its forward without grad; for the
-    backward its forward and backward less its forward).  Rows
-    ``ssd_chunk_fwd`` and ``ssd_chunk_bwd``."""
-    from repro_torch.kernels import ssd_chunk as sk
-    from repro_torch.models import ssm
-
-    cc, bc, xf, da_cum, rc = ssd_inputs(SSD_SHAPE, 23, True)
-    dy = torch.randn_like(xf)
-    da = torch.cat([da_cum[:, :, :1], da_cum.diff(dim=2)], dim=2)
-    leaves = [t.detach().requires_grad_() for t in (da, cc, bc, xf)]
-
-    def plain_fwd():
-        with torch.no_grad():
-            ssm._diag_einsum(*leaves, rc)
-
-    def plain_fwd_bwd():
-        torch.autograd.grad(ssm._diag_einsum(*leaves, rc), leaves, dy)
-
-    plain_ms, plain_both_ms = time_ms(plain_fwd, 3), time_ms(plain_fwd_bwd, 3)
-    counts = ssd_counts(SSD_SHAPE)
-    b, s, cs, g, hg, p, n = SSD_SHAPE
-    shape = (f"fp32, B {b}, S {s}, chunk {cs}, {g} groups of {hg} heads of "
-             f"{p}, state {n}, runs of the packed rows "
-             f"({int((rc.flatten(1).diff(dim=1) != 0).sum()) + b} runs)")
-    rows = {}
-    for name, fn, flops, nbytes, plain, note in (
-            ("ssd_chunk_fwd",
-             lambda: sk.ssd_chunk_fwd(cc, bc, xf, da_cum, rc),
-             counts["fwd_flops"], counts["fwd_bytes"], plain_ms,
-             "models.ssm._diag_einsum (no grad)"),
-            ("ssd_chunk_bwd",
-             lambda: sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy, rc),
-             counts["bwd_flops"], counts["bwd_bytes"],
-             plain_both_ms - plain_ms,
-             "models.ssm._diag_einsum: its forward and backward less its "
-             "forward")):
-        by_ops = flops / FP32_WORK_FLOPS * 1e3
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        rows[name] = dict(
-            ms=time_ms(fn, 10), device_ms=device_ms(fn, 10),
-            bound_ms=max(by_ops, by_bytes),
-            bound_by="operations" if by_ops > by_bytes else "bytes",
-            flops=flops, bytes=nbytes, plain_ms=plain, plain=note,
-            library_ms=None, library="none computes this term",
-            timed_at=shape + ("; backward: both kernels, dC = dS B, "
-                              "dB = dS^T C and dA's sum"
-                              if name == "ssd_chunk_bwd" else ""))
-    rows["ssd_chunk_bwd"]["plain_ms_fwd_bwd"] = plain_both_ms
-    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2026,7 +608,7 @@ def check_vm(out):
         image = as_memory(run.memory, "cuda")
         row = {}
         for mode, c in (("vm", cp), ("fused", fused)):
-            row[f"{mode}_run_ms"] = wall_ms(lambda: c.run(image), VM_ITERS)
+            row[f"{mode}_run_ms"] = time_ms(lambda: c.run(image), VM_ITERS)
             row[f"{mode}_run_device_ms"] = device_ms(
                 lambda: c.run_async(image), VM_ITERS)
         rows[name] = row
@@ -2042,7 +624,7 @@ def check_vm(out):
         cp = out["single"][name][1]
         row = rows[name]
         for mode, c in (("vm", cp), ("fused", fused)):
-            row[f"{mode}_batch_ms"] = wall_ms(lambda: c.run_batch(images), 3)
+            row[f"{mode}_batch_ms"] = time_ms(lambda: c.run_batch(images), 3)
             row[f"{mode}_batch_device_ms"] = device_ms(
                 lambda: c.run_batch_async(images), 3)
     traps = {}
@@ -2076,17 +658,6 @@ def _to_cuda_state(state):
     st.regs = {k: v.cuda() for k, v in state.regs.items()}
     st.tag = state.tag.cuda()
     return st
-
-
-def wall_ms(fn, iters: int) -> float:
-    """Host-clock ms per call of ``fn`` (work ended by a synchronise)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -2757,45 +1328,6 @@ def check_float8_cache() -> dict:
             "indices": ["int", "(B,)"], "bit_equal_to_cpu": True}
 
 
-def device_profile(fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: host wall ms, device
-    busy ms (kernel + memcpy/memset time), the flash kernel's ms, device
-    launches, host-blocking CUDA calls, and the five kernels that take the
-    most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = flash = launches = blocking = 0.0
-    kernels, blocking_by_call = [], {}
-    for ev in prof.key_averages():
-        if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                      "cudaMemcpy", "cudaHostAlloc", "cudaFreeHost"):
-            blocking += ev.count
-            blocking_by_call[ev.key] = ev.count
-        if ev.key in ("aten::_local_scalar_dense", "aten::nonzero",
-                      "aten::is_nonzero", "aten::item"):
-            blocking_by_call[ev.key] = ev.count
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if not dev_us or ev.device_type.name == "CPU":
-            continue
-        busy += dev_us / 1e3
-        launches += ev.count
-        flash += dev_us / 1e3 if "flash_fwd" in ev.key else 0.0
-        kernels.append((dev_us / 1e3, ev.count, ev.key[:60]))
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "device_busy_share": busy / wall, "flash_ms": flash,
-            "device_launches": int(launches),
-            "host_blocking_calls": int(blocking),
-            "host_blocking_by_call": blocking_by_call,
-            "top_kernels_ms_count": sorted(kernels, reverse=True)[:5]}
-
-
 def _cast_(tree, dtype) -> dict:
     """Cast the leaves of a nested dict in place, one at a time (so one
     leaf, not the whole tree, is held twice), to ``dtype``: a torch dtype
@@ -2932,7 +1464,7 @@ def drive_family(arch, layers, seq, flash_attention) -> dict:
     from repro_torch.launch.serve import ContinuousBatchingEngine, Request
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import LM
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.trees import tree_leaves
     from repro_torch.models.specs import prefill_batch_specs
 
     cfg = get_config(arch)
@@ -3177,7 +1709,7 @@ def _save_restore_s(model, state, meta, fmt="fp32") -> tuple:
 
 
 def _tree_leaves(tree):
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.trees import tree_leaves
     return tree_leaves(tree)
 
 
@@ -3305,7 +1837,7 @@ def drive_train_whisper(flash_attention, flash_attention_bwd) -> dict:
     from repro_torch.data import DataConfig, make_train_batches
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import LM
-    from repro_torch.models.common import tree_map
+    from repro_torch.trees import tree_map
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.trees import value_and_grad
 
@@ -3563,7 +2095,7 @@ def drive_mesh_whisper(mesh, flash_attention, flash_attention_bwd) -> dict:
     from repro_torch.launch.steps import (jitted_cell, make_train_step,
                                           state_shardings)
     from repro_torch.models import LM
-    from repro_torch.models.common import tree_map
+    from repro_torch.trees import tree_map
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.parallel.axes import place, sharding_context
 
@@ -3788,7 +2320,7 @@ def drive_mesh_compression(grads, cpu_group) -> tuple:
     import threading
     import traceback
     import torch.distributed as dist
-    from repro_torch.models.common import tree_map
+    from repro_torch.trees import tree_map
     from repro_torch.parallel.compression import (compress_with_feedback,
                                                   compressed_allreduce_mean,
                                                   int8_payload,
@@ -4369,6 +2901,33 @@ def drive_quantized(ops, ref):
     return out
 
 
+def run_card_tests() -> dict:
+    """Phase 2: the ``card`` tests (``tests/test_torch_*_card.py``) in this
+    process, so every kernel the drives below launch is first held against
+    its plain version at the main paths' shapes and limits.  Returns the
+    number of test files and of tests by outcome; a failure, an error or a
+    skip raises."""
+    import pytest
+
+    class Outcomes:
+        def __init__(self):
+            self.counts = {}
+
+        def pytest_runtest_logreport(self, report):
+            if report.when == "call" or report.outcome != "passed":
+                self.counts[report.outcome] = \
+                    self.counts.get(report.outcome, 0) + 1
+
+    files = sorted(str(p) for p in
+                   (ROOT / "tests").glob("test_torch_*_card.py"))
+    seen = Outcomes()
+    rc = pytest.main(["-q", "-p", "no:cacheprovider", "-m", "card", *files],
+                     plugins=[seen])
+    if rc != 0 or set(seen.counts) != {"passed"}:
+        raise AssertionError(f"the card tests: exit code {rc}, {seen.counts}")
+    return {"files": len(files), **seen.counts}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -4380,8 +2939,12 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit("device", kind=kind, card=card, torch=torch.__version__,
          cuda=torch.version.cuda)
+    # ---- 2. card: each kernel against its plain version -----------------
+    t0 = time.perf_counter()
+    outcomes = run_card_tests()
+    emit("card", seconds=time.perf_counter() - t0, **outcomes)
 
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.bitplane_gemm import bitplane_matmul, int8_matmul
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
@@ -4418,90 +2981,6 @@ def main() -> int:
             if counts[name] <= 0:
                 raise AssertionError(f"the {path} path never launched {name}")
         return out, counts
-
-    # ---- 2. build --------------------------------------------------------
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    for name in libs:
-        _build.load(name)
-    logs = {name: ptxas_usage((_build.BUILD_DIR / f"{name}.log").read_text())
-            for name in libs}
-    flash_usage = {kernel: check_no_spills(logs[source], kernel)
-                 for source, kernel in (
-                     ("flash_attention", "flash_fwd_mma_kernel"),
-                     ("flash_attention", "flash_fwd_tf32_kernel"),
-                     ("flash_attention", "flash_seg_tiles_kernel"),
-                     ("flash_attention_bwd", "flash_bwd_delta_kernel"),
-                     ("flash_attention_bwd", "flash_bwd_dkdv_mma_kernel"),
-                     ("flash_attention_bwd", "flash_bwd_gqa_sum_kernel"),
-                     ("flash_attention_bwd", "flash_bwd_dq_mma_kernel"),
-                     ("flash_attention_bwd", "flash_bwd_dkdv_tf32_kernel"),
-                     ("flash_attention_bwd", "flash_bwd_dq_tf32_kernel"),
-                     ("ssd_chunk", "ssd_fwd_kernel"),
-                     ("ssd_chunk", "ssd_bwd_dx_kernel"),
-                     ("ssd_chunk", "ssd_bwd_ds_kernel"),
-                     ("ssd_chunk", "ssd_gather_kernel"),
-                     ("ssd_chunk", "ssd_apply_kernel"),
-                     ("ssd_chunk", "ssd_cross_kernel"))}
-    emit("build", seconds=time.perf_counter() - t0,
-         libraries=sorted(str(p.relative_to(ROOT)) for p in libs.values()),
-         ptxas=logs, flash_no_spills=flash_usage,
-         sass_mma=sass_mma_counts(_build, libs))
-
-    # ---- 3. kernels ------------------------------------------------------
-    t0 = time.perf_counter()
-    cases, worst, gather_routes, routes = check_kernels(ref, mdgather,
-                                                        mdscatter_)
-    gather_ops = check_gather_launches(mdgather)
-    scatter_ops = check_scatter_launches(mdscatter_)
-    timings, shape_note = time_kernels(ref, mdgather, mdscatter_)
-    for row in timings.values():
-        row.update(bound_by="bytes", timed_at=shape_note)
-    lm_cases, lm_worst, wrapped = check_lm_kernels(
-        ref, flash_attention, int8_matmul, bitplane_matmul)
-    worst.update(lm_worst)
-    timings.update(time_lm_kernels(ref, flash_attention, int8_matmul,
-                                   bitplane_matmul))
-    float_cases = check_float_ops(ref, float_binary, float_convert)
-    worst.update(float_binary=0.0, float_convert=0.0)
-    timings.update(time_float_ops(ref, float_binary, float_convert))
-    bwd_cases, worst["flash_attention_bwd"], lse_err, bwd_split = \
-        check_flash_bwd(ref, flash_attention_bwd)
-    timings["flash_attention_bwd"] = time_flash_bwd(ref, flash_attention_bwd)
-    seg_cases, worst["flash_attention_segmented"], seg_lse_err = \
-        check_flash_segments(ref, flash_attention_bwd)
-    timings.update(time_flash_segments(ref, flash_attention,
-                                       flash_attention_bwd))
-    ssd_cases, worst["ssd_chunk"] = check_ssd_chunk(ref)
-    timings.update(time_ssd_chunk())
-    emit("kernels", seconds=time.perf_counter() - t0,
-         cases=cases + lm_cases + float_cases + bwd_cases + seg_cases
-         + ssd_cases,
-         tolerance={"mdgather, mdscatter, int8_matmul, bitplane_matmul, "
-                    "float_binary, float_convert":
-                    "bit-equal (max_abs_err must be 0)",
-                    "flash_attention": f"fp32 {FLASH_FP32_TOL} (test "
-                                       f"shapes), {FLASH_FP32_PATH_TOL} "
-                                       f"(prefill shapes); bf16 "
-                                       f"{FLASH_BF16_TOL}; lse {LSE_TOL}",
-                    "flash_attention_bwd": "(rtol, share of the largest "
-                                           f"entry): fp32 {FLASH_BWD_FP32_TOL}"
-                                           f", bf16 {FLASH_BWD_BF16_TOL}",
-                    "flash_attention_segmented": "the forward's and the "
-                                                 "backward's limits at "
-                                                 "SEG_SHAPE; flash_seg_tiles"
-                                                 " and ids all equal: "
-                                                 "bit-equal",
-                    "ssd_chunk": f"(rtol, share of the largest entry) "
-                                 f"{SSD_TOL}; max_abs_err as that share; "
-                                 f"all-equal runs: bit-equal"},
-         flash_lse_max_abs_err=lse_err, flash_bwd_gqa_split=bwd_split,
-         flash_segmented_lse_max_abs_err=seg_lse_err,
-         max_abs_err=worst, mdgather_routes=gather_routes,
-         mdgather_device_ops=gather_ops, mdscatter_routes=routes,
-         mdscatter_device_ops=scatter_ops,
-         int32_wrap=dict(shape=WRAP_SHAPE, x=-128, w=-128, out=wrapped),
-         timings_ms=timings)
 
     # ---- 4-6. the main paths, each with its launch counts ----------------
     (rows, batched, single_s, batch_s), counts = drive(
@@ -4638,12 +3117,10 @@ def main() -> int:
     # ---- 7. result -------------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": worst[name], **t})
+            "replaces": replaces, "launches": launches[name]})
         if name in fp32:
             kernels[-1]["launches_fp32"] = fp32[name]
         if name == "flash_attention":

@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from ..core.machine import resolve_device
-from ..models.common import tree_leaves, tree_map, tree_unflatten
 from ..parallel.axes import gather, place
+from ..trees import tree_leaves, tree_map, tree_unflatten
 
 _SEP = "/"                  # path separator of tree_leaves
 # logical type -> (stored NumPy bits, torch type)

@@ -40,10 +40,10 @@ import torch
 import torch.distributed as dist
 
 from ..configs import ARCH_IDS, SHAPES, cell_supported, get_config
-from ..models.common import tree_map
 from ..optim import AdamWConfig
 from ..parallel.axes import (DEFAULT_RULES, model_mesh, place,
                               sharding_context)
+from ..trees import tree_map
 from . import hlo_analysis
 from .hlo_analysis import local_bytes, local_tensors, storage_key
 from .mesh import make_production_mesh

@@ -22,8 +22,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .. import obs
 from ..configs.base import ModelConfig, ShapeCell
-from ..models.common import (DTYPES, ShapeDtype, abstract_tree, axes_tree,
-                             tree_leaves, tree_map, value_and_grad)
+from ..models.common import DTYPES, ShapeDtype, abstract_tree, axes_tree
 from ..models.lm import LM
 from ..models.specs import (decode_specs, prefill_batch_specs,
                             train_batch_specs)
@@ -33,6 +32,7 @@ from ..parallel.axes import (NamedPlacement, ShardingCtx, all_reduce,
                              batch_reduction, batch_split, local_shard,
                              mesh_shape, model_mesh, named_sharding,
                              on_model_mesh, shard_groups, step_context)
+from ..trees import tree_leaves, tree_map, value_and_grad
 
 
 def shardings_for(axes, shapes, ctx: ShardingCtx):

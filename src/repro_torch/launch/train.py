@@ -43,12 +43,13 @@ from ..configs import ARCH_IDS, get_config
 from ..configs.base import ShapeCell
 from ..core.machine import resolve_device
 from ..data import DataConfig, make_train_batches
-from ..models.common import ShapeDtype, tree_map
+from ..models.common import ShapeDtype
 from ..models.lm import LM
 from ..optim import AdamWConfig, adamw_init
 from ..optim.adamw import _scale_shape
 from ..parallel.axes import place, sharding_context
 from ..runtime import HeartbeatMonitor, StragglerDetector
+from ..trees import tree_map
 from .mesh import make_mesh
 from .steps import jitted_cell, make_train_step, state_shardings
 

@@ -23,8 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import obs
 from ..parallel.axes import batch_sum, constrain, matmul, settled
-from ..trees import (tree_leaves, tree_map, tree_unflatten,  # noqa: F401
-                     value_and_grad)
+from ..trees import tree_leaves, tree_map, tree_unflatten
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16, "float8": torch.float8_e4m3fn}

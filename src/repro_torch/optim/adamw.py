@@ -19,7 +19,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from .. import obs
-from ..models.common import tree_leaves, tree_map
+from ..trees import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)

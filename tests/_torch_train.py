@@ -14,7 +14,7 @@ from repro.models import LM as RefLM
 
 from repro_torch import convert
 from repro_torch.models import LM
-from repro_torch.models.common import tree_leaves
+from repro_torch.trees import tree_leaves
 
 B, S = 2, 64
 GATE = 0.5

@@ -24,18 +24,17 @@ whose id interval misses its own rows' (keys' in dK/dV), and the per-pair
 test of the ids joins the mask only on a tile that is not one segment on
 both sides.
 
-The emulation is held against the plain ``flash_attention_bwd_ref`` within
-``chip_smoke.py``'s ``FLASH_BWD_BF16_TOL`` at ``FLASH_BWD_SWEEP``, at one
-reduced case of each of ``TRAIN_SHAPES`` and at a ragged causal case whose
-first rows see no key, both ways of the GQA sum; with segment ids on packed
-documents, on ids in no order and on ids whose runs come back; and, with P
-and dS kept in fp32, within ``FLASH_BWD_FP32_TOL`` of the plain version in
-fp32: the rounding is the only difference.  ``chip_smoke.py`` holds the kernels
+The emulation is held against the plain ``flash_attention_bwd_ref``
+within ``FLASH_BWD_BF16_TOL`` (``tests/_torch_card.py``) at
+``FLASH_BWD_SWEEP``, at one reduced case of each of ``TRAIN_SHAPES`` and at
+a ragged causal case whose first rows see no key, both ways of the GQA
+sum; with segment ids on packed documents, on ids in no order and on ids
+whose runs come back; and, with P and dS kept in fp32, within
+``FLASH_BWD_FP32_TOL`` of the plain version in fp32: the rounding is the
+only difference.  ``tests/test_torch_flash_card.py`` holds the kernels
 themselves against the plain version on the card.
 """
-import importlib.util
 import math
-from pathlib import Path
 
 import ml_dtypes
 import numpy as np
@@ -45,12 +44,9 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 
+from benchmarks.torch_kernel_ab import TRAIN_SHAPES
+from _torch_card import FLASH_BWD_BF16_TOL, FLASH_BWD_FP32_TOL, FLASH_BWD_SWEEP
 from _torch_segments import IDS
-
-_SPEC = importlib.util.spec_from_file_location(
-    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_SPEC)
-_SPEC.loader.exec_module(chip_smoke)
 
 ROWS = 64           # FBM_ROWS: K rows a dK/dV block, q rows a dQ block
 WARP_ROWS = 16
@@ -64,7 +60,7 @@ REDUCED_TRAIN = {"whisper_encoder": (1, 2, 2, 150, 150, 64, False),
                  "vision_cross": (1, 8, 2, 100, 96, 128, False),
                  "qwen2_causal": (1, 7, 1, 130, 130, 64, True)}
 RAGGED = (1, 4, 2, 150, 90, 64, True)
-CASES = ([(f"sweep {s}", s) for s in chip_smoke.FLASH_BWD_SWEEP]
+CASES = ([(f"sweep {s}", s) for s in FLASH_BWD_SWEEP]
          + list(REDUCED_TRAIN.items()) + [("ragged", RAGGED)])
 
 
@@ -300,8 +296,8 @@ def _plain(q, k, v, o, lse, do, causal, dtype, ids=None):
 
 
 def _assert_within(got, want, tol, what):
-    """``chip_smoke.py::check_flash_bwd``'s comparison: rtol and a share
-    of the largest entry."""
+    """``tests/_torch_card.py::assert_within``'s comparison: rtol and a
+    share of the largest entry."""
     rtol, step = tol
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         scale = float(np.abs(w).max())
@@ -317,12 +313,12 @@ def test_mma_backward_emulated_holds_the_card_limit(name, shape, split):
     scale = 1.0 / math.sqrt(d)
     got = emulate_backward_mma(q, k, v, o, lse, do, causal, scale, split)
     want = _plain(q, k, v, o, lse, do, causal, torch.bfloat16)
-    _assert_within(got, want, chip_smoke.FLASH_BWD_BF16_TOL, name)
+    _assert_within(got, want, FLASH_BWD_BF16_TOL, name)
     # P and dS kept in fp32, nothing rounded: the plain version in fp32
     exact = emulate_backward_mma(q, k, v, o, lse, do, causal, scale, split,
                                  rounding=False)
     want32 = _plain(q, k, v, o, lse, do, causal, torch.float32)
-    _assert_within(exact, want32, chip_smoke.FLASH_BWD_FP32_TOL, name)
+    _assert_within(exact, want32, FLASH_BWD_FP32_TOL, name)
 
 
 SEG_CASES = [("packed", True), ("packed", False), ("unordered", True),
@@ -345,11 +341,11 @@ def test_mma_backward_with_segment_ids_emulated_holds_the_card_limit(
     want = _plain(q, k, v, o, lse, do, causal, torch.bfloat16, ids)
     got = emulate_backward_mma(q, k, v, o, lse, do, causal, 0.125, split,
                                seg=seg)
-    _assert_within(got, want, chip_smoke.FLASH_BWD_BF16_TOL, kind)
+    _assert_within(got, want, FLASH_BWD_BF16_TOL, kind)
     exact = emulate_backward_mma(q, k, v, o, lse, do, causal, 0.125, split,
                                  rounding=False, seg=seg)
     want32 = _plain(q, k, v, o, lse, do, causal, torch.float32, ids)
-    _assert_within(exact, want32, chip_smoke.FLASH_BWD_FP32_TOL, kind)
+    _assert_within(exact, want32, FLASH_BWD_FP32_TOL, kind)
 
 
 def test_a_missing_segment_edge_is_caught(monkeypatch):
@@ -367,7 +363,7 @@ def test_a_missing_segment_edge_is_caught(monkeypatch):
     got = emulate_backward_mma(q, k, v, o, lse, do, True, 0.125, False,
                                seg=(ids, ids, tiles))
     with pytest.raises(AssertionError):
-        _assert_within(got, want, chip_smoke.FLASH_BWD_BF16_TOL, "segments")
+        _assert_within(got, want, FLASH_BWD_BF16_TOL, "segments")
 
 
 def test_rows_that_see_no_key_get_no_gradient():
@@ -385,7 +381,7 @@ def test_rows_that_see_no_key_get_no_gradient():
     cut = emulate_backward_mma(
         *(x[:, :, first:] for x in (q,)), k, v, o[:, :, first:],
         lse[:, :, first:], do[:, :, first:], causal, scale, split=False)
-    _assert_within((dk, dv), cut[1:], chip_smoke.FLASH_BWD_FP32_TOL,
+    _assert_within((dk, dv), cut[1:], FLASH_BWD_FP32_TOL,
                    "rows with a key")
 
 
@@ -402,7 +398,7 @@ def test_a_wrong_edge_rule_is_caught(wrong, monkeypatch):
     monkeypatch.setitem(globals(), wrong, lambda causal, *a: rule(False, *a))
     got = emulate_backward_mma(q, k, v, o, lse, do, True, 0.125, False)
     with pytest.raises(AssertionError):
-        _assert_within(got, want, chip_smoke.FLASH_BWD_BF16_TOL, wrong)
+        _assert_within(got, want, FLASH_BWD_BF16_TOL, wrong)
 
 
 @pytest.mark.parametrize("name,split", [
@@ -412,7 +408,7 @@ def test_gqa_split_rule_at_the_training_shapes(name, split):
     """On an H100 (132 SMs): qwen2's 4 x 2 x 16 = 128 in-block-sum blocks
     are under two a SM and split its 7 q heads; whisper (G = 1) and the
     vision cross attention (512 blocks) keep the sum inside the block."""
-    b, h, hk, sq, sk, d, causal = chip_smoke.TRAIN_SHAPES[name]
+    b, h, hk, sq, sk, d, causal = TRAIN_SHAPES[name]
     assert fa.gqa_split(b, hk, sk, h // hk, 132) == split
 
 

@@ -26,8 +26,10 @@
   the flash route with the ids), with the flash calls of the forward, of
   the remat recompute and of the backward counted exactly.
 
-The kernels themselves run only on the card: ``chip_smoke.py`` holds them
-against the same plain versions there.
+The kernels themselves run only on the card:
+``tests/test_torch_flash_card.py`` and
+``tests/test_torch_flash_segments_card.py`` hold them against the same
+plain versions there.
 """
 import dataclasses
 import math

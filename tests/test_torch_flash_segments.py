@@ -457,7 +457,7 @@ def test_a_packed_qwen2_loss_runs_no_plain_chunk(monkeypatch):
     plain route counts no chunk."""
     from repro_torch.data import DataConfig, make_train_batches
     from repro_torch.models import LM
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.trees import tree_leaves
 
     cfg = dataclasses.replace(get_config("qwen2-0.5b", reduced=True),
                               head_dim=64, num_layers=1)

@@ -3,14 +3,13 @@
 ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` with
 segment ids, held against the plain versions with the same ids
 (``kernels.ref``, which the CPU tests hold equal to the model's plain
-chunked route), within the limits ``chip_smoke.py`` holds the unsegmented
-kernels to (``tests/test_torch_kernel_numerics.py``,
-``tests/test_torch_flash_bwd_mma.py``):
+chunked route), within the limits of the unsegmented kernels
+(``tests/_torch_card.py``; ``tests/test_torch_flash_card.py``):
 
-* at the packed training cell's shape, q ``(4, 28, 4096, 128)`` over 4 kv
-  heads, ids from ``pack_documents`` on Poisson documents of mean 512 (at
-  least 16), bf16 and fp32, forward (output and lse) and backward, the GQA
-  sum in the block and split;
+* at the packed training cell's shape (``SEG_SHAPE``), q ``(4, 28, 4096,
+  128)`` over 4 kv heads, ids from ``pack_documents`` on Poisson documents
+  of mean 512 (at least 16), bf16 and fp32, forward (output and lse) and
+  backward, the GQA sum in the block and split;
 * at ragged small shapes: ids in no order, runs that come back, Sq != Sk
   with kv ids of their own (rows that see no key: 0 from the kernel, NaN
   from the plain version, lse -inf in both);
@@ -31,39 +30,22 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.packing import pack_documents
+from benchmarks.torch_kernel_ab import SEG_SHAPE, packed_ids
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.models import attention
 
+from _torch_card import (FLASH_BF16_TOL, FLASH_BWD_BF16_TOL,
+                         FLASH_BWD_FP32_TOL, FLASH_FP32_PATH_TOL, LSE_TOL,
+                         assert_within, bits, by_row, card)
+
 pytestmark = pytest.mark.card
 
-# chip_smoke.py's limits: FLASH_BF16_TOL, FLASH_FP32_PATH_TOL (long fp32
-# sums), FLASH_BWD_BF16_TOL / FLASH_BWD_FP32_TOL (rtol, share of the
-# largest entry), LSE_TOL
-FWD_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=8e-3),
-           torch.float32: dict(rtol=1e-4, atol=1e-4)}
-BWD_TOL = {torch.bfloat16: (1e-2, 8e-3), torch.float32: (1e-4, 1e-4)}
-LSE_TOL = 1e-4
-CELL = (4, 28, 4, 4096, 128)          # B, H, Hkv, S, D of the packed cell
+FWD_TOL = {torch.bfloat16: FLASH_BF16_TOL,
+           torch.float32: FLASH_FP32_PATH_TOL}        # long fp32 sums
+BWD_TOL = {torch.bfloat16: FLASH_BWD_BF16_TOL,
+           torch.float32: FLASH_BWD_FP32_TOL}
 DTYPES = [torch.bfloat16, torch.float32]
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: the segmented flash kernels run only on "
-                    "one")
-    return torch.device("cuda")
-
-
-def cell_ids(b: int, s: int, seed: int) -> np.ndarray:
-    """Rows of Poisson documents (mean 512, at least 16) packed by
-    ``pack_documents``, pads of id 0 at the end of a row."""
-    rng = np.random.default_rng(seed)
-    docs = [np.zeros(max(16, int(rng.poisson(512))), np.int32)
-            for _ in range(4 * b * s // 512)]
-    return pack_documents(docs, s)[1][:b]
 
 
 def _draw(shape, dtype, device, seed):
@@ -76,22 +58,15 @@ def _draw(shape, dtype, device, seed):
     return q, k, v, do
 
 
-def _by_row(fn, *tensors):
-    """``fn`` over one batch row at a time (the plain versions' logits of
-    a whole cell would take tens of GB), results joined on dim 0."""
-    outs = [fn(*(t[i:i + 1] for t in tensors))
-            for i in range(tensors[0].shape[0])]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
-
-
 def _check_forward(q, k, v, causal, seg_q, seg_k):
     out, lse = fa._forward(q, k, v, causal, q.shape[-1] ** -0.5, True,
                            seg_q, seg_k)
-    want, want_lse = _by_row(
+    want, want_lse = by_row(
         lambda q, k, v, sq_, sk_: ref.flash_attention_lse_ref(
             q, k, v, causal=causal, segment_ids=sq_, kv_segment_ids=sk_),
         q, k, v, seg_q, seg_k)
     seen = torch.isfinite(want_lse)
+    assert out.dtype == q.dtype
     assert torch.equal(torch.isneginf(lse), ~seen)
     assert not out[~seen].any()                 # the kernel gives 0 there
     assert float((lse - want_lse)[seen].abs().max()) <= LSE_TOL
@@ -101,11 +76,10 @@ def _check_forward(q, k, v, causal, seg_q, seg_k):
 
 
 def _check_backward(q, k, v, o, lse, do, causal, seg_q, seg_k, splits):
-    want = _by_row(
+    want = by_row(
         lambda *t: ref.flash_attention_bwd_ref(
             *t[:6], causal=causal, segment_ids=t[6], kv_segment_ids=t[7]),
         q, k, v, o, lse, do, seg_q, seg_k)
-    rtol, step = BWD_TOL[q.dtype]
     for split in splits:
         with mock.patch.object(fa, "gqa_split", lambda *a: split):
             got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
@@ -113,17 +87,13 @@ def _check_backward(q, k, v, o, lse, do, causal, seg_q, seg_k, splits):
                                          kv_segment_ids=seg_k)
         torch.cuda.synchronize()
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            assert g.dtype == q.dtype and g.shape == w.shape
-            scale = float(w.float().abs().max())
-            torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
-                                       atol=step * scale,
-                                       msg=f"{name} (split {split})")
+            assert_within(g, w, BWD_TOL[q.dtype], f"{name} (split {split})")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_segmented_kernels_at_the_packed_cell_shape(card, dtype):
-    b, h, hk, s, d = CELL
-    ids = torch.from_numpy(cell_ids(b, s, seed=1)).to(card)
+    b, h, hk, s, d = SEG_SHAPE
+    ids = packed_ids(b, s, seed=1)
     q, k, v, do = _draw((b, h, hk, s, s, d), dtype, card, seed=2)
     o, lse = _check_forward(q, k, v, True, ids, ids)
     _check_backward(q, k, v, o, lse, do, True, ids, ids, (False, True))
@@ -143,6 +113,8 @@ def _small_ids(kind, b, sq, sk, seed):
     if kind == "unordered":
         q = rng.integers(0, 5, (b, sq))
         return q, q
+    if kind == "unordered kv":
+        return rng.integers(0, 5, (b, sq)), rng.integers(0, 5, (b, sk))
     if kind == "repeated":
         row = np.resize(np.repeat([1, 2, 0, 1, 3, 2], [40, 50, 5, 30, 10, 30]),
                         sq)
@@ -166,37 +138,46 @@ def test_segmented_kernels_at_ragged_shapes(card, dtype, shape, causal,
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_equal_ids_are_bit_equal_to_the_unsegmented_call(card, dtype):
-    b, h, hk, s, d = CELL
+    b, h, hk, s, d = SEG_SHAPE
     q, k, v, do = _draw((b, h, hk, s, s, d), dtype, card, seed=4)
     ones = torch.ones(b, s, dtype=torch.int32, device=card)
     scale = d ** -0.5
     plain = fa._forward(q, k, v, True, scale, True)
     seg = fa._forward(q, k, v, True, scale, True, ones, ones)
-    assert all(torch.equal(a, b) for a, b in zip(plain, seg))
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(plain, seg))
     o, lse = plain
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, segment_ids=ones)
     want = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+
+
+# (name, the ids' kind, B, Sq, Sk)
+PRE_PASS = [("packed cell", "packed", 4, 4096, 4096),
+            ("unordered", "unordered", 3, 300, 300),
+            ("unordered, kv ids of their own", "unordered kv", 3, 300, 70),
+            ("own kv ids 200 / 70", "own kv ids", 2, 200, 70),
+            ("own kv ids 33 / 130", "own kv ids", 2, 33, 130)]
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_the_pre_pass_kernel_equals_its_plain_version(card, causal):
-    cases = [(cell_ids(4, 4096, seed=5),) * 2,
-             _small_ids("unordered", 3, 300, 300, seed=6),
-             _small_ids("own kv ids", 2, 200, 70, seed=7),
-             _small_ids("own kv ids", 2, 33, 130, seed=8)]
-    for seg_q, seg_k in cases:
+@pytest.mark.parametrize("name,kind,b,sq,sk", PRE_PASS,
+                         ids=[case[0] for case in PRE_PASS])
+def test_the_pre_pass_kernel_equals_its_plain_version(card, name, kind, b,
+                                                      sq, sk, causal):
+    if kind == "packed":
+        seg_q = seg_k = packed_ids(b, sq, seed=5)
+    else:
         seg_q, seg_k = (torch.from_numpy(x.astype(np.int32)).to(card)
-                        for x in (seg_q, seg_k))
-        got = fa._segment_tiles(seg_q, seg_k, causal)
-        want = ref.flash_segment_tiles_ref(seg_q.cpu(), seg_k.cpu(), causal)
-        assert torch.equal(got.cpu(), want)
+                        for x in _small_ids(kind, b, sq, sk, seed=sq + sk))
+    got = fa._segment_tiles(seg_q, seg_k, causal)
+    want = ref.flash_segment_tiles_ref(seg_q.cpu(), seg_k.cpu(), causal)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_segmented_launches_are_counted_and_the_route_runs_no_plain_chunk(
         card):
     b, h, hk, s, d = 2, 8, 2, 512, 128
-    ids = torch.from_numpy(cell_ids(b, s, seed=9)).to(card)
+    ids = packed_ids(b, s, seed=9)
     q, k, v, _ = _draw((b, h, hk, s, s, d), torch.bfloat16, card, seed=10)
     before = (fa.flash_attention.launches,
               fa.flash_attention.launches_segmented,

@@ -26,6 +26,8 @@ from repro_torch.kernels import float_ops
 from repro_torch.kernels.ref import (float_binary_ref, float_convert_ref,
                                      flush_denormals)
 
+from _torch_card import (DENORMAL_PAIRS, INF, NAN_PAIRS, NINF, ONE, PA,
+                         QA, QB, SA, SB)
 from _torch_parity import check_all_executors
 
 _JNP = {"add": jnp.add, "sub": jnp.subtract, "mul": jnp.multiply}
@@ -39,26 +41,6 @@ def _f32(*bits):
 def _bits(x):
     x = np.asarray(x)
     return x.view(_UINT[x.dtype.type])
-
-
-# NaN operands with payloads and both signs, quiet and signalling; the
-# pairs cover NaN in a only, in b only, in both, and invalid operations.
-QA, QB = 0x7FC12345, 0xFFC54321          # quiet, + and -
-SA, SB = 0x7F812345, 0xFF854321          # signalling, + and -
-PA = 0x7FE00000                          # quiet, payload above bit 13
-ONE, TWO, INF, NINF, ZERO = 0x3F800000, 0x40000000, 0x7F800000, \
-    0xFF800000, 0x0
-NAN_PAIRS = [(QA, ONE), (ONE, QB), (QA, QB), (QB, QA), (SA, TWO),
-             (TWO, SB), (SA, SB), (SB, QA), (QA, SB), (INF, INF),
-             (ZERO, INF), (INF, ZERO), (NINF, NINF), (INF, NINF), (PA, ONE),
-             (ONE, PA), (PA, SB), (0x80000000, INF), (NINF, 0x80000000)]
-# float32 denormals against zeros, normals and each other
-DENORMAL_PAIRS = [(0x0054B477, ZERO), (0x80000001, ZERO), (0x00800000,
-                  0x80000000), (0x00400000, 0x00000001), (ONE, 0x00000001),
-                  (0x891FDE68, 0x0054B477), (0x00800001, 0x80800000),
-                  (0x20506A6A, 0x93BB0106), (0x00FFFFFF, 0x3F000000),
-                  (0x807FFFFF, 0x00000001), (0x00000001, 0x80000001),
-                  (0x3F3C9172, 0x00ADC5D1), (0xBF60A954, 0x0091DAE3)]
 
 
 def _random_bits(rng, n, bits):

@@ -51,8 +51,8 @@ PATTERN_LOADS = {
     "xor_cipher": [C, W],
 }
 
-# (dims, strides, base, n, lanes, route): chip_smoke.py's gather walks over
-# its image, then the edges
+# (dims, strides, base, n, lanes, route): tests/test_torch_mdv_card.py's
+# gather walks over its image, then the edges
 LOAD_WALKS = [
     ((8192,), (1,), 0, IMAGE, LANES, C),
     ((64, 128), (0, 16), 5, IMAGE, LANES, W),

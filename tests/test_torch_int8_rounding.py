@@ -42,7 +42,7 @@ from repro.optim import adamw as ref_adamw
 from repro.parallel import compression as ref_compression
 
 from repro_torch import convert
-from repro_torch.models.common import tree_leaves
+from repro_torch.trees import tree_leaves
 from repro_torch.optim import AdamWConfig, adamw
 from repro_torch.parallel import compression
 from _torch_dist import run_ranks, run_script

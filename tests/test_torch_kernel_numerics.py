@@ -9,7 +9,7 @@ package) and held against the reference's Pallas kernels in interpret mode:
   scale on the fp32 logits, ``-1e30`` masking and the ``> -1e30/2`` guard,
   ``p`` rounded to bf16 before ``P V``, ``l`` summed from the fp32 ``p``;
   it must stay within the card's limit ``FLASH_BF16_TOL`` (rtol 1e-2,
-  atol 8e-3, ``chip_smoke.py``) of the reference;
+  atol 8e-3, ``tests/_torch_card.py``) of the reference;
 * the bit-plane GEMM kernel (``csrc/bitplane_gemm.cu``,
   ``bitplane_gemm_kernel``): plane ``b``'s s8 operand is a 32-bit word of
   four weight bytes masked with ``0x01010101 << b`` (bytes 0 or ``2**b``,
@@ -37,9 +37,9 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 
 from repro_torch.kernels import ref
 
+from _torch_card import FLASH_BF16_TOL
 from _torch_parity import assert_bits_equal
 
-FLASH_BF16_TOL = dict(rtol=1e-2, atol=8e-3)    # chip_smoke.py's bf16 limit
 NEG_INF = -1e30
 KV_TILE = 64                                   # kv rows per kernel tile
 

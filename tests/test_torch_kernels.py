@@ -4,7 +4,8 @@ Pallas TPU kernels in interpret mode, bit for bit.
 
 These run on the CPU, where the wrappers take the plain versions (a CUDA
 kernel has no interpret mode); the CUDA kernels themselves are held against
-the same plain versions on the card by ``chip_smoke.py``.
+the same plain versions on the card by ``tests/test_torch_mdv_card.py`` and
+``tests/test_torch_gemm_card.py``.
 """
 import jax.numpy as jnp
 import numpy as np

@@ -4,7 +4,8 @@ int8 / bit-plane GEMM kernels vs the reference's oracles
 
 These run on the CPU, where the wrappers take the plain versions (a CUDA
 kernel has no interpret mode); the CUDA kernels are held against the same
-plain versions on the card by ``chip_smoke.py``.  Tolerances are the
+plain versions on the card by ``tests/test_torch_flash_card.py`` and
+``tests/test_torch_gemm_card.py``.  Tolerances are the
 reference's own (``tests/test_kernels.py``): attention 3e-5 in fp32 and
 0.06 in bf16, the integer products bit-exact.
 """

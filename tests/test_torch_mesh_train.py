@@ -42,7 +42,7 @@ from repro.parallel.axes import sharding_context as ref_sharding_context
 from repro_torch.configs import get_config
 from repro_torch.launch import train as train_mod
 from repro_torch.models import LM
-from repro_torch.models.common import tree_leaves
+from repro_torch.trees import tree_leaves
 from _torch_dist import ROOT, run_ranks, run_script
 from _torch_train import reference_params
 
@@ -70,7 +70,7 @@ from repro_torch.configs.base import ShapeCell
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import jitted_cell, make_train_step
 from repro_torch.models import LM
-from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.trees import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel.axes import gather, sharding_context
 
@@ -166,7 +166,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import (jitted_cell, make_decode_step,
                                       make_prefill_step, make_train_step)
 from repro_torch.models import LM
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.trees import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel.axes import gather, sharding_context
 
@@ -248,7 +248,7 @@ from repro_torch.data import DataConfig, make_train_batches
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import jitted_cell, make_train_step
 from repro_torch.models import LM
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.trees import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel.axes import gather, sharding_context
 

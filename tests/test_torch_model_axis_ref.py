@@ -11,7 +11,7 @@ import pytest
 
 from repro.configs import get_config as ref_get_config
 
-from repro_torch.models.common import tree_leaves
+from repro_torch.trees import tree_leaves
 from _torch_dist import run_ranks, run_reference
 from _torch_train import reference_params
 
@@ -53,7 +53,7 @@ from repro_torch.configs.base import ShapeCell
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import jitted_cell, make_train_step
 from repro_torch.models import LM
-from repro_torch.models.common import tree_unflatten
+from repro_torch.trees import tree_unflatten
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel.axes import sharding_context
 

@@ -114,7 +114,7 @@ from repro_torch.configs.base import ShapeCell
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import jitted_cell
 from repro_torch.models import LM
-from repro_torch.models.common import tree_map
+from repro_torch.trees import tree_map
 from repro_torch.optim import adamw_init
 from repro_torch.parallel import axes
 from repro_torch.parallel.axes import sharding_context

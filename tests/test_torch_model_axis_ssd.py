@@ -59,7 +59,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import jitted_cell, make_train_step
 from repro_torch.launch.steps import state_shardings
 from repro_torch.models import LM
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.trees import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel.axes import gather, place, sharding_context
 

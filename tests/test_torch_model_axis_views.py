@@ -15,7 +15,7 @@ decode cells (reduced) run on ``meta`` tensors at ``(data 2, model 4)``
 of a ``fake`` group of 8, in a subprocess.  (2.11 also gives a slice's
 gradient a wrong shape where a DTensor is padded and sliced back: the
 causal conv shifts by a negative pad; the dry run on the card's host, in
-``chip_smoke.py``, holds that.)
+``chip_smoke.py``'s ``dryrun`` phase, holds that.)
 """
 import json
 

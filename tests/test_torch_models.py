@@ -41,6 +41,7 @@ from repro_torch.models.lm import PORTED_FAMILIES
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import LM, attention, common
 from repro_torch.models.specs import train_batch_specs
+from repro_torch.trees import tree_leaves
 
 B, S = 2, 32
 TIGHT = dict(rtol=1e-5, atol=1e-5)
@@ -160,7 +161,7 @@ def test_param_tree_names_and_shapes_match_the_reference(arch):
     ref_tree = RefLM(ref_get_config(arch, reduced=True)).abstract_params()
     tree = LM(get_config(arch, reduced=True)).abstract_params()
     ref_leaves = jax.tree_util.tree_leaves_with_path(ref_tree)
-    leaves = common.tree_leaves(tree)
+    leaves = tree_leaves(tree)
     assert [jax.tree_util.keystr(p) for p, _ in ref_leaves] == \
         ["".join(f"[{k!r}]" for k in path.split("/")) for path, _ in leaves]
     for (_, r), (_, t) in zip(ref_leaves, leaves):
@@ -230,8 +231,7 @@ def test_init_params_is_seeded_and_follows_the_declarations():
     model = LM(cfg)
     a = model.init_params(torch.Generator().manual_seed(1), device="cpu")
     b = model.init_params(torch.Generator().manual_seed(1), device="cpu")
-    for (path, x), (_, y) in zip(common.tree_leaves(a),
-                                 common.tree_leaves(b)):
+    for (path, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)):
         assert torch.equal(x, y), path
     assert (a["final_norm"] == 1).all() and (a["blocks"]["attn"]["bq"] == 0
                                              ).all()

@@ -43,8 +43,8 @@ PATTERN_STORES = {
     "xor_cipher": 1,
 }
 
-# (dims, strides, base, n): chip_smoke.py's STORE_WALKS over its image,
-# then walks that leave the image or fold onto themselves
+# (dims, strides, base, n): tests/test_torch_mdv_card.py's STORE_WALKS
+# over its image, then walks that leave the image or fold onto themselves
 STORE_WALKS = [
     ((8192,), (1,), 0, IMAGE),
     ((64, 128), (0, 16), 5, IMAGE),

@@ -13,6 +13,7 @@ from repro.models import specs as ref_specs
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.models import common, specs
+from repro_torch.trees import tree_leaves
 
 
 def _flat(tree):
@@ -37,7 +38,7 @@ def test_input_specs_equal_the_reference(arch, cell):
         else:
             assert _flat(got_part) == _flat(want_part)
             assert all(isinstance(leaf, common.ShapeDtype)
-                       for _, leaf in common.tree_leaves(got_part))
+                       for _, leaf in tree_leaves(got_part))
     extra = {"vlm": "image_embeds", "encdec": "frames"}.get(
         get_config(arch).family)
     if SHAPES[cell].kind != "decode":

@@ -19,140 +19,88 @@ TF32 off:
 * ``mamba_mixer`` at Zamba2-7B's widths counts every call in
   ``ssd_chunked.kernel``, remat's recompute again.
 
-The limit, ``(rtol, share of the largest entry)`` = ``(1e-4, 1e-5)``: the
-kernels sum in float32 (up to 256 terms a product, and dS over 56 heads)
-with each product as three TF32 ones, whose left-out ``lo * lo`` term is
-2^-22 of a product; the plain versions sum the same terms in float32 in
-another order.  ``chip_smoke.py`` (``check_ssd_chunk``) holds the same
-limit.
+The limit is ``SSD_TOL`` (``tests/_torch_card.py``), ``(rtol, share of
+the largest entry)`` = ``(1e-4, 1e-5)``: the kernels sum in float32 (up
+to 256 terms a product, and dS over 56 heads) with each product as three
+TF32 ones, whose left-out ``lo * lo`` term is 2^-22 of a product; the
+plain versions sum the same terms in float32 in another order.
 
 Run on a machine with the card, from the root of the checkout::
 
     PYTHONPATH=src python -m pytest -q -m card \\
         tests/test_torch_ssd_chunk_card.py
 """
-import math
-
-import numpy as np
 import pytest
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from benchmarks.torch_kernel_ab import (SSD_SHAPE, packed_ids, returning_ids,
+                                        ssd_inputs)
 from repro_torch.configs import zamba2_7b
-from repro_torch.core.packing import pack_documents
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_chunk as sk
 from repro_torch.models import ssm
 
+from _torch_card import SSD_TOL, assert_within, bits, by_row, card
+
 pytestmark = pytest.mark.card
 
-TOL = (1e-4, 1e-5)
-CELL = (4, 4096, 256, 2, 56, 64, 64)      # B, S, chunk, G, heads a group, P, N
 SMALL = (3, 384, 192, 1, 11, 64, 128)
 
 
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: the SSD kernels run only on one")
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+def _inputs(shape, seed, runs=True):
+    """``ssd_inputs`` and a dY of x's shape."""
+    cc, bc, xf, da_cum, rc = ssd_inputs(shape, seed, runs)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cc, bc, xf, da_cum, rc, torch.randn(xf.shape, generator=gen,
+                                               device="cuda")
 
 
-def _ids(b: int, s: int, seed: int) -> np.ndarray:
-    """Packed rows of Poisson-512 documents at the cell's length; short
-    documents with ids that come back and pads (0) below it."""
-    rng = np.random.default_rng(seed)
-    if s >= 4096:
-        docs = [np.zeros(max(16, int(rng.poisson(512))), np.int32)
-                for _ in range(4 * b * s // 512)]
-        return pack_documents(docs, s)[1][:b]
-    return np.stack([np.repeat(np.arange(s) % 5,
-                               rng.integers(5, 80, size=s))[:s]
-                     for _ in range(b)])
-
-
-def _inputs(shape, device, seed, runs=True):
-    b, s, cs, g, hg, p, n = shape
-    nc = s // cs
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def draw(*size):
-        return torch.randn(*size, generator=gen, device=device)
-
-    cc, bc = (draw(b, nc, cs, g, n) * 0.5 for _ in range(2))
-    dt = torch.nn.functional.softplus(draw(b, nc, cs, g, hg) - 2)
-    xf = draw(b, nc, cs, g, hg, p) * dt[..., None]
-    da_cum = torch.cumsum(dt * -math.e, 2)
-    rc = None
-    if runs:
-        ids = torch.from_numpy(_ids(b, s, seed).astype(np.int32)).to(device)
-        rc = ssm.document_runs(ids).view(b, nc, cs)
-    return cc, bc, xf, da_cum, rc, draw(*xf.shape)
-
-
-def _close(got, want, what):
-    rtol, step = TOL
-    assert got.dtype == torch.float32 and got.shape == want.shape
-    torch.testing.assert_close(got, want, rtol=rtol,
-                               atol=step * float(want.abs().max()),
-                               msg=lambda m: f"{what}: {m}")
-
-
-def _by_row(fn, *tensors):
-    """``fn`` one batch row at a time (the plain versions' decay blocks of
-    the whole cell take several GB each)."""
-    outs = [fn(*(t[i:i + 1] for t in tensors))
-            for i in range(tensors[0].shape[0])]
-    return [torch.cat(parts) for parts in zip(*outs)]
-
-
-@pytest.mark.parametrize("shape,runs", [(CELL, True), (SMALL, True),
-                                        (SMALL, False)])
+@pytest.mark.parametrize("shape,runs", [(SSD_SHAPE, True),
+                                        (SMALL, True), (SMALL, False)])
 def test_kernels_are_the_plain_versions(card, shape, runs):
-    cc, bc, xf, da_cum, rc, dy = _inputs(shape, card, seed=1, runs=runs)
+    cc, bc, xf, da_cum, rc, dy = _inputs(shape, seed=1, runs=runs)
     extra = () if rc is None else (rc,)
     y = sk.ssd_chunk_fwd(cc, bc, xf, da_cum, rc)
-    want = _by_row(lambda *t: (ref.ssd_chunk_ref(*t),), cc, bc, xf, da_cum,
-                   *extra)[0]
-    _close(y, want, "y")
+    want = by_row(lambda *t: (ref.ssd_chunk_ref(*t),), cc, bc, xf, da_cum,
+                  *extra)[0]
+    assert_within(y, want, SSD_TOL, "y")
     del want
     got = sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy, rc)
-    want = _by_row(ref.ssd_chunk_bwd_ref, cc, bc, xf, da_cum, dy, *extra)
+    want = by_row(ref.ssd_chunk_bwd_ref, cc, bc, xf, da_cum, dy, *extra)
     for what, g, w in zip(("dC", "dB", "dX", "dA"), got, want):
-        _close(g, w, what)
+        assert_within(g, w, SSD_TOL, what)
 
 
-@pytest.mark.parametrize("shape", [CELL, SMALL])
+@pytest.mark.parametrize("shape", [SSD_SHAPE, SMALL])
 def test_state_kernels_are_the_plain_versions(card, shape):
     """gather, apply (with and without a base) and cross against
     ``ref.ssd_gather_ref`` / ``ssd_apply_ref`` / ``ssd_cross_ref``, with
     weights in (0, 1] and a random entering state."""
-    cc, bc, xf, da_cum, _, dy = _inputs(shape, card, seed=7, runs=False)
+    cc, bc, xf, da_cum, _, dy = _inputs(shape, seed=7, runs=False)
     w = torch.exp(da_cum[:, :, -1:] - da_cum)
     gen = torch.Generator(device=card).manual_seed(8)
     wm = torch.randn(xf.shape[:2] + xf.shape[3:] + cc.shape[-1:],
                      generator=gen, device=card) * 0.1
-    _close(sk.ssd_gather(xf, bc, w), ref.ssd_gather_ref(xf, bc, w), "gather")
+    assert_within(sk.ssd_gather(xf, bc, w), ref.ssd_gather_ref(xf, bc, w),
+                  SSD_TOL, "gather")
     for base in (None, dy):
-        _close(sk.ssd_apply(cc, wm, w, base),
-               ref.ssd_apply_ref(cc, wm, w, base), "apply")
+        assert_within(sk.ssd_apply(cc, wm, w, base),
+                      ref.ssd_apply_ref(cc, wm, w, base), SSD_TOL, "apply")
     for what, got, want in zip(("dV", "dw"), sk.ssd_cross(dy, wm, cc, w),
                                ref.ssd_cross_ref(dy, wm, cc, w)):
-        _close(got, want, what)
+        assert_within(got, want, SSD_TOL, what)
 
 
-@pytest.mark.parametrize("shape", [CELL, SMALL])
+@pytest.mark.parametrize("shape", [SSD_SHAPE, SMALL])
 def test_all_equal_runs_are_bit_equal_to_no_runs(card, shape):
-    cc, bc, xf, da_cum, rc, dy = _inputs(shape, card, seed=2)
+    cc, bc, xf, da_cum, rc, dy = _inputs(shape, seed=2)
     same = torch.full_like(rc, 3)
     plain = (sk.ssd_chunk_fwd(cc, bc, xf, da_cum),
              *sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy))
     seg = (sk.ssd_chunk_fwd(cc, bc, xf, da_cum, same),
            *sk.ssd_chunk_bwd(cc, bc, xf, da_cum, dy, same))
-    assert all(torch.equal(a, b) for a, b in zip(plain, seg))
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(plain, seg))
 
 
 @pytest.mark.parametrize("with_ids", [False, True])
@@ -173,8 +121,7 @@ def test_ssd_chunked_takes_the_kernel_on_the_card(card, with_ids):
             torch.randn(h, generator=gen, device=card) * 0.3,
             torch.randn(b, s, g, n, generator=gen, device=card) * 0.5,
             torch.randn(b, s, g, n, generator=gen, device=card) * 0.5]
-    ids = (torch.from_numpy(_ids(b, s, 4).astype(np.int32))
-           if with_ids else None)
+    ids = returning_ids(b, s, 4, device="cpu") if with_ids else None
 
     def scan(tensors, segment_ids):
         leaves = [t.detach().clone().requires_grad_() for t in tensors]
@@ -216,7 +163,7 @@ def test_mamba_mixer_at_zamba2_widths_counts_every_call(card):
                   conv_b=w(din + 2 * gn), a_log=w(h), d_skip=w(h),
                   gate_norm=w(din), w_out=w(din, d))
     hidden = w(2, 4096, d)
-    ids = torch.from_numpy(_ids(2, 4096, 6).astype(np.int32)).to(card)
+    ids = packed_ids(2, 4096, 6)
     before = ssm.ssd_chunked.kernel
     out = checkpoint(lambda x: ssm.mamba_mixer(params, x, cfg,
                                                segment_ids=ids)[0],

@@ -15,7 +15,7 @@ does not promise, so the tolerance has room for that):
 * the forward, key tile by key tile (64 keys at D = 64, 32 at D = 128),
   q scaled in fp32 before its split, the online softmax's max and rescale
   per tile, P split from fp32, against the reference's Pallas kernel in
-  interpret mode within ``chip_smoke.py``'s ``FLASH_FP32_TOL`` (3e-5);
+  interpret mode within ``tests/_torch_card.py``'s ``FLASH_FP32_TOL`` (3e-5);
 * the same with one TF32 product (``hi*hi``) misses 3e-5: the reason for
   three;
 * the backward (dK/dV over 64-row q tiles from the causal diagonal on,
@@ -24,12 +24,10 @@ does not promise, so the tolerance has room for that):
   fp32) against ``jax.vjp`` of the reference's plain attention within
   ``FLASH_BWD_FP32_TOL`` (rtol 1e-4, 1e-4 of the largest entry).
 
-``chip_smoke.py`` holds the kernels themselves against the plain versions
-on the card at the same limits.
+``tests/test_torch_flash_card.py`` holds the kernels themselves against
+the plain versions on the card at the same limits.
 """
-import importlib.util
 import math
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -39,10 +37,8 @@ import pytest
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 
-_SPEC = importlib.util.spec_from_file_location(
-    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_SPEC)
-_SPEC.loader.exec_module(chip_smoke)
+from _torch_card import (FLASH_BWD_FP32_TOL, FLASH_FP32_PATH_TOL,
+                         FLASH_FP32_TOL)
 
 NEG_INF = np.float32(-1e30)
 ROWS = 64                        # q rows a forward / dQ block, K rows a dK/dV
@@ -158,7 +154,7 @@ def test_3xtf32_forward_holds_the_fp32_limit(b, h, hk, sq, sk, d, causal):
     q, k, v = _inputs(sq * 7 + sk + d, b, h, hk, sq, sk, d)
     got, _ = _forward_all(q, k, v, causal)
     want = _pallas(q, k, v, causal)
-    np.testing.assert_allclose(got, want, **chip_smoke.FLASH_FP32_TOL)
+    np.testing.assert_allclose(got, want, **FLASH_FP32_TOL)
     if causal and sq > sk:
         assert not got[:, :, :sq - sk].any()
         assert not want[:, :, :sq - sk].any()
@@ -171,7 +167,7 @@ def test_3xtf32_forward_at_a_1024_long_sum():
     q, k, v = _inputs(5, 1, 2, 1, 1024, 1024, 64, spread=3.0)
     got, _ = _forward_all(q, k, v, True)
     np.testing.assert_allclose(got, _pallas(q, k, v, True),
-                               **chip_smoke.FLASH_FP32_PATH_TOL)
+                               **FLASH_FP32_PATH_TOL)
 
 
 def test_one_tf32_product_misses_the_fp32_limit():
@@ -182,7 +178,7 @@ def test_one_tf32_product_misses_the_fp32_limit():
     want = _pallas(q, k, v, True)
     three, _ = _forward_all(q, k, v, True)
     one, _ = _forward_all(q, k, v, True, terms=1)
-    tol = chip_smoke.FLASH_FP32_TOL
+    tol = FLASH_FP32_TOL
     np.testing.assert_allclose(three, want, **tol)
     assert not np.allclose(one, want, **tol)
     assert np.abs(one - want).max() > 10 * np.abs(three - want).max()
@@ -341,7 +337,7 @@ def test_3xtf32_backward_holds_the_fp32_limit(shape, split_heads):
     got[0] = got[0][:, :, first:]
     _, want = _reference_grads(q[:, :, first:], k, v, do[:, :, first:],
                                causal)
-    rtol, step = chip_smoke.FLASH_BWD_FP32_TOL
+    rtol, step = FLASH_BWD_FP32_TOL
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, w, rtol=rtol,
                                    atol=step * np.abs(w).max(),

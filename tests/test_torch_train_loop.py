@@ -38,7 +38,7 @@ from repro_torch.launch import train as train_mod
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import TrainLoopConfig, train_loop
 from repro_torch.models import LM
-from repro_torch.models.common import tree_leaves
+from repro_torch.trees import tree_leaves
 from repro_torch.optim import AdamWConfig
 
 from _torch_train import reference_params, train_batch

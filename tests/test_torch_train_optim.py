@@ -37,7 +37,7 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     save_checkpoint)
 from repro_torch.data import DataConfig, make_train_batches
 from repro_torch.data.pipeline import SyntheticTextSource
-from repro_torch.models.common import tree_leaves
+from repro_torch.trees import tree_leaves
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule, global_norm)
 
